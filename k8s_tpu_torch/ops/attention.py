@@ -1,0 +1,258 @@
+"""Attention for the serving path (port of ``k8s_tpu/ops/attention.py``).
+
+Two kernels, each beside its plain PyTorch version:
+
+- :func:`flash_fwd` — blockwise online-softmax attention forward
+  (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel``). The
+  engine's one-shot prefill of a fresh cache runs it.
+- :func:`decode_attention_update` — ragged single-token decode with the
+  in-place cache append (``csrc/decode_attn.cu``, replacing the Pallas
+  ``_decode_attn_kernel``). Every decode step runs it.
+
+A wrapper runs the plain version only because the tensor it was given
+lies on the CPU; for a CUDA tensor it launches the kernel or raises.
+Each counts its launches in ``<wrapper>.launches``.
+
+:func:`mha_reference` is the plain attention path the JAX package runs
+through XLA, and :func:`flash_attention` the public gate: the plain
+path for CPU tensors, the kernel (or an error) for CUDA tensors.
+Layouts follow the JAX package: ``[B, S, H, D]`` for prefill, ``[B,
+H, D]`` queries over a head-major ``[B, Hkv, S, D]`` cache for decode.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from k8s_tpu_torch.ops import _kernels
+
+NEG_INF = -1e30
+# head dims the CUDA kernels are instantiated for (Llama-3-8B's; add an
+# instance in csrc/ when a ported config needs another)
+KERNEL_HEAD_DIMS = (128,)
+# query heads per kv head the decode kernel is instantiated for
+DECODE_GROUPS = (4,)
+
+
+def _attention_f32(q, k, v, causal: bool, scale: float, segment_ids=None):
+    """GQA attention in f32: ``(out [B, Sq, Hq, D] f32, lse [B, Hq, Sq])``.
+    Causal masking is ``tril(k=sk-sq)``, the JAX reference's diagonal."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    groups = hq // hkv
+    qf = (q.float() * scale).reshape(b, sq, hkv, groups, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
+            diagonal=sk - sq)
+        logits = logits.masked_fill(~mask, NEG_INF)
+    if segment_ids is not None:
+        seg = segment_ids.to(torch.int32)
+        visible = seg[:, :, None] == seg[:, None, :]  # [B, Sq, Sk]
+        logits = logits.masked_fill(~visible[:, None, None], NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)  # [B, Hkv, G, Sq]
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, hq, d), lse.reshape(b, hq, sq)
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, scale: Optional[float] = None,
+                  segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain attention with GQA broadcast and f32 softmax.
+    q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D]; optional segment ids [B, S]
+    (self-attention) mask across segment boundaries."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    out, _ = _attention_f32(q, k, v, causal, scale, segment_ids)
+    return out.to(q.dtype)
+
+
+def flash_fwd_plain(q, k, v, causal: bool, scale: float):
+    """The flash kernel's plain version: ``(out, lse [B, Hq, Sq] f32)``."""
+    out, lse = _attention_f32(q, k, v, causal, scale)
+    return out.to(q.dtype), lse
+
+
+def _check_bhsd(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: kernel takes bfloat16, got {x.dtype}")
+    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) \
+            or x.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: kernel needs unit stride on D, other strides a "
+            f"multiple of 8 and 16-byte alignment (strides {x.stride()})")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float, with_lse: bool = False):
+    """Flash attention forward. q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D];
+    returns ``out`` (q's layout and dtype), or ``(out, lse [B, Hq,
+    Sq] f32)`` with ``with_lse``. On a CUDA tensor this launches
+    ``csrc/flash_fwd.cu`` (bf16, D in KERNEL_HEAD_DIMS, causal only with
+    Sq == Sk) or raises; on a CPU tensor it runs the plain version (in
+    f32 when given f32)."""
+    if q.device.type == "cpu":
+        out, lse = flash_fwd_plain(q, k, v, causal, scale)
+        return (out, lse) if with_lse else out
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_fwd: q, k, v must be on one CUDA device")
+    if d not in KERNEL_HEAD_DIMS or k.shape[-1] != d or v.shape != k.shape:
+        raise ValueError(f"flash_fwd: unsupported shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if hq % hkv or (causal and sq != sk):
+        raise ValueError(f"flash_fwd: needs Hq % Hkv == 0 and, when causal, "
+                         f"Sq == Sk (got Hq={hq} Hkv={hkv} Sq={sq} Sk={sk})")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_bhsd(name, x)
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lib = _kernels.lib("flash_fwd")
+    code = lib.k8s_flash_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        b, sq, sk, hq, hkv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        float(scale), int(bool(causal)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _kernels.check(code, "flash_fwd")
+    flash_fwd.launches += 1
+    return (out, lse) if with_lse else out
+
+
+flash_fwd.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None,
+                    segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-head attention, [B, S, H, D] layout, GQA-aware.
+
+    The gate, re-derived for CUDA from the JAX one: CPU tensors take
+    :func:`mha_reference`; CUDA tensors take the kernel, which serves
+    bf16 at a head dim it is built for, and causal only when ``sq ==
+    sk`` (its mask has no diagonal offset). Anything else on the card —
+    another dtype or head dim, segment ids — raises rather than running
+    the plain path there. The TPU's Mosaic 128-alignment and
+    block-fitting conditions are gone: the kernel masks its own ragged
+    tail.
+    """
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if segment_ids is not None and sq != sk:
+        raise ValueError(
+            f"segment_ids requires self-attention lengths, got sq={sq} "
+            f"sk={sk}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, causal, scale, segment_ids=segment_ids)
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernel has no segment-id masking yet")
+    return flash_fwd(q, k, v, causal, scale)
+
+
+# ---------------------------------------------------------------------------
+# Fused single-token decode attention (+ in-place KV-cache append)
+# ---------------------------------------------------------------------------
+
+
+def _pos_vector(pos, b: int, device) -> torch.Tensor:
+    """Normalize a decode append index to a [B] int32 vector on
+    ``device``: scalars broadcast (uniform batch), [B] vectors pass
+    through (ragged batch — per-row cache depths)."""
+    v = torch.as_tensor(pos, dtype=torch.int32, device=device).reshape(-1)
+    if v.numel() == 1:
+        return v.expand(b).contiguous()
+    if v.numel() != b:
+        raise ValueError(
+            f"pos must be scalar or [batch]={b}, got shape {tuple(v.shape)}")
+    return v.contiguous()
+
+
+def decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
+                           pos: torch.Tensor, scale: float) -> torch.Tensor:
+    """The decode kernel's plain version (same contract, f32 math):
+    attention of the G grouped queries over ``cache[b, :, :pos[b]]`` plus
+    the new token, then the new row written at ``pos[b]`` in place."""
+    b, hq, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, d) * scale
+    s_cache = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float())
+    visible = torch.arange(s, device=q.device)[None, :] < pos[:, None].long()
+    s_cache = s_cache.masked_fill(~visible[:, None, None, :], NEG_INF)
+    s_new = (qf * k_new.float()[:, :, None]).sum(-1, keepdim=True)
+    m = torch.maximum(s_cache.amax(-1, keepdim=True), s_new)
+    p_cache = torch.exp(s_cache - m)
+    p_new = torch.exp(s_new - m)
+    l = p_cache.sum(-1, keepdim=True) + p_new
+    acc = torch.einsum("bhgk,bhkd->bhgd", p_cache, v_cache.float())
+    acc = acc + p_new * v_new.float()[:, :, None]
+    out = (acc / l).reshape(b, hq, d).to(q.dtype)
+    rows = torch.arange(b, device=q.device)
+    k_cache[rows, :, pos.long()] = k_new.to(k_cache.dtype)
+    v_cache[rows, :, pos.long()] = v_new.to(v_cache.dtype)
+    return out
+
+
+def decode_attention_update(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, pos,
+                            scale: Optional[float] = None):
+    """Fused single-token decode attention with IN-PLACE cache append.
+
+    q [B, Hq, D], k_new/v_new [B, Hkv, D], caches head-major [B, Hkv, S,
+    D]; ``pos`` a scalar (uniform batch) or a [B] vector (ragged batch:
+    row b attends over ``cache[b, :, :pos[b]]`` and appends at
+    ``pos[b]``). Returns ``(out [B, Hq, D], k_cache, v_cache)`` — the
+    SAME cache tensors, written at row ``pos[b]``. The new token's term
+    comes from ``k_new``/``v_new``, so the row being written is never
+    read. On a CUDA tensor this launches ``csrc/decode_attn.cu`` or
+    raises; on a CPU tensor it runs the plain version."""
+    b, hq, d = q.shape
+    _, hkv, s, _ = k_cache.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    pos_v = _pos_vector(pos, b, q.device)
+    if q.device.type == "cpu":
+        out = decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
+                                     pos_v, scale)
+        return out, k_cache, v_cache
+    tensors = (("q", q), ("k_new", k_new), ("v_new", v_new),
+               ("k_cache", k_cache), ("v_cache", v_cache))
+    for name, x in tensors:
+        if not x.is_cuda or x.device != q.device:
+            raise ValueError(f"decode_attention_update: {name} must be on "
+                             f"{q.device}")
+        if x.dtype != torch.bfloat16 or not x.is_contiguous():
+            raise ValueError(f"decode_attention_update: {name} must be "
+                             f"contiguous bfloat16, got {x.dtype}")
+    groups = hq // hkv
+    if (d not in KERNEL_HEAD_DIMS or hq % hkv or groups not in DECODE_GROUPS
+            or tuple(k_new.shape) != (b, hkv, d)
+            or v_new.shape != k_new.shape or v_cache.shape != k_cache.shape):
+        raise ValueError(
+            f"decode_attention_update: unsupported shapes q{tuple(q.shape)} "
+            f"k_new{tuple(k_new.shape)} cache{tuple(k_cache.shape)}")
+    out = torch.empty_like(q)
+    lib = _kernels.lib("decode_attn")
+    code = lib.k8s_decode_attn_bf16(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), pos_v.data_ptr(),
+        out.data_ptr(), b, hkv, groups, s, d, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _kernels.check(code, "decode_attn")
+    decode_attention_update.launches += 1
+    return out, k_cache, v_cache
+
+
+decode_attention_update.launches = 0

@@ -10,11 +10,16 @@ setup(
         "TPU-native distributed training job framework: TpuJob CRD + "
         "operator control plane, JAX/XLA SPMD data plane"
     ),
-    packages=find_packages(include=["k8s_tpu", "k8s_tpu.*"]),
+    packages=find_packages(include=[
+        "k8s_tpu", "k8s_tpu.*", "k8s_tpu_torch", "k8s_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these at first use
+    package_data={"k8s_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["numpy", "pyyaml"],
     extras_require={
         "jax": ["jax", "flax", "optax", "orbax-checkpoint", "chex"],
+        # the PyTorch/CUDA port (k8s_tpu_torch); nvcc builds its kernels
+        "torch": ["torch"],
         # TB scalar event writing from MetricLogger (best-effort aux;
         # absent → stdout JSONL only)
         "tensorboard": ["torch"],
