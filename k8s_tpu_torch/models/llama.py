@@ -1,18 +1,34 @@
-"""Llama decoder for serving (port of the decode path of
-``k8s_tpu/models/llama.py``).
+"""Llama decoder (port of ``k8s_tpu/models/llama.py``): the serving
+path (``decode=True``) and the training forward (``decode=False``, the
+default, as in the JAX package).
 
 RMSNorm in f32, half-split rotary embeddings with f32 angles, grouped-
-query attention over a static head-major KV cache, SwiGLU MLP, compute
-in ``config.dtype`` and the lm_head in f32 — the layer loop is always
-unrolled (the JAX package's serving layout).
+query attention, SwiGLU MLP, compute in ``config.dtype`` and the lm_head
+in f32 — the layer loop is always unrolled.
 
-The cache is an explicit :class:`KVCache` object instead of flax's
-"cache" variable collection. Attention has the JAX package's regimes:
+Parameters are held in ``config.weight_dtype``: f32 master weights for
+training (the JAX ``param_dtype=jnp.float32``), cast to ``config.dtype``
+at use, and ``config.dtype`` itself for serving (a decode step re-reads
+every weight, so f32 copies would double its bandwidth-bound time);
+norms and the lm_head stay f32 in both. Training parameters require
+grad; serving ones do not.
+
+**Training** (``decode=False``): every layer runs causal self-attention
+through :func:`k8s_tpu_torch.ops.attention.flash_attention` (on the card
+the flash kernels forward and backward), optionally under per-block
+activation checkpointing (``remat``, non-reentrant
+``torch.utils.checkpoint``) with the JAX package's policies
+(:func:`_remat_policy`). ``forward(..., return_hidden=True)`` returns the
+final-norm hidden states, the input of
+:func:`k8s_tpu_torch.ops.fused_ce.fused_lm_head_cross_entropy`.
+
+**Serving** (``decode=True``): the cache is an explicit :class:`KVCache`
+object instead of flax's "cache" variable collection. Attention has the
+JAX package's regimes:
 
 - a FRESH cache (no forward has written it yet) with ``s > 1`` is a
   first prefill at offset 0: K/V rows ``[0, s)`` are written and the
-  prompt's causal self-attention runs through the flash kernel
-  (:func:`k8s_tpu_torch.ops.attention.flash_attention`);
+  prompt's causal self-attention runs through the flash kernel;
 - ``s == 1`` is one decode step through the ragged decode kernel, which
   appends the new row IN PLACE (on the CPU, its plain version when the
   config is one the kernel is built for);
@@ -21,7 +37,7 @@ The cache is an explicit :class:`KVCache` object instead of flax's
   with a per-row position mask (:func:`_cached_attention`, plain
   PyTorch, as the JAX package leaves it to XLA).
 
-On the card the model serves only configs the kernels are built for
+On the card the model runs only configs the kernels are built for
 (:func:`check_cuda_config`): it raises at construction rather than run
 plain attention there.
 
@@ -35,16 +51,24 @@ cache is written through.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from k8s_tpu_torch import resolve_device
 from k8s_tpu_torch.ops.attention import (
     DECODE_GROUPS,
+    FLASH_OP,
     KERNEL_HEAD_DIMS,
     NEG_INF,
     decode_attention_update,
@@ -72,6 +96,22 @@ class LlamaConfig:
     # no index. A warm-cache call with s > 1 is a chunked-prefill
     # continuation appended at each row's own offset.
     ragged_decode: bool = False
+    # per-block activation checkpointing in training, with one of the
+    # JAX package's policies (_remat_policy): "nothing_saveable" (the
+    # default) recomputes the whole block in the backward; "flash" keeps
+    # only the flash op's out and lse, so the attention forward runs
+    # once per step
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
+    # autoregressive decoding against a KVCache (the serving path); the
+    # training forward otherwise
+    decode: bool = False
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        """Storage dtype of the projection and embedding weights: f32
+        master weights for training, ``dtype`` for decode."""
+        return self.dtype if self.decode else torch.float32
 
     @staticmethod
     def llama3_8b(**kw) -> "LlamaConfig":
@@ -82,10 +122,59 @@ class LlamaConfig:
         base = dict(
             vocab_size=512, hidden_size=128, intermediate_size=256,
             num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
-            max_seq_len=256,
+            max_seq_len=256, remat=False,
         )
         base.update(kw)
         return LlamaConfig(**base)
+
+
+@torch.library.custom_op("k8s_tpu_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A named copy of ``x`` that remat policies can save (the JAX
+    ``jax.ad_checkpoint.checkpoint_name``): its own op, so the selective
+    checkpoint policy sees it. Used only under ``flash_qkv``."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(
+    lambda ctx, grad: (grad, None), setup_context=lambda ctx, inputs, output: None)
+
+_CHECKPOINT_NAME_OP = torch.ops.k8s_tpu_torch.checkpoint_name.default
+
+
+def _remat_policy(name: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a JAX remat
+    policy name (``nothing_saveable``: none, so the checkpoint keeps only
+    the block's inputs). Selective
+    checkpointing sees dispatcher-level ops: ``dots`` saves the outputs
+    of unbatched matmuls (``aten.mm``), ``flash`` those of the flash op
+    (out and lse), ``flash_qkv`` also the post-rope q/k/v. Eager PyTorch
+    has no dead-code elimination, so a recompute still re-runs the ops
+    upstream of a saved tensor: ``flash_qkv`` trades memory, not time."""
+    if name == "nothing_saveable":
+        return noop_context_fn
+    if name == "dots":
+        saved = {torch.ops.aten.mm.default}
+    elif name == "flash":
+        saved = {FLASH_OP}
+    elif name == "flash_qkv":
+        saved = {FLASH_OP, _CHECKPOINT_NAME_OP}
+    else:
+        raise ValueError(
+            f"unknown remat_policy {name!r}; expected 'nothing_saveable', "
+            "'dots', 'flash', or 'flash_qkv'"
+        )
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 class KVCache:
@@ -107,10 +196,11 @@ class KVCache:
 
     @classmethod
     def zeros(cls, cfg: LlamaConfig, batch: int, length: Optional[int] = None,
-              device="cpu", fresh: bool = True) -> "KVCache":
+              device="cuda", fresh: bool = True) -> "KVCache":
+        dev = resolve_device(device)
         shape = (batch, cfg.num_kv_heads, length or cfg.max_seq_len,
                  cfg.head_dim)
-        mk = lambda: torch.zeros(shape, dtype=cfg.dtype, device=device)  # noqa: E731
+        mk = lambda: torch.zeros(shape, dtype=cfg.dtype, device=dev)  # noqa: E731
         return cls([mk() for _ in range(cfg.num_layers)],
                    [mk() for _ in range(cfg.num_layers)], fresh)
 
@@ -180,9 +270,16 @@ def check_cuda_config(cfg: LlamaConfig) -> None:
             "config with device='cpu' or add a kernel instance")
 
 
-def _weight(*shape, dtype, device) -> nn.Parameter:
+def _weight(cfg: LlamaConfig, *shape, dtype, device) -> nn.Parameter:
+    """A parameter of ``shape``: trainable in a training config."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+                        requires_grad=not cfg.decode)
+
+
+def _use(w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """A weight cast to the compute dtype at use (the same tensor, with
+    no dispatch, when it is stored in it, as in serving)."""
+    return w if w.dtype == cfg.dtype else w.to(cfg.dtype)
 
 
 class LlamaAttention(nn.Module):
@@ -191,21 +288,34 @@ class LlamaAttention(nn.Module):
         self.cfg, self.layer = cfg, layer
         e, h, kv, d = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                        cfg.head_dim)
+        wd = cfg.weight_dtype
         # [in, out] — the JAX DenseGeneral kernel layouts, flattened
-        self.q_proj = _weight(e, h * d, dtype=cfg.dtype, device=device)
-        self.k_proj = _weight(e, kv * d, dtype=cfg.dtype, device=device)
-        self.v_proj = _weight(e, kv * d, dtype=cfg.dtype, device=device)
-        self.o_proj = _weight(h * d, e, dtype=cfg.dtype, device=device)
+        self.q_proj = _weight(cfg, e, h * d, dtype=wd, device=device)
+        self.k_proj = _weight(cfg, e, kv * d, dtype=wd, device=device)
+        self.v_proj = _weight(cfg, e, kv * d, dtype=wd, device=device)
+        self.o_proj = _weight(cfg, h * d, e, dtype=wd, device=device)
 
-    def forward(self, x, positions, cache: KVCache):
+    def forward(self, x, positions, cache: Optional[KVCache] = None,
+                segment_ids: Optional[torch.Tensor] = None):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = _rope((x @ self.q_proj).view(b, s, h, d), positions,
+        q = _rope((x @ _use(self.q_proj, cfg)).view(b, s, h, d), positions,
                   cfg.rope_theta)
-        k = _rope((x @ self.k_proj).view(b, s, kv, d), positions,
+        k = _rope((x @ _use(self.k_proj, cfg)).view(b, s, kv, d), positions,
                   cfg.rope_theta)
-        v = (x @ self.v_proj).view(b, s, kv, d)
+        v = (x @ _use(self.v_proj, cfg)).view(b, s, kv, d)
+        if not cfg.decode:
+            if cfg.remat and cfg.remat_policy == "flash_qkv":
+                q = checkpoint_name(q, "attn_q")
+                k = checkpoint_name(k, "attn_k")
+                v = checkpoint_name(v, "attn_v")
+            out = flash_attention(q, k, v, causal=True,
+                                  segment_ids=segment_ids)
+            return out.reshape(b, s, h * d) @ _use(self.o_proj, cfg)
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "packed segments are not supported in decode mode")
         ck, cv = cache.keys[self.layer], cache.values[self.layer]
         cur = positions[:, 0] if cfg.ragged_decode else cache.index
         scale = 1.0 / math.sqrt(d)
@@ -241,29 +351,31 @@ class LlamaAttention(nn.Module):
                     mask = (k_pos[None, :] <= q_pos[:, None]).expand(
                         b, s, ck.shape[2])
                 out = _cached_attention(q, ck, cv, mask, scale)
-        return out.reshape(b, s, h * d) @ self.o_proj
+        return out.reshape(b, s, h * d) @ _use(self.o_proj, cfg)
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
-        e, f = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = _weight(e, f, dtype=cfg.dtype, device=device)
-        self.up_proj = _weight(e, f, dtype=cfg.dtype, device=device)
-        self.down_proj = _weight(f, e, dtype=cfg.dtype, device=device)
+        self.cfg = cfg
+        e, f, wd = cfg.hidden_size, cfg.intermediate_size, cfg.weight_dtype
+        self.gate_proj = _weight(cfg, e, f, dtype=wd, device=device)
+        self.up_proj = _weight(cfg, e, f, dtype=wd, device=device)
+        self.down_proj = _weight(cfg, f, e, dtype=wd, device=device)
 
     def forward(self, x):
-        y = F.silu(x @ self.gate_proj) * (x @ self.up_proj)
-        return y @ self.down_proj
+        cfg = self.cfg
+        y = F.silu(x @ _use(self.gate_proj, cfg)) * (x @ _use(self.up_proj, cfg))
+        return y @ _use(self.down_proj, cfg)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, size: int, eps: float, device):
+    def __init__(self, cfg: LlamaConfig, size: int, device):
         super().__init__()
-        self.eps = eps
+        self.eps = cfg.rms_eps
         self.weight = nn.Parameter(
             torch.ones(size, dtype=torch.float32, device=device),
-            requires_grad=False)
+            requires_grad=not cfg.decode)
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.eps)
@@ -272,21 +384,23 @@ class RMSNorm(nn.Module):
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, layer: int, device):
         super().__init__()
-        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, device)
+        self.input_norm = RMSNorm(cfg, cfg.hidden_size, device)
         self.attn = LlamaAttention(cfg, layer, device)
-        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, device)
+        self.post_attn_norm = RMSNorm(cfg, cfg.hidden_size, device)
         self.mlp = LlamaMLP(cfg, device)
 
-    def forward(self, x, positions, cache: KVCache):
-        x = x + self.attn(self.input_norm(x), positions, cache)
+    def forward(self, x, positions, cache: Optional[KVCache] = None,
+                segment_ids: Optional[torch.Tensor] = None):
+        x = x + self.attn(self.input_norm(x), positions, cache, segment_ids)
         return x + self.mlp(self.post_attn_norm(x))
 
 
 class LlamaForCausalLM(nn.Module):
-    """Decode-mode Llama on ``device`` (default ``"cuda"``; raises without
-    a card unless ``device="cpu"``, and on the card for a config the
-    kernels are not built for). Weights start uninitialized: load them
-    with :meth:`load_params` (from
+    """Llama on ``device`` (default ``"cuda"``; raises without a card
+    unless ``device="cpu"``, and on the card for a config the kernels
+    are not built for): the training forward, or with
+    ``config.decode`` the serving path. Weights start uninitialized:
+    load them with :meth:`load_params` (from
     :func:`k8s_tpu_torch.models.convert.params_from_jax` or
     :func:`~k8s_tpu_torch.models.convert.init_params`)."""
 
@@ -295,16 +409,19 @@ class LlamaForCausalLM(nn.Module):
         dev = resolve_device(device)
         if dev.type == "cuda":
             check_cuda_config(config)
+        if config.remat and not config.decode:
+            _remat_policy(config.remat_policy)  # an unknown name raises here
         self.config = config
         self.device = dev
-        self.embed_tokens = _weight(config.vocab_size, config.hidden_size,
-                                    dtype=config.dtype, device=dev)
+        self.embed_tokens = _weight(config, config.vocab_size,
+                                    config.hidden_size,
+                                    dtype=config.weight_dtype, device=dev)
         self.layers = nn.ModuleList(
             LlamaBlock(config, i, dev) for i in range(config.num_layers))
-        self.final_norm = RMSNorm(config.hidden_size, config.rms_eps, dev)
-        # the lm_head runs in f32, as in the JAX package: an f32 copy of
-        # the (bf16) weight is kept instead of upcasting it every step
-        self.lm_head = _weight(config.hidden_size, config.vocab_size,
+        self.final_norm = RMSNorm(config, config.hidden_size, dev)
+        # the lm_head runs in f32, as in the JAX package: serving keeps an
+        # f32 copy of the (bf16) weight instead of upcasting it every step
+        self.lm_head = _weight(config, config.hidden_size, config.vocab_size,
                                dtype=torch.float32, device=dev)
 
     def load_params(self, params) -> None:
@@ -329,9 +446,46 @@ class LlamaForCausalLM(nn.Module):
     def lm_head_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return hidden.float() @ self.lm_head
 
-    @torch.no_grad()
     def forward(self, input_ids, positions=None, cache: Optional[KVCache] = None,
-                last_logit_only: bool = False, return_hidden: bool = False):
+                last_logit_only: bool = False, return_hidden: bool = False,
+                segment_ids: Optional[torch.Tensor] = None):
+        """Decode config: :meth:`decode_forward`. Training config:
+        input_ids [B, S] -> logits [B, S or 1, V] f32, or the final-norm
+        hidden states [B, S, E] with ``return_hidden`` (the fused-CE
+        input). ``segment_ids`` [B, S] masks attention across packed
+        documents (CPU only: the kernels raise for them)."""
+        if self.config.decode:
+            if segment_ids is not None:
+                raise NotImplementedError(
+                    "packed segments are not supported in decode mode")
+            return self.decode_forward(input_ids, positions, cache,
+                                       last_logit_only, return_hidden)
+        if cache is not None:
+            raise ValueError("a KV cache needs LlamaConfig(decode=True)")
+        cfg = self.config
+        b, s = input_ids.shape
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device).expand(b, s)
+        x = sharded_embedding_lookup(self.embed_tokens, input_ids, cfg.dtype)
+        context_fn = _remat_policy(cfg.remat_policy) if cfg.remat else None
+        for block in self.layers:
+            if context_fn is None:
+                x = block(x, positions, None, segment_ids)
+            else:
+                x = checkpoint(block, x, positions, None, segment_ids,
+                               use_reentrant=False, context_fn=context_fn)
+        x = self.final_norm(x)
+        if return_hidden:
+            return x
+        if last_logit_only:
+            x = x[:, -1:]
+        return self.lm_head_logits(x)
+
+    @torch.no_grad()
+    def decode_forward(self, input_ids, positions=None,
+                       cache: Optional[KVCache] = None,
+                       last_logit_only: bool = False,
+                       return_hidden: bool = False):
         """input_ids [B, S] -> ``(logits [B, S or 1, V] f32, cache)``, or
         ``(hidden [B, S, E], cache)`` with ``return_hidden`` (final-norm
         states; the caller runs :meth:`lm_head_logits` on the rows it
@@ -421,6 +575,8 @@ def generate(model: LlamaForCausalLM, prompt_ids: torch.Tensor,
     greedy, else softmax sampling from ``generator``. Returns [B,
     max_new_tokens] int32 on the model's device."""
     cfg = model.config
+    if not cfg.decode:
+        raise ValueError("generate() needs LlamaConfig(decode=True)")
     b, plen = prompt_ids.shape
     prompt_ids = prompt_ids.to(model.device)
     if max_new_tokens <= 0:

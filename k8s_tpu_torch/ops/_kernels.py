@@ -37,20 +37,26 @@ NVCC_FLAGS = [
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-# library name -> (source file, C entry point, argtypes)
+# library name -> (source file, {C entry point: argtypes})
 KERNELS = {
-    "flash_fwd": (
-        "flash_fwd.cu", "k8s_flash_fwd_bf16",
+    "flash_fwd": ("flash_fwd.cu", {
         # q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D,
         # q/k/v/o strides (batch, seq, head), scale, causal, stream
-        [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
-    ),
-    "decode_attn": (
-        "decode_attn.cu", "k8s_decode_attn_bf16",
+        "k8s_flash_fwd_bf16": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
+    }),
+    "flash_bwd": ("flash_bwd.cu", {
+        # q, k, v, dout, lse, dd, dq, B, Sq, Sk, Hq, Hkv, D,
+        # q/k/v/dout/dq strides (batch, seq, head), scale, causal, stream
+        "k8s_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_L] * 15 + [_F, _I, _P],
+        # q, k, v, dout, lse, dd, dk, dv, B, Sq, Sk, Hq, Hkv, D,
+        # q/k/v/dout/dk/dv strides (batch, seq, head), scale, causal, stream
+        "k8s_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_L] * 18 + [_F, _I, _P],
+    }),
+    "decode_attn": ("decode_attn.cu", {
         # q, k_new, v_new, k_cache, v_cache, pos, out,
         # B, Hkv, G, S, D, scale, stream
-        [_P] * 7 + [_I] * 5 + [_F, _P],
-    ),
+        "k8s_decode_attn_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
+    }),
 }
 
 _lock = threading.Lock()
@@ -121,10 +127,10 @@ def lib(name: str) -> ctypes.CDLL:
         if not _libs:
             for n, path in build_all().items():
                 cdll = ctypes.CDLL(str(path))
-                _, entry, argtypes = KERNELS[n]
-                fn = getattr(cdll, entry)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for entry, argtypes in KERNELS[n][1].items():
+                    fn = getattr(cdll, entry)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 err = cdll.k8s_cuda_error_string
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p

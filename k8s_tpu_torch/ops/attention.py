@@ -1,23 +1,36 @@
-"""Attention for the serving path (port of ``k8s_tpu/ops/attention.py``).
+"""Attention (port of ``k8s_tpu/ops/attention.py``).
 
-Two kernels, each beside its plain PyTorch version:
+Four kernels, each beside its plain PyTorch version:
 
 - :func:`flash_fwd` — blockwise online-softmax attention forward
   (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel``). The
-  engine's one-shot prefill of a fresh cache runs it.
+  engine's one-shot prefill of a fresh cache and every training
+  forward run it.
+- :func:`flash_bwd` — the flash backward: dQ (``_bwd_dq_kernel``) and
+  dK/dV summed over the GQA group (``_bwd_dkv_kernel``), both in
+  ``csrc/flash_bwd.cu``, recomputing P from the forward's logsumexp.
+  Every training backward runs them.
 - :func:`decode_attention_update` — ragged single-token decode with the
   in-place cache append (``csrc/decode_attn.cu``, replacing the Pallas
   ``_decode_attn_kernel``). Every decode step runs it.
 
 A wrapper runs the plain version only because the tensor it was given
 lies on the CPU; for a CUDA tensor it launches the kernel or raises.
-Each counts its launches in ``<wrapper>.launches``.
+Each counts its launches in ``<wrapper>.launches`` (``flash_bwd``
+counts the two kernels apart: ``flash_bwd.launches_dq`` and
+``flash_bwd.launches_dkv``).
 
 :func:`mha_reference` is the plain attention path the JAX package runs
 through XLA, and :func:`flash_attention` the public gate: the plain
-path for CPU tensors, the kernel (or an error) for CUDA tensors.
-Layouts follow the JAX package: ``[B, S, H, D]`` for prefill, ``[B,
-H, D]`` queries over a head-major ``[B, Hkv, S, D]`` cache for decode.
+path (under autograd) for CPU tensors, the kernels for CUDA tensors —
+forward and backward through :func:`flash_attention_kernel`, the
+``jax.custom_vjp`` pair ``_flash`` as a ``torch.library`` custom op with
+a registered backward. Being one op the dispatcher sees, its outputs
+(``out`` and ``lse``) are what the ``flash`` remat policy saves
+(:mod:`k8s_tpu_torch.models.llama`). Layouts follow the JAX package:
+``[B, S, H, D]`` for attention, ``[B, H, D]`` queries over a
+head-major ``[B, Hkv, S, D]`` cache for decode, ``[B, Hq, Sq]`` f32 for
+lse and D (the JAX ``[B*H, 1, Sq]`` row layout, reshaped).
 """
 
 from __future__ import annotations
@@ -100,16 +113,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         out, lse = flash_fwd_plain(q, k, v, causal, scale)
         return (out, lse) if with_lse else out
+    _check_kernel_shapes("flash_fwd", q, k, v, causal)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_fwd: q, k, v must be on one CUDA device")
-    if d not in KERNEL_HEAD_DIMS or k.shape[-1] != d or v.shape != k.shape:
-        raise ValueError(f"flash_fwd: unsupported shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if hq % hkv or (causal and sq != sk):
-        raise ValueError(f"flash_fwd: needs Hq % Hkv == 0 and, when causal, "
-                         f"Sq == Sk (got Hq={hq} Hkv={hkv} Sq={sq} Sk={sk})")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_bhsd(name, x)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
@@ -131,19 +137,175 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
+def compute_dd(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO * O) in f32, ``[B, Hq, Sq]`` (the backward's lse
+    layout). Bandwidth-bound and tiny next to the kernels: plain
+    PyTorch, as the JAX package leaves it to XLA."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool, scale: float):
+    """The backward kernels' plain version, from their formulas, in f32:
+    P = exp(scale Q K^T - lse), dP = dO V^T, dS = P (dP - D) with D from
+    :func:`compute_dd`; dQ = scale dS K, and per kv head dK = scale dS^T Q
+    and dV = P^T dO summed over its group of query heads. Returns
+    ``(dq, dk, dv)`` in q's, k's and v's dtypes. Causal masking is
+    ``tril(k=sk-sq)``, as in the forward."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    groups = hq // hkv
+    dd = compute_dd(out, dout).reshape(b, hkv, groups, sq)
+    qf = q.float().reshape(b, sq, hkv, groups, d)
+    dof = dout.float().reshape(b, sq, hkv, groups, d)
+    kf, vf = k.float(), v.float()
+    s = scale * torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+    p = torch.exp(s - lse.float().reshape(b, hkv, groups, sq)[..., None])
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
+            diagonal=sk - sq)
+        p = p.masked_fill(~mask, 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - dd[..., None])
+    dq = scale * torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
+    dk = scale * torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check_kernel_shapes(name: str, q, k, v, causal: bool) -> None:
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{name}: q, k, v must be on one CUDA device")
+    if d not in KERNEL_HEAD_DIMS or k.shape[-1] != d or v.shape != k.shape:
+        raise ValueError(f"{name}: unsupported shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if hq % hkv or (causal and sq != sk):
+        raise ValueError(f"{name}: needs Hq % Hkv == 0 and, when causal, "
+                         f"Sq == Sk (got Hq={hq} Hkv={hkv} Sq={sq} Sk={sk})")
+
+
+def _check_rows(name: str, x: torch.Tensor, shape, device) -> None:
+    if (tuple(x.shape) != tuple(shape) or x.dtype != torch.float32
+            or x.device != device or not x.is_contiguous()):
+        raise ValueError(f"{name}: needs a contiguous f32 {tuple(shape)} "
+                         f"tensor on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+              causal: bool, scale: float):
+    """Flash attention backward: ``(dq, dk, dv)`` in the layouts and
+    dtypes of q, k and v, from the forward's ``out`` and ``lse [B, Hq,
+    Sq]`` and the output gradient ``dout``. On a CUDA tensor this
+    computes D (:func:`compute_dd`) and launches ``csrc/flash_bwd.cu``'s
+    dq and dk/dv kernels (bf16, D in KERNEL_HEAD_DIMS, causal only with
+    Sq == Sk) or raises; on a CPU tensor it runs the plain version."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, dout, causal, scale)
+    _check_kernel_shapes("flash_bwd", q, k, v, causal)
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"flash_bwd: out{tuple(out.shape)} and "
+                         f"dout{tuple(dout.shape)} must match q{tuple(q.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        _check_bhsd(name, x)
+    dd = compute_dd(out, dout)
+    _check_rows("flash_bwd: lse", lse, (b, hq, sq), q.device)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _kernels.lib("flash_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.k8s_flash_bwd_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+        b, sq, sk, hq, hkv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *dout.stride()[:3], *dq.stride()[:3],
+        float(scale), int(bool(causal)), stream)
+    _kernels.check(code, "flash_bwd")
+    flash_bwd.launches_dq += 1
+    code = lib.k8s_flash_bwd_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, sk, hq, hkv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+        float(scale), int(bool(causal)), stream)
+    _kernels.check(code, "flash_bwd")
+    flash_bwd.launches_dkv += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches_dq = 0
+flash_bwd.launches_dkv = 0
+
+
+@torch.library.custom_op("k8s_tpu_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one dispatcher-visible op: ``(out, lse)``."""
+    return flash_fwd(q, k, v, causal, scale, with_lse=True)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, scale):
+    b, sq, hq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, hq, sq), dtype=torch.float32))
+
+
+def _flash_op_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_op_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal,
+                           ctx.scale)
+    return dq, dk, dv, None, None
+
+
+_flash_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
+
+#: the op the ``flash`` remat policy saves the outputs of
+FLASH_OP = torch.ops.k8s_tpu_torch.flash_attention.default
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool, scale: float) -> torch.Tensor:
+    """Differentiable flash attention through the kernels: the forward
+    (:func:`flash_fwd`, which also writes lse) and, under autograd,
+    :func:`flash_bwd` from the saved q, k, v, ``out`` and ``lse``. On CPU
+    tensors both run their plain versions (the CPU tests use that)."""
+    out, _ = _flash_op(q, k, v, bool(causal), float(scale))
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Multi-head attention, [B, S, H, D] layout, GQA-aware.
+    """Multi-head attention, [B, S, H, D] layout, GQA-aware,
+    differentiable.
 
     The gate, re-derived for CUDA from the JAX one: CPU tensors take
-    :func:`mha_reference`; CUDA tensors take the kernel, which serves
-    bf16 at a head dim it is built for, and causal only when ``sq ==
-    sk`` (its mask has no diagonal offset). Anything else on the card —
-    another dtype or head dim, segment ids — raises rather than running
-    the plain path there. The TPU's Mosaic 128-alignment and
-    block-fitting conditions are gone: the kernel masks its own ragged
-    tail.
+    :func:`mha_reference` (under autograd, as the JAX package's off-TPU
+    path); CUDA tensors take the kernels — :func:`flash_attention_kernel`
+    (K1 forward, K2 and K3 backward) under autograd, K1 alone
+    (:func:`flash_fwd`) for inference — which serve bf16 at a head dim they
+    are built for, and causal only when ``sq == sk`` (their mask has no
+    diagonal offset). Anything else on the card — another dtype or head
+    dim, segment ids — raises rather than running the plain path there.
+    The TPU's Mosaic 128-alignment and block-fitting conditions are
+    gone: the kernels mask their own ragged tail.
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -159,7 +321,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if segment_ids is not None:
         raise NotImplementedError(
             "flash_attention: the CUDA kernel has no segment-id masking yet")
-    return flash_fwd(q, k, v, causal, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_kernel(q, k, v, causal, scale)
+    return flash_fwd(q, k, v, causal, scale)  # inference: no lse to keep
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
-"""Program scaffolding of the port: run-config parsing and the
-preemption flags (own copies of the JAX-free helpers in
-``k8s_tpu/programs/common.py``, so the port imports nothing of it)."""
+"""Program scaffolding of the port: run-config parsing, the preemption
+flags and the step-metrics logger's stdout lines (own copies of the
+JAX-free helpers in ``k8s_tpu/programs/common.py``, so the port imports
+nothing of it)."""
 
 from __future__ import annotations
 
+import json
 import os
 import shlex
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -63,3 +66,26 @@ def parse_run_config(rdzv, defaults: Optional[dict] = None) -> RunConfig:
             except ValueError:
                 pass
     return cfg
+
+
+class MetricLogger:
+    """Step-metrics logger: JSON lines on process 0's stdout,
+    ``{"run", "step", "steps_per_sec", <metrics>}``."""
+
+    def __init__(self, rdzv, run_name: str):
+        self.enabled = rdzv.process_id <= 0
+        self.run_name = run_name
+        self._last_step = 0
+        self._last_t = time.perf_counter()
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        if not self.enabled:
+            return
+        now = time.perf_counter()
+        steps_per_sec = (step - self._last_step) / max(now - self._last_t, 1e-9)
+        self._last_step, self._last_t = step, now
+        print(json.dumps({
+            "run": self.run_name, "step": step,
+            "steps_per_sec": round(steps_per_sec, 3),
+            **{k: round(float(v), 5) for k, v in metrics.items()},
+        }), flush=True)

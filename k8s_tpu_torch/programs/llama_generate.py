@@ -39,8 +39,9 @@ def default_model(device: str) -> str:
 
 def decode_model_config(model_name: str, max_seq: int, extra: dict,
                         ragged: bool = False) -> LlamaConfig:
-    """Decode-mode LlamaConfig from program args — shared between batch
-    generation (this program) and the continuous-batching server.
+    """Decode-mode (``decode=True``) LlamaConfig from program args —
+    shared between batch generation (this program) and the
+    continuous-batching server.
     ``ragged=True`` enables per-row cache depths (the engine's slot
     contract). The port serves the unrolled layout with a bf16 cache."""
     kv_quant = extra.get("kv_quant", "none")
@@ -48,10 +49,12 @@ def decode_model_config(model_name: str, max_seq: int, extra: dict,
         raise NotImplementedError(
             f"kv_quant={kv_quant!r}: the int8 KV cache is not ported yet")
     if model_name == "llama3-8b":
-        return LlamaConfig.llama3_8b(max_seq_len=max_seq, ragged_decode=ragged)
+        return LlamaConfig.llama3_8b(max_seq_len=max_seq, ragged_decode=ragged,
+                                     decode=True)
     # the JAX package's tiny serving layout (llama_train's head layout)
     return LlamaConfig.tiny(max_seq_len=max(max_seq, 128), num_heads=8,
-                            num_kv_heads=4, head_dim=16, ragged_decode=ragged)
+                            num_kv_heads=4, head_dim=16, ragged_decode=ragged,
+                            decode=True)
 
 
 def load_decode_params(lcfg: LlamaConfig, checkpoint_dir: str = "",

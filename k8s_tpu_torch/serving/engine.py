@@ -203,8 +203,9 @@ class ContinuousBatchingEngine:
         max_tokens_per_round: Optional[int] = None,
     ):
         cfg = model.config
-        if not cfg.ragged_decode:
-            raise ValueError("engine needs LlamaConfig(ragged_decode=True)")
+        if not (cfg.decode and cfg.ragged_decode):
+            raise ValueError(
+                "engine needs LlamaConfig(decode=True, ragged_decode=True)")
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)

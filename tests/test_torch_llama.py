@@ -51,7 +51,7 @@ def _port_config(jcfg, **kw) -> LlamaConfig:
         num_layers=jcfg.num_layers, num_heads=jcfg.num_heads,
         num_kv_heads=jcfg.num_kv_heads, head_dim=jcfg.head_dim,
         max_seq_len=jcfg.max_seq_len, rope_theta=jcfg.rope_theta,
-        rms_eps=jcfg.rms_eps, dtype=dtype,
+        rms_eps=jcfg.rms_eps, dtype=dtype, decode=True,
         ragged_decode=jcfg.ragged_decode)
     base.update(kw)
     return LlamaConfig(**base)
@@ -179,7 +179,7 @@ def test_generate_matches_jax_on_trained_fixture():
 
 
 def test_init_params_seeded_and_shaped():
-    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    cfg = LlamaConfig.tiny(dtype=torch.float32, decode=True)
     a = init_params(cfg, seed=3, device="cpu")
     b = init_params(cfg, seed=3, device="cpu", dtype=torch.bfloat16)
     assert torch.equal(a["lm_head"].bfloat16(), b["lm_head"])
@@ -203,3 +203,17 @@ def test_cuda_entry_points_raise_without_a_card():
         LlamaForCausalLM(LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(LlamaConfig.tiny(), seed=0)
+
+
+def test_kv_cache_zeros_defaults_to_the_card():
+    """KVCache.zeros is an entry point: it runs on the card unless the
+    caller asks for the CPU, so without a card its default raises."""
+    cfg = LlamaConfig.tiny(decode=True)
+    cache = KVCache.zeros(cfg, 1, device="cpu")
+    assert cache.keys[0].shape == (1, cfg.num_kv_heads, cfg.max_seq_len,
+                                   cfg.head_dim)
+    assert cache.keys[0].device.type == "cpu" and len(cache.values) == 2
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVCache.zeros(cfg, 1)

@@ -45,7 +45,7 @@ def fixture():
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim, max_seq_len=MAX_SEQ,
         rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
-        dtype=torch.bfloat16, ragged_decode=True)
+        dtype=torch.bfloat16, decode=True, ragged_decode=True)
     model = LlamaForCausalLM(pcfg, device="cpu")
     model.load_params(params_from_jax(np_params))
     j_oracle = JaxLlama(dataclasses.replace(cfg, decode=True,
