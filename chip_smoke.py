@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from ``k8s_tpu_torch/csrc/``, holds
 each one against its plain PyTorch version at the serving and training
 paths' shapes (error, kernel / plain / library times and the kernel's
-roofline bound), then drives the port's two main paths:
+roofline bound), then drives the port's three main paths, in this order:
 
 - serving: Llama-3-8B at full width and depth (random bf16 weights from
   a fixed seed) through the continuous-batching engine behind a real
@@ -19,7 +19,13 @@ roofline bound), then drives the port's two main paths:
   10 steps on learnable data, the loss required to fall; a gradient
   oracle (2 layers, batch 1) against a forward of its own through plain
   attention; step time, tokens/s, MFU, peak memory and one profiled
-  step's device-time split.
+  step's device-time split;
+- int8 serving, once the bf16 model and the training state are freed:
+  the same Llama-3-8B with int8 weights and an int8 KV cache
+  (``--quant=int8_serving --kv_quant=int8``), 16 slots of 8192 rows, 16
+  concurrent requests of 12…6000 prompt tokens, every emitted token
+  checked against a teacher-forced forward of the same int8 model, and
+  the bf16 model of the same seed compared for information.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path launched. Every
@@ -31,6 +37,7 @@ It needs no network and leaves no process behind.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import statistics
@@ -55,6 +62,11 @@ PEAK_BF16_FLOPS = 989e12
 FLASH_REL_TOL = 8e-3
 DECODE_REL_TOL = 5e-3
 FLASH_LSE_TOL = 1e-4
+# The int8-KV decode kernel does K4's f32 math on the same int8 rows and
+# scales as its plain version (the scales applied to the [G] scores and
+# probs in both) and rounds its output to bf16 once: K4's limit holds.
+# Its appended int8 rows and scales must be bit-equal.
+DECODE_Q8_REL_TOL = DECODE_REL_TOL
 # The backward kernels round dS and P to bf16 for their second products
 # (each ~2^-9 relative, independent over the summed keys or queries) and
 # their outputs to bf16: ~1.6e-3 rms per row, a few times that at the
@@ -83,6 +95,19 @@ ORACLE_LOGIT_TOL = 0.25
 # the 1e-2 level, while a fault in a kernel's scale, a dropped diagonal
 # or a remat replay moves a gradient by O(1).
 GRAD_ORACLE_TOL = 5e-2
+# int8 serving oracle: every emitted token's logit within this much of
+# the row max of a teacher-forced forward of the same int8 model (same
+# int8 weights and per-token activation quantization). That forward's
+# one-shot prefill attends the exact k/v, while the served tokens saw
+# the int8 cache: every earlier row quantized per row (rms error ~0.6%
+# of a Gaussian row: amax ~2.8 sigma over 127 levels, over sqrt(12)),
+# about six times the ~0.1% rms bf16 rounding that the bf16 oracle's
+# 0.25 covers with its observed 0.034 (PERF.md) — so ~0.2 here, and a
+# limit of five times that. A token scored one step off (a decode that
+# reads the wrong position) sits at the distance of an unrelated token
+# from the row max, and must exceed the limit, as must a token scored
+# against another request's logits.
+ORACLE_Q8_LOGIT_TOL = 1.0
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 8, 10, 2048, 8
 
 
@@ -394,6 +419,103 @@ def phase_decode(torch, attn, gen):
     return row
 
 
+def phase_decode_q8(torch, attn, gen):
+    """K5 against its plain version: B=16 slots, S=8192, Hq 32, Hkv 8,
+    D 128, ragged pos over [0, S) with 0 and S - 1, caches quantized
+    from seeded bf16 rows; K4 timed at the same positions over those
+    bf16 rows."""
+    b, hq, hkv, s, d = 16, 32, 8, 8192, 128
+    scale = 1.0 / d ** 0.5
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    q, kn, vn = rnd(b, hq, d), rnd(b, hkv, d), rnd(b, hkv, d)
+    kb, vb = rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+    (kc, ks), (vc, vs) = attn.quantize_kv_rows(kb), attn.quantize_kv_rows(vb)
+    orig = (kc, vc, ks, vs)
+    pos = torch.tensor([0, 8191, 1, 37, 500, 1024, 2047, 3000, 4095, 4500,
+                        5000, 6000, 6500, 7000, 7777, 8190],
+                       dtype=torch.int32, device="cuda")
+    got = [t.clone() for t in orig]
+    out = attn.decode_attention_update_q8(q, kn, vn, *got, pos, scale)[0]
+    plain_caches = [t.clone() for t in orig]
+    ref = attn.decode_attention_q8_plain(q.float(), kn.float(), vn.float(),
+                                         *plain_caches, pos, scale)
+    torch.cuda.synchronize()
+    err = row_rel_err(out, ref)
+    abs_err = (out.float() - ref).abs().max().item()
+    # what the append must leave: the original caches with row pos[b]
+    # of each (b, head) replaced by the quantized new row and its scales
+    want = [t.clone() for t in orig]
+    rows = torch.arange(b, device="cuda")
+    for (c, sc), new in (((want[0], want[2]), kn), ((want[1], want[3]), vn)):
+        c[rows, :, pos.long()], sc[rows, :, pos.long()] = attn.quantize_kv_rows(new)
+    caches_ok = all(torch.equal(x, w) for x, w in zip(got, want))
+    plain_ok = all(torch.equal(x, w) for x, w in zip(plain_caches, want))
+    if not (err <= DECODE_Q8_REL_TOL and caches_ok and plain_ok):
+        fail(f"decode_attn_q8: row error {err} (tol {DECODE_Q8_REL_TOL}); "
+             f"kernel caches = original + quantized row at pos: {caches_ok}; "
+             f"plain caches likewise: {plain_ok}")
+
+    # planted faults on the deepest row, rounded to bf16 like the kernel's
+    # out: its last n cache rows dropped, and every row's value scale
+    # taken from the row before
+    deep = int(pos.argmax().item())
+    one = slice(deep, deep + 1)
+
+    def plain_one(p, v_scale):
+        c = [t[one].clone() for t in orig]
+        c[3] = v_scale
+        return attn.decode_attention_q8_plain(
+            q[one].float(), kn[one].float(), vn[one].float(), *c, p, scale
+        ).to(torch.bfloat16)
+
+    faults = {f"drop_{n}": row_rel_err(plain_one(pos[one] - n, vs[one].clone()), ref[one])
+              for n in (FAULT_ROWS, 8)}
+    faults["v_scale_of_previous_row"] = row_rel_err(
+        plain_one(pos[one], torch.roll(vs[one], 1, dims=-1)), ref[one])
+    if not min(faults[f"drop_{FAULT_ROWS}"], faults["v_scale_of_previous_row"]) > DECODE_Q8_REL_TOL:
+        fail(f"decode_attn_q8: the tolerance does not see a planted fault: {faults}")
+
+    kernel = lambda: attn.decode_attention_update_q8(q, kn, vn, *got, pos, scale)  # noqa: E731
+    # the library yardstick: SDPA over the cache dequantized to bf16 (the
+    # dequantization itself is not timed: SDPA has no int8 input)
+    kd = (got[0].float() * got[2][..., None]).to(torch.bfloat16)
+    vd = (got[1].float() * got[3][..., None]).to(torch.bfloat16)
+    visible = (torch.arange(s, device="cuda")[None, :] <= pos[:, None].long())
+    library = sdpa(torch, q[:, :, None], kd, vd, attn_mask=visible[:, None, None, :])
+    kb4, vb4 = kb.clone(), vb.clone()
+    k4 = lambda: attn.decode_attention_update(q, kn, vn, kb4, vb4, pos, scale)  # noqa: E731
+    rows_read = int(pos.sum().item())
+    new_rows = 2 * b * hkv * d
+    nbytes = (rows_read * hkv * (2 * d + 2 * 4)    # int8 k and v rows < pos, 2 scales
+              + 2 * (2 * b * hq * d)               # q in, out (bf16)
+              + 2 * new_rows                       # k/v new in (bf16)
+              + new_rows + 2 * b * hkv * 4         # new int8 rows and scales written
+              + 4 * b)                             # pos
+    flops = 4 * (rows_read + b) * hq * d
+    bound_ms, by = bound(nbytes, flops)
+    k4_bytes = (2 * rows_read * hkv * d * 2 + 2 * (2 * b * hq * d)
+                + 2 * 2 * new_rows + 4 * b)
+    k4_bound_ms, _ = bound(k4_bytes, flops)
+    row = {"rel_err": err, "max_abs_err": abs_err, "caches_bit_equal": caches_ok,
+           "planted_faults": faults,
+           "ms": device_ms(torch, kernel),
+           "plain_ms": device_ms(torch, lambda: attn.decode_attention_q8_plain(
+               q, kn, vn, *plain_caches, pos, scale), reps=3),
+           "library_ms": device_ms(torch, library),
+           "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+           "k4_same_pos_ms": device_ms(torch, k4),
+           "k4_same_pos_bound_ms": k4_bound_ms, "k4_bytes": k4_bytes,
+           "call_ms": call_ms(torch, kernel),
+           "library_call_ms": call_ms(torch, library)}
+    emit({"phase": "decode_attn_q8",
+          "shape": "B=16 S=8192 Hq=32 Hkv=8 D=128, int8 cache + f32 row scales, pos "
+                   + str(pos.tolist()),
+          "rel_tol": DECODE_Q8_REL_TOL, **row})
+    del kb, vb, kc, vc, ks, vs, got, plain_caches, want, kd, vd, kb4, vb4
+    torch.cuda.empty_cache()
+    return row
+
+
 def post(port, payload, timeout=600):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/generate", data=json.dumps(payload).encode(),
@@ -503,7 +625,8 @@ def phase_serving(torch, attn, card):
         "oracle_exact_share": exact / n_tok, "launches": launches,
         "engine_stats": stats, "card": card,
     })
-    phase_decode_profile(torch, model, card)
+    phase_decode_profile(torch, model, card,
+                         [12, 300, 700, 1000, 1500, 2000, 40, 97])
     # free the serving model (16 GB) and its caches before training
     del engine, frontend, model
     gc.collect()
@@ -511,17 +634,17 @@ def phase_serving(torch, attn, card):
     return launches
 
 
-def phase_decode_profile(torch, model, card):
-    """Where one batch-8 decode step's time goes: torch.profiler over a
-    few steps at the serving shapes (device busy share, top kernels)."""
+def phase_decode_profile(torch, model, card, depths, phase="decode_profile"):
+    """Where one decode step's time goes: torch.profiler over a few
+    steps at the serving shapes, one slot at each of ``depths`` (device
+    busy share, top kernels). Returns the device ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
-    b, steps = 8, 4
+    b, steps = len(depths), 4
     cache = model.new_cache(b)
     cache.fresh = False
     tok = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
-    pos = torch.tensor([[12], [300], [700], [1000], [1500], [2000], [40], [97]],
-                       dtype=torch.int32, device="cuda")
+    pos = torch.tensor(depths, dtype=torch.int32, device="cuda")[:, None]
     model(tok, positions=pos, cache=cache)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -538,7 +661,7 @@ def phase_decode_profile(torch, model, card):
             and e.self_device_time_total > 0]
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    emit({"phase": "decode_profile", "batch": b, "steps": steps,
+    emit({"phase": phase, "batch": b, "steps": steps, "depths": list(depths),
           "step_wall_ms": wall_ms,
           "step_device_ms": device_ms if rows else None,
           "device_busy_share": device_ms / wall_ms if rows else None,
@@ -546,6 +669,192 @@ def phase_decode_profile(torch, model, card):
           "top": [{"op": k, "ms_per_step": t, "calls_per_step": n}
                   for k, t, n in rows[:8]],
           "card": card})
+    del cache
+    if not rows:
+        fail(f"{phase}: torch.profiler recorded no device time")
+    return device_ms
+
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _forced_logits(torch, model, prompt, toks):
+    """Teacher-forced f32 logits at the positions that emitted ``toks``:
+    one forward of prompt + toks over a FRESH cache of its own length —
+    the one-shot prefill, which attends the exact (never quantized) k/v
+    through K1 — and the lm_head on those rows only."""
+    from k8s_tpu_torch.models import KVCache
+
+    ids = torch.tensor([prompt + toks], dtype=torch.long, device="cuda")
+    cache = KVCache.zeros(model.config, 1, ids.shape[1], "cuda")
+    hidden, _ = model(ids, positions=torch.arange(ids.shape[1], device="cuda")[None],
+                      cache=cache, return_hidden=True)
+    del cache
+    n = len(prompt)
+    return model.lm_head_logits(hidden[0, n - 1:n - 1 + len(toks)])
+
+
+def phase_serving_int8(torch, attn, card):
+    """Llama-3-8B with int8 weights and an int8 KV cache through the
+    engine and a real HTTP front-end (the wiring of
+    programs.serving.main with --quant=int8_serving --kv_quant=int8):
+    16 slots x 8192 rows, 16 concurrent requests of 12..6000 prompt
+    tokens; every emitted token against a teacher-forced forward of the
+    same int8 model; then the same forwards through the bf16 model of
+    the same seed, for information."""
+    from k8s_tpu_torch.models import LlamaForCausalLM
+    from k8s_tpu_torch.programs.llama_generate import (
+        decode_model_config, load_decode_params)
+    from k8s_tpu_torch.serving import ContinuousBatchingEngine, ServingFrontend
+
+    max_seq, slots, new_tokens = 8192, 16, 32
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = decode_model_config("llama3-8b", max_seq, {"kv_quant": "int8"}, ragged=True)
+    model = load_decode_params(cfg, "", seed=0, device="cuda", quant="int8_serving")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.config
+    weight_bytes = _param_bytes(model)
+    bf16_cfg = dataclasses.replace(cfg, quant="none", kv_quant="none")
+    bf16_weight_bytes = _param_bytes(LlamaForCausalLM(bf16_cfg, device="meta"))
+    buckets = [b for b in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096) if b < max_seq]
+    engine = ContinuousBatchingEngine(
+        model, max_slots=slots, decode_chunk=32, prompt_buckets=buckets,
+        prefill_chunk=256)
+    kv = engine._cache
+    kv_bytes = sum(t.numel() * t.element_size() for t in
+                   kv.keys + kv.values + kv.key_scales + kv.value_scales)
+    bf16_kv_bytes = 2 * sum(t.numel() * 2 for t in kv.keys)
+    frontend = ServingFrontend(engine, port=0)
+    stop = threading.Event()
+    pump = threading.Thread(target=frontend.serve, args=(stop.is_set,))
+    pump.start()
+    rng = np.random.RandomState(1)
+    lens = [12, 33, 64, 100, 150, 200, 256, 300, 400, 512, 800, 1000, 1500,
+            2500, 4000, 6000]
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    results = [None] * len(prompts)
+    try:
+        post(frontend.port, {"prompt": prompts[0][:20], "max_new_tokens": 4})  # warm-up
+        stats0 = dict(engine.stats)
+        attn.flash_fwd.launches = 0
+        attn.decode_attention_update.launches = 0
+        attn.decode_attention_update_q8.launches = 0
+
+        def client(i):
+            results[i] = post(frontend.port, {"prompt": prompts[i],
+                                              "max_new_tokens": new_tokens})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t1
+        launches = {"flash_fwd": attn.flash_fwd.launches,
+                    "decode_attn": attn.decode_attention_update.launches,
+                    "decode_attn_q8": attn.decode_attention_update_q8.launches}
+    finally:
+        stop.set()
+        pump.join(timeout=300)
+    if pump.is_alive() or any(r is None for r in results):
+        fail("serving_int8: a request or the pump did not finish")
+    if launches["decode_attn_q8"] <= 0 or launches["flash_fwd"] <= 0:
+        fail(f"serving_int8: a kernel of the path never launched: {launches}")
+    if launches["decode_attn"] != 0:
+        fail(f"serving_int8: the bf16 decode kernel ran over the int8 cache: {launches}")
+    serve_peak = torch.cuda.max_memory_allocated()
+    stats = {k: v - stats0.get(k, 0) for k, v in engine.stats.items()
+             if k != "queue_depth"}
+    del engine, frontend, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # oracle: teacher-forced forwards of the same int8 model whose
+    # one-shot prefill attends exact k/v; the served tokens saw the int8
+    # cache (K5 steps, dequantized continuation chunks). Planted faults,
+    # judged as the oracle judges the served tokens (the worst gap over
+    # every token): each request's tokens scored one step early (a
+    # decode off by one), and scored against the next request's logits
+    # (a decode that reads another slot)
+    def gap(logits, toks):
+        tok_t = torch.tensor(toks, device="cuda")
+        return logits.max(-1).values - logits.gather(1, tok_t[:, None])[:, 0]
+
+    toks_all = [r["tokens"] for r in results]
+    gaps, exact, int8_logits = [], 0, []
+    faults = {"off_by_one": [], "other_request": []}
+    for i, (p, toks) in enumerate(zip(prompts, toks_all)):
+        if len(toks) != new_tokens:
+            fail(f"serving_int8: {len(toks)} tokens for a {new_tokens}-token request")
+        logits = _forced_logits(torch, model, p, toks)
+        if not torch.isfinite(logits).all():
+            fail("serving_int8: non-finite logits in the oracle forward")
+        gaps.append(gap(logits, toks).max().item())
+        faults["off_by_one"].append(gap(logits[:-1], toks[1:]).max().item())
+        faults["other_request"].append(
+            gap(logits, toks_all[(i + 1) % len(toks_all)]).max().item())
+        exact += int((logits.argmax(-1) == torch.tensor(toks, device="cuda")).sum().item())
+        int8_logits.append(logits)
+    worst = max(gaps)
+    fault_worst = {k: max(v) for k, v in faults.items()}
+    if worst > ORACLE_Q8_LOGIT_TOL or not min(fault_worst.values()) > ORACLE_Q8_LOGIT_TOL:
+        fail(f"serving_int8 oracle: emitted-token gap {worst} (tol "
+             f"{ORACLE_Q8_LOGIT_TOL}, per request {gaps}); each planted fault's "
+             f"worst gap must exceed it: {faults}")
+    depths = [12, 300, 700, 1000, 1500, 2000, 2500, 3000, 3500, 4000, 5000,
+              6000, 7000, 8000, 40, 97]
+    step_device_ms = phase_decode_profile(torch, model, card, depths,
+                                          phase="decode_profile_int8")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # information only: the bf16 model of the same seed, same forwards
+    model = load_decode_params(bf16_cfg, "", seed=0, device="cuda")
+    diffs, agree, bf16_gaps = [], 0, []
+    for p, toks, l8 in zip(prompts, toks_all, int8_logits):
+        lb = _forced_logits(torch, model, p, toks)
+        diffs.append((lb - l8).abs().max().item())
+        agree += int((lb.argmax(-1) == l8.argmax(-1)).sum().item())
+        bf16_gaps.append(gap(lb, toks).max().item())
+    del model, int8_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_tok = new_tokens * len(prompts)
+    ttfts = sorted(r["ttft_s"] for r in results)
+    emit({
+        "phase": "serving_int8", "model": "llama3_8b", "layers": cfg.num_layers,
+        "vocab": cfg.vocab_size, "quant": cfg.quant, "kv_quant": cfg.kv_quant,
+        "max_seq_len": max_seq, "max_slots": slots, "decode_chunk": 32,
+        "prefill_chunk": 256, "requests": len(prompts), "prompt_lens": lens,
+        "new_tokens": new_tokens, "load_s": load_s, "wall_s": wall,
+        "tokens_per_s": n_tok / wall,
+        "decode_tokens_per_s": (n_tok - len(prompts)) / stats["chunk_s"],
+        "decode_step_ms": 1e3 * stats["chunk_s"] / stats["decode_steps"],
+        "decode_step_device_ms": step_device_ms,
+        "ttft_p50_s": float(np.median(ttfts)), "ttft_max_s": ttfts[-1],
+        "weight_bytes": weight_bytes, "bf16_weight_bytes": bf16_weight_bytes,
+        "kv_bytes": kv_bytes, "bf16_kv_bytes": bf16_kv_bytes,
+        "load_peak_gb": load_peak / 1e9, "serve_peak_gb": serve_peak / 1e9,
+        "oracle_max_gap": worst, "oracle_tol": ORACLE_Q8_LOGIT_TOL,
+        "oracle_exact_share": exact / n_tok,
+        "planted_faults_worst_gap": fault_worst,
+        "planted_faults_per_request": faults,
+        "int8_vs_bf16": {"max_abs_logit_diff": max(diffs),
+                         "top1_agreement": agree / n_tok,
+                         "bf16_gap_of_int8_tokens_max": max(bf16_gaps)},
+        "launches": launches, "engine_stats": stats, "card": card,
+    })
+    return launches
 
 
 def _oracle_grads(torch, attn, model, ids):
@@ -837,10 +1146,14 @@ def main() -> None:
     k1 = phase_flash(torch, attn, gen)
     bwd = phase_flash_bwd(torch, attn, gen)
     k4 = phase_decode(torch, attn, gen)
+    k5 = phase_decode_q8(torch, attn, gen)
     serving = phase_serving(torch, attn, card)
     train = phase_train(torch, attn, card)
-    launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"],
+    serving_int8 = phase_serving_int8(torch, attn, card)
+    launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
+                + serving_int8["flash_fwd"],
                 "decode_attn": serving["decode_attn"],
+                "decode_attn_q8": serving_int8["decode_attn_q8"],
                 "flash_bwd_dq": train["flash_bwd_dq"],
                 "flash_bwd_dkv": train["flash_bwd_dkv"]}
 
@@ -849,6 +1162,7 @@ def main() -> None:
                 "replaces": replaces, "launches": launches[name],
                 "launches_serving": serving.get(name, 0),
                 "launches_train": train.get(name, 0),
+                "launches_serving_int8": serving_int8.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -873,6 +1187,13 @@ def main() -> None:
         dict(entry("decode_attn", "k8s_tpu_torch/csrc/decode_attn.cu",
                    "k8s_tpu/ops/attention.py:875", k4),
              shape="B=8 S=2048 Hq=32 Hkv=8 D=128 ragged pos"),
+        dict(entry("decode_attn_q8", "k8s_tpu_torch/csrc/decode_attn_q8.cu",
+                   "k8s_tpu/ops/attention.py:1012", k5),
+             shape="B=16 S=8192 Hq=32 Hkv=8 D=128 int8 cache, ragged pos",
+             k4_same_pos_ms=k5["k4_same_pos_ms"],
+             k4_same_pos_bound_ms=k5["k4_same_pos_bound_ms"],
+             note="library_ms: SDPA over the cache dequantized to bf16 "
+                  "(dequantization not timed)"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
 

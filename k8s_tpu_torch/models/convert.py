@@ -7,7 +7,9 @@ Both return a ``{name: tensor}`` dict keyed like
 Projection weights keep the JAX package's ``[in, out]`` orientation,
 with DenseGeneral's head axes flattened: q/k/v ``[E, H, D] -> [E, H*D]``,
 o_proj ``[H, D, E] -> [H*D, E]``, MLP ``[E, F]``/``[F, E]`` and the
-lm_head ``[E, V]`` as they are.
+lm_head ``[E, V]`` as they are. An int8 serving tree's ``{kernel_q,
+scale}`` pairs become ``<name>.kernel_q`` (flattened alike) and
+``<name>.scale`` (flattened to ``[out]``).
 """
 
 from __future__ import annotations
@@ -48,24 +50,38 @@ def _layer_trees(tree: Mapping) -> List[Mapping]:
     return [tree[f"layer_{i}"] for i in range(n)]
 
 
+def _dense(name: str, sub: Mapping, n_in: int) -> Dict[str, torch.Tensor]:
+    """One projection's weights under the port's ``name``: a bf16/f32
+    ``kernel`` flattened to ``[in, out]`` over its first ``n_in`` axes,
+    or an int8 serving subtree (``quantize_params_for_serving``) as
+    ``<name>.kernel_q`` flattened alike and ``<name>.scale`` flattened to
+    ``[out]``."""
+    def flat(w):
+        return w.reshape(math.prod(w.shape[:n_in]), -1)
+
+    if "kernel_q" in sub:
+        return {name + ".kernel_q": flat(_to_torch(sub["kernel_q"])),
+                name + ".scale": _to_torch(sub["scale"]).reshape(-1)}
+    return {name: flat(_to_torch(sub["kernel"]))}
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A flax ``LlamaForCausalLM`` param tree of numpy arrays (unboxed,
-    scanned or unrolled) -> the port's weight dict, dtypes unchanged."""
+    scanned or unrolled, bf16/f32 or the ``quant="int8_serving"`` layout)
+    -> the port's weight dict, dtypes unchanged."""
     out = {
         "embed_tokens": _to_torch(tree["embed_tokens"]["embedding"]),
         "final_norm.weight": _to_torch(tree["final_norm"]["weight"]),
-        "lm_head": _to_torch(tree["lm_head"]["kernel"]),
+        **_dense("lm_head", tree["lm_head"], 1),
     }
     for i, layer in enumerate(_layer_trees(tree)):
         p = f"layers.{i}."
         attn, mlp = layer["attn"], layer["mlp"]
-        for name in ("q_proj", "k_proj", "v_proj"):
-            w = _to_torch(attn[name]["kernel"])  # [E, H, D]
-            out[p + "attn." + name] = w.reshape(w.shape[0], -1)
-        o = _to_torch(attn["o_proj"]["kernel"])  # [H, D, E]
-        out[p + "attn.o_proj"] = o.reshape(-1, o.shape[-1])
+        for name in ("q_proj", "k_proj", "v_proj"):  # [E, H, D]
+            out.update(_dense(p + "attn." + name, attn[name], 1))
+        out.update(_dense(p + "attn.o_proj", attn["o_proj"], 2))  # [H, D, E]
         for name in ("gate_proj", "up_proj", "down_proj"):
-            out[p + "mlp." + name] = _to_torch(mlp[name]["kernel"])
+            out.update(_dense(p + "mlp." + name, mlp[name], 1))
         out[p + "input_norm.weight"] = _to_torch(layer["input_norm"]["weight"])
         out[p + "post_attn_norm.weight"] = _to_torch(
             layer["post_attn_norm"]["weight"])

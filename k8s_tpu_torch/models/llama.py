@@ -37,6 +37,15 @@ JAX package's regimes:
   with a per-row position mask (:func:`_cached_attention`, plain
   PyTorch, as the JAX package leaves it to XLA).
 
+With ``kv_quant="int8"`` the cache is int8 with per-row f32 scales: every
+write stores quantized rows (:func:`~k8s_tpu_torch.ops.attention.
+quantize_kv_rows`), the one-shot prefill still attends the exact k/v, a
+decode step goes through the int8-KV decode kernel (the new token's term
+exact), and the other paths attend the cache dequantized to
+``config.dtype``. With ``quant="int8_serving"`` every projection, MLP
+kernel and the lm_head are int8 with per-column scales
+(:mod:`k8s_tpu_torch.ops.quant`).
+
 On the card the model runs only configs the kernels are built for
 (:func:`check_cuda_config`): it raises at construction rather than run
 plain attention there.
@@ -72,9 +81,12 @@ from k8s_tpu_torch.ops.attention import (
     KERNEL_HEAD_DIMS,
     NEG_INF,
     decode_attention_update,
+    decode_attention_update_q8,
     flash_attention,
+    quantize_kv_rows,
 )
 from k8s_tpu_torch.ops.norms import rms_norm
+from k8s_tpu_torch.ops.quant import Int8ServingDense, quantize_rows
 from k8s_tpu_torch.parallel.sharding import sharded_embedding_lookup
 
 
@@ -106,6 +118,24 @@ class LlamaConfig:
     # autoregressive decoding against a KVCache (the serving path); the
     # training forward otherwise
     decode: bool = False
+    # "int8_serving": weight-only int8 for decode — every projection,
+    # MLP kernel and the lm_head stored int8 with per-column f32 scales
+    # (ops/quant.py); the embedding and the norms stay as they are
+    quant: str = "none"
+    # "int8": the KV cache STORED int8 with per-row f32 scales (halves
+    # the cache bytes a decode step reads); numerics change, opt-in
+    kv_quant: str = "none"
+
+    def __post_init__(self):
+        if self.quant not in ("none", "int8_serving"):
+            raise ValueError(f"unknown quant {self.quant!r}; expected "
+                             "'none' or 'int8_serving'")
+        if self.kv_quant not in ("none", "int8"):
+            raise ValueError(f"unknown kv_quant {self.kv_quant!r}; expected "
+                             "'none' or 'int8'")
+        if self.quant != "none" and not self.decode:
+            raise ValueError("quant='int8_serving' is a serving layout: it "
+                             "needs decode=True")
 
     @property
     def weight_dtype(self) -> torch.dtype:
@@ -180,7 +210,12 @@ def _remat_policy(name: str):
 class KVCache:
     """Static-shape KV cache: per layer, head-major ``[B, Hkv, S, D]``
     key and value tensors (each (batch, head)'s rows are one contiguous
-    ``[S, D]`` slab — the layout the decode kernel streams).
+    ``[S, D]`` slab — the layout the decode kernels stream), in the
+    config's dtype, or int8 with ``kv_quant="int8"``: then per layer
+    also f32 per-row ``key_scales``/``value_scales`` of shape ``[B, Hkv,
+    S]`` (the JAX package keeps ``[B, Hkv, 1, S]``, a Mosaic layout; rows
+    are on axis 2 here as in the caches, so every row write and copy
+    indexes both alike). ``key_scales`` is None for a bf16 cache.
 
     ``fresh``: no forward has written this cache yet, so an ``s > 1``
     call is a first prefill at offset 0 (the flax "no cache variables
@@ -188,9 +223,13 @@ class KVCache:
     decode, advanced by every forward."""
 
     def __init__(self, keys: List[torch.Tensor], values: List[torch.Tensor],
-                 fresh: bool = True):
+                 fresh: bool = True,
+                 key_scales: Optional[List[torch.Tensor]] = None,
+                 value_scales: Optional[List[torch.Tensor]] = None):
         self.keys = keys
         self.values = values
+        self.key_scales = key_scales
+        self.value_scales = value_scales
         self.fresh = fresh
         self.index = 0
 
@@ -198,23 +237,37 @@ class KVCache:
     def zeros(cls, cfg: LlamaConfig, batch: int, length: Optional[int] = None,
               device="cuda", fresh: bool = True) -> "KVCache":
         dev = resolve_device(device)
-        shape = (batch, cfg.num_kv_heads, length or cfg.max_seq_len,
-                 cfg.head_dim)
-        mk = lambda: torch.zeros(shape, dtype=cfg.dtype, device=dev)  # noqa: E731
-        return cls([mk() for _ in range(cfg.num_layers)],
-                   [mk() for _ in range(cfg.num_layers)], fresh)
+        rows = length or cfg.max_seq_len
+        shape = (batch, cfg.num_kv_heads, rows, cfg.head_dim)
+        q8 = cfg.kv_quant == "int8"
+        dtype = torch.int8 if q8 else cfg.dtype
+
+        def mk(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=dev)
+                    for _ in range(cfg.num_layers)]
+
+        return cls(mk(shape, dtype), mk(shape, dtype), fresh,
+                   mk(shape[:3], torch.float32) if q8 else None,
+                   mk(shape[:3], torch.float32) if q8 else None)
+
+    def _tensors(self) -> List[torch.Tensor]:
+        """Every per-layer tensor, rows on axis 2."""
+        out = self.keys + self.values
+        if self.key_scales is not None:
+            out += self.key_scales + self.value_scales
+        return out
 
     def slot(self, i: int, fresh: bool = False) -> "KVCache":
         """Batch-1 VIEW of row ``i``: writes land in this cache."""
-        return KVCache([k[i:i + 1] for k in self.keys],
-                       [v[i:i + 1] for v in self.values], fresh)
+        view = lambda ts: None if ts is None else [t[i:i + 1] for t in ts]  # noqa: E731
+        return KVCache(view(self.keys), view(self.values), fresh,
+                       view(self.key_scales), view(self.value_scales))
 
     def copy_rows_(self, src: "KVCache", slot: int, rows: int) -> None:
-        """Copy the first ``rows`` rows of batch-1 ``src`` into row
-        ``slot`` of this cache, in place (the engine's scatter of a
-        prefill working cache into its slot)."""
-        for dst_l, src_l in zip(self.keys + self.values,
-                                src.keys + src.values):
+        """Copy the first ``rows`` rows of batch-1 ``src`` (and their
+        scales) into row ``slot`` of this cache, in place (the engine's
+        scatter of a prefill working cache into its slot)."""
+        for dst_l, src_l in zip(self._tensors(), src._tensors()):
             dst_l[slot, :, :rows].copy_(src_l[0, :, :rows])
 
 
@@ -247,20 +300,24 @@ def _cached_attention(q, k_all, v_all, mask, scale):
 
 
 def _use_kernel_decode(cfg: LlamaConfig) -> bool:
-    """Decode-kernel gate, re-derived for CUDA: the head dim, group size
-    and dtype the kernel is built for. The JAX gate's VMEM slab budget
-    is gone (the kernel streams the cache rows it needs), and so is its
-    backend test: on a CPU tensor the wrapper runs the plain version."""
+    """Decode-kernel gate (the JAX ``_use_pallas_decode``), re-derived for
+    CUDA: the head dim, group size and dtype the kernel of the config's
+    cache is built for — the bf16 decode kernel, or with ``kv_quant=
+    "int8"`` the int8-KV one, both instantiated for KERNEL_HEAD_DIMS and
+    DECODE_GROUPS with bf16 queries. The JAX gate's VMEM slab budget is
+    gone (the kernels stream the cache rows they need), and so are its
+    backend test and the int8 cache's ``S % 32`` rule (Mosaic tiling):
+    on a CPU tensor the wrapper runs the plain version."""
     return (cfg.head_dim in KERNEL_HEAD_DIMS
             and cfg.num_heads // cfg.num_kv_heads in DECODE_GROUPS
             and cfg.dtype == torch.bfloat16)
 
 
 def check_cuda_config(cfg: LlamaConfig) -> None:
-    """Raise unless both kernels serve ``cfg`` on the card: the flash and
-    decode kernels are built for bf16 at head dims KERNEL_HEAD_DIMS and
-    group sizes DECODE_GROUPS, and the card runs no plain attention in
-    their place."""
+    """Raise unless the kernels serve ``cfg`` on the card: the flash and
+    decode kernels (bf16 or int8 KV) are built for bf16 at head dims
+    KERNEL_HEAD_DIMS and group sizes DECODE_GROUPS, and the card runs no
+    plain attention in their place."""
     if not _use_kernel_decode(cfg):
         raise ValueError(
             f"no CUDA kernel instance for head_dim={cfg.head_dim}, "
@@ -282,29 +339,70 @@ def _use(w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return w if w.dtype == cfg.dtype else w.to(cfg.dtype)
 
 
+def _projection(cfg: LlamaConfig, n_in: int, n_out: int, device):
+    """An ``[in, out]`` projection weight, or with ``quant="int8_serving"``
+    an :class:`Int8ServingDense` (parameters ``kernel_q``/``scale``)."""
+    if cfg.quant == "int8_serving":
+        return Int8ServingDense(n_in, n_out, device, out_dtype=cfg.dtype)
+    return _weight(cfg, n_in, n_out, dtype=cfg.weight_dtype, device=device)
+
+
+def _dense(w, x: torch.Tensor, cfg: LlamaConfig, xq=None) -> torch.Tensor:
+    """``x @ w`` in the compute dtype; for an int8 projection its int8
+    product, reusing ``xq`` (``quantize_rows(x)``) when given."""
+    if isinstance(w, Int8ServingDense):
+        return w(x, xq)
+    return x @ _use(w, cfg)
+
+
+def _quantized_input(x: torch.Tensor, cfg: LlamaConfig):
+    """The per-row int8 quantization of an input that several int8
+    projections share (None when the weights are not int8)."""
+    return quantize_rows(x) if cfg.quant == "int8_serving" else None
+
+
+def _write_rows(dst: torch.Tensor, new: torch.Tensor, cfg: LlamaConfig,
+                cur, fresh: bool) -> None:
+    """Write a chunk's rows ``new [B, s, Hkv, ...]`` into the cache tensor
+    ``dst [B, Hkv, S, ...]`` (rows on axis 2: keys, values or scales) in
+    place, in the three index regimes: the shared scalar ``cur`` (classic
+    decode), a fresh ragged cache (a first prefill at offset 0), or the
+    per-row offsets ``cur [B]`` (ragged decode steps and continuation
+    chunks: rows ``[cur_b, cur_b + s)`` of row b)."""
+    b, s = new.shape[:2]
+    if not cfg.ragged_decode:
+        dst[:, :, cur:cur + s] = new.transpose(1, 2)
+    elif s > 1 and fresh:
+        dst[:, :, :s] = new.transpose(1, 2)
+    else:
+        rows = cur.long()[:, None] + torch.arange(s, device=new.device)
+        bidx = torch.arange(b, device=new.device)[:, None]
+        dst[bidx, :, rows] = new.to(dst.dtype)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, layer: int, device):
         super().__init__()
         self.cfg, self.layer = cfg, layer
         e, h, kv, d = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                        cfg.head_dim)
-        wd = cfg.weight_dtype
         # [in, out] — the JAX DenseGeneral kernel layouts, flattened
-        self.q_proj = _weight(cfg, e, h * d, dtype=wd, device=device)
-        self.k_proj = _weight(cfg, e, kv * d, dtype=wd, device=device)
-        self.v_proj = _weight(cfg, e, kv * d, dtype=wd, device=device)
-        self.o_proj = _weight(cfg, h * d, e, dtype=wd, device=device)
+        self.q_proj = _projection(cfg, e, h * d, device)
+        self.k_proj = _projection(cfg, e, kv * d, device)
+        self.v_proj = _projection(cfg, e, kv * d, device)
+        self.o_proj = _projection(cfg, h * d, e, device)
 
     def forward(self, x, positions, cache: Optional[KVCache] = None,
                 segment_ids: Optional[torch.Tensor] = None):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = _rope((x @ _use(self.q_proj, cfg)).view(b, s, h, d), positions,
+        xq = _quantized_input(x, cfg)
+        q = _rope(_dense(self.q_proj, x, cfg, xq).view(b, s, h, d), positions,
                   cfg.rope_theta)
-        k = _rope((x @ _use(self.k_proj, cfg)).view(b, s, kv, d), positions,
-                  cfg.rope_theta)
-        v = (x @ _use(self.v_proj, cfg)).view(b, s, kv, d)
+        k = _rope(_dense(self.k_proj, x, cfg, xq).view(b, s, kv, d),
+                  positions, cfg.rope_theta)
+        v = _dense(self.v_proj, x, cfg, xq).view(b, s, kv, d)
         if not cfg.decode:
             if cfg.remat and cfg.remat_policy == "flash_qkv":
                 q = checkpoint_name(q, "attn_q")
@@ -312,37 +410,49 @@ class LlamaAttention(nn.Module):
                 v = checkpoint_name(v, "attn_v")
             out = flash_attention(q, k, v, causal=True,
                                   segment_ids=segment_ids)
-            return out.reshape(b, s, h * d) @ _use(self.o_proj, cfg)
+            return _dense(self.o_proj, out.reshape(b, s, h * d), cfg)
         if segment_ids is not None:
             raise NotImplementedError(
                 "packed segments are not supported in decode mode")
-        ck, cv = cache.keys[self.layer], cache.values[self.layer]
+        layer = self.layer
+        ck, cv = cache.keys[layer], cache.values[layer]
+        q8 = cache.key_scales is not None
         cur = positions[:, 0] if cfg.ragged_decode else cache.index
         scale = 1.0 / math.sqrt(d)
         if s == 1 and (x.is_cuda or _use_kernel_decode(cfg)):
-            out, _, _ = decode_attention_update(
-                q[:, 0], k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype),
-                ck, cv, cur, scale=scale)
+            if q8:
+                out = decode_attention_update_q8(
+                    q[:, 0], k[:, 0], v[:, 0], ck, cv, cache.key_scales[layer],
+                    cache.value_scales[layer], cur, scale=scale)[0]
+            else:
+                out, _, _ = decode_attention_update(
+                    q[:, 0], k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype),
+                    ck, cv, cur, scale=scale)
             out = out[:, None]  # [B, 1, Hq, D]
         else:
-            if not cfg.ragged_decode:
-                ck[:, :, cur:cur + s] = k.transpose(1, 2)
-                cv[:, :, cur:cur + s] = v.transpose(1, 2)
-            elif s > 1 and cache.fresh:
-                ck[:, :, :s] = k.transpose(1, 2)
-                cv[:, :, :s] = v.transpose(1, 2)
+            if q8:
+                # quantized rows and their scales: the JAX package's
+                # quantize_kv_rows writes
+                (kq, ksc), (vq, vsc) = quantize_kv_rows(k), quantize_kv_rows(v)
+                writes = ((ck, kq), (cv, vq), (cache.key_scales[layer], ksc),
+                          (cache.value_scales[layer], vsc))
             else:
-                # per-row offsets: rows [cur_b, cur_b + s) of row b
-                rows = cur.long()[:, None] + torch.arange(s, device=x.device)
-                bidx = torch.arange(b, device=x.device)[:, None]
-                ck[bidx, :, rows] = k.to(ck.dtype)  # [B, s, Hkv, D]
-                cv[bidx, :, rows] = v.to(cv.dtype)
+                writes = ((ck, k), (cv, v))
+            for dst, new in writes:
+                _write_rows(dst, new, cfg, cur, cache.fresh)
             if s > 1 and cache.fresh:
                 # one-shot prefill: the prompt IS the whole visible
-                # context, so causal self-attention over the new k/v
-                # runs through the flash kernel, never over max_seq
+                # context, so causal self-attention over the new (exact,
+                # never quantized) k/v runs through the flash kernel,
+                # never over max_seq
                 out = flash_attention(q, k, v, causal=True, scale=scale)
             else:
+                k_all, v_all = ck, cv
+                if q8:  # the cache dequantized to the compute dtype
+                    k_all = (ck.float() * cache.key_scales[layer][..., None]
+                             ).to(cfg.dtype)
+                    v_all = (cv.float() * cache.value_scales[layer][..., None]
+                             ).to(cfg.dtype)
                 k_pos = torch.arange(ck.shape[2], device=x.device)
                 if cfg.ragged_decode:
                     mask = k_pos[None, None, :] <= positions[:, :, None]
@@ -350,23 +460,25 @@ class LlamaAttention(nn.Module):
                     q_pos = cur + torch.arange(s, device=x.device)
                     mask = (k_pos[None, :] <= q_pos[:, None]).expand(
                         b, s, ck.shape[2])
-                out = _cached_attention(q, ck, cv, mask, scale)
-        return out.reshape(b, s, h * d) @ _use(self.o_proj, cfg)
+                out = _cached_attention(q, k_all, v_all, mask, scale)
+        return _dense(self.o_proj, out.reshape(b, s, h * d), cfg)
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         self.cfg = cfg
-        e, f, wd = cfg.hidden_size, cfg.intermediate_size, cfg.weight_dtype
-        self.gate_proj = _weight(cfg, e, f, dtype=wd, device=device)
-        self.up_proj = _weight(cfg, e, f, dtype=wd, device=device)
-        self.down_proj = _weight(cfg, f, e, dtype=wd, device=device)
+        e, f = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = _projection(cfg, e, f, device)
+        self.up_proj = _projection(cfg, e, f, device)
+        self.down_proj = _projection(cfg, f, e, device)
 
     def forward(self, x):
         cfg = self.cfg
-        y = F.silu(x @ _use(self.gate_proj, cfg)) * (x @ _use(self.up_proj, cfg))
-        return y @ _use(self.down_proj, cfg)
+        xq = _quantized_input(x, cfg)
+        y = (F.silu(_dense(self.gate_proj, x, cfg, xq))
+             * _dense(self.up_proj, x, cfg, xq))
+        return _dense(self.down_proj, y, cfg)
 
 
 class RMSNorm(nn.Module):
@@ -420,14 +532,22 @@ class LlamaForCausalLM(nn.Module):
             LlamaBlock(config, i, dev) for i in range(config.num_layers))
         self.final_norm = RMSNorm(config, config.hidden_size, dev)
         # the lm_head runs in f32, as in the JAX package: serving keeps an
-        # f32 copy of the (bf16) weight instead of upcasting it every step
-        self.lm_head = _weight(config, config.hidden_size, config.vocab_size,
-                               dtype=torch.float32, device=dev)
+        # f32 copy of the (bf16) weight instead of upcasting it every
+        # step; int8 serving stores it int8 with f32 output
+        if config.quant == "int8_serving":
+            self.lm_head = Int8ServingDense(config.hidden_size,
+                                            config.vocab_size, dev,
+                                            out_dtype=torch.float32)
+        else:
+            self.lm_head = _weight(config, config.hidden_size,
+                                   config.vocab_size, dtype=torch.float32,
+                                   device=dev)
 
     def load_params(self, params) -> None:
         """Adopt a ``{name: tensor}`` dict keyed like
         ``named_parameters()``: each tensor moves to this model's device
-        and the parameter's dtype (no copy when both already match)."""
+        and the parameter's dtype and memory layout (no copy when all
+        three already match; the int8 kernels are held column-major)."""
         own = dict(self.named_parameters())
         if set(own) != set(params):
             raise ValueError(
@@ -438,12 +558,20 @@ class LlamaForCausalLM(nn.Module):
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                                  f"{tuple(p.shape)}")
-            p.data = src.to(device=p.device, dtype=p.dtype)
+            src = src.to(device=p.device, dtype=p.dtype)
+            if src.stride() != p.stride():
+                src = torch.empty_strided(p.shape, p.stride(), dtype=p.dtype,
+                                          device=p.device).copy_(src)
+            p.data = src
 
     def new_cache(self, batch: int) -> KVCache:
         return KVCache.zeros(self.config, batch, device=self.device)
 
     def lm_head_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """f32 logits of ``[*, E]`` hidden rows (the JAX engine's
+        ``_lm_head_logits``): an f32 product, or the int8 one."""
+        if isinstance(self.lm_head, Int8ServingDense):
+            return self.lm_head(hidden.float())
         return hidden.float() @ self.lm_head
 
     def forward(self, input_ids, positions=None, cache: Optional[KVCache] = None,

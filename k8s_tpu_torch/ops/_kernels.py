@@ -57,6 +57,11 @@ KERNELS = {
         # B, Hkv, G, S, D, scale, stream
         "k8s_decode_attn_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
     }),
+    "decode_attn_q8": ("decode_attn_q8.cu", {
+        # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pos, out,
+        # B, Hkv, G, S, D, scale, stream
+        "k8s_decode_attn_q8": [_P] * 9 + [_I] * 5 + [_F, _P],
+    }),
 }
 
 _lock = threading.Lock()

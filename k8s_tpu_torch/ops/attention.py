@@ -1,6 +1,6 @@
 """Attention (port of ``k8s_tpu/ops/attention.py``).
 
-Four kernels, each beside its plain PyTorch version:
+Five kernels, each beside its plain PyTorch version:
 
 - :func:`flash_fwd` — blockwise online-softmax attention forward
   (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel``). The
@@ -12,7 +12,11 @@ Four kernels, each beside its plain PyTorch version:
   Every training backward runs them.
 - :func:`decode_attention_update` — ragged single-token decode with the
   in-place cache append (``csrc/decode_attn.cu``, replacing the Pallas
-  ``_decode_attn_kernel``). Every decode step runs it.
+  ``_decode_attn_kernel``). Every decode step over a bf16 cache runs it.
+- :func:`decode_attention_update_q8` — the same over an int8 cache with
+  per-row f32 scales, quantizing the appended row in the kernel
+  (``csrc/decode_attn_q8.cu``, replacing ``_decode_attn_kernel_q8``).
+  Every decode step over an int8 cache runs it.
 
 A wrapper runs the plain version only because the tensor it was given
 lies on the CPU; for a CUDA tensor it launches the kernel or raises.
@@ -421,3 +425,122 @@ def decode_attention_update(q: torch.Tensor, k_new: torch.Tensor,
 
 
 decode_attention_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache: row quantizer and the int8-KV decode step
+# ---------------------------------------------------------------------------
+
+
+# The JAX package writes ``amax / 127.0``; XLA compiles that divide by a
+# constant as a multiply by the f32 reciprocal — in every jitted path of
+# the package (its engine, its generate) and in its interpreted Pallas
+# kernel — while ``x / scale`` stays an IEEE divide. The port computes
+# both the way the compiled reference does, so its int8 rows and scales
+# are bit-identical to the JAX package's as it serves.
+INV_127 = 1.0 / 127.0
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """Per-row symmetric int8 for KV-cache storage: x [..., D] -> (int8
+    [..., D], f32 scales [...]). Bit-exact with the JAX package's
+    quantizer as XLA compiles it: f32 amax over D clamped at 1e-6, times
+    the f32 reciprocal of 127, then ``x / scale`` (an IEEE divide)
+    rounded half to even. The prefill writes use it; the decode kernel
+    quantizes its own appends the same way."""
+    xf = x.float()
+    s8 = xf.abs().amax(dim=-1).clamp_min(1e-6) * INV_127
+    return torch.round(xf / s8[..., None]).to(torch.int8), s8
+
+
+def decode_attention_q8_plain(q, k_new, v_new, k_cache, v_cache, k_scale,
+                              v_scale, pos: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """The int8-KV decode kernel's plain version (same contract, f32
+    math): scores ``(scale q) . k_int8`` times the row's key scale over
+    ``cache[b, :, :pos[b]]``, the new token's term from the exact
+    ``k_new``/``v_new``, probs times the row's value scale before the PV
+    product; then the new row is quantized (:func:`quantize_kv_rows`) and
+    written with its scales at ``pos[b]`` in place."""
+    b, hq, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, d) * scale
+    s_cache = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float())
+    s_cache = s_cache * k_scale[:, :, None, :]
+    visible = torch.arange(s, device=q.device)[None, :] < pos[:, None].long()
+    s_cache = s_cache.masked_fill(~visible[:, None, None, :], NEG_INF)
+    s_new = (qf * k_new.float()[:, :, None]).sum(-1, keepdim=True)
+    m = torch.maximum(s_cache.amax(-1, keepdim=True), s_new)
+    p_cache = torch.exp(s_cache - m)
+    p_new = torch.exp(s_new - m)
+    l = p_cache.sum(-1, keepdim=True) + p_new
+    acc = torch.einsum("bhgk,bhkd->bhgd", p_cache * v_scale[:, :, None, :],
+                       v_cache.float())
+    acc = acc + p_new * v_new.float()[:, :, None]
+    out = (acc / l).reshape(b, hq, d).to(q.dtype)
+    rows = torch.arange(b, device=q.device)
+    for cache, sc, new in ((k_cache, k_scale, k_new), (v_cache, v_scale, v_new)):
+        qrow, srow = quantize_kv_rows(new)
+        cache[rows, :, pos.long()] = qrow
+        sc[rows, :, pos.long()] = srow
+    return out
+
+
+def decode_attention_update_q8(q: torch.Tensor, k_new: torch.Tensor,
+                               v_new: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, k_scale: torch.Tensor,
+                               v_scale: torch.Tensor, pos,
+                               scale: Optional[float] = None):
+    """int8-KV fused decode step with IN-PLACE append.
+
+    q [B, Hq, D] and k_new/v_new [B, Hkv, D] bf16; caches int8 [B, Hkv,
+    S, D] with per-row f32 scales ``[B, Hkv, S]`` (the JAX package keeps
+    ``[B, Hkv, 1, S]``, a Mosaic layout); ``pos`` scalar or [B]. Returns
+    ``(out [B, Hq, D], k_cache, v_cache, k_scale, v_scale)`` — the SAME
+    tensors, written at row ``pos[b]`` only (the new row quantized:
+    amax / 127, round half to even). On a CUDA tensor this launches
+    ``csrc/decode_attn_q8.cu`` or raises; on a CPU tensor it runs the
+    plain version."""
+    b, hq, d = q.shape
+    _, hkv, s, _ = k_cache.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    pos_v = _pos_vector(pos, b, q.device)
+    if q.device.type == "cpu":
+        out = decode_attention_q8_plain(q, k_new, v_new, k_cache, v_cache,
+                                        k_scale, v_scale, pos_v, scale)
+        return out, k_cache, v_cache, k_scale, v_scale
+    dtypes = (("q", q, torch.bfloat16), ("k_new", k_new, torch.bfloat16),
+              ("v_new", v_new, torch.bfloat16), ("k_cache", k_cache, torch.int8),
+              ("v_cache", v_cache, torch.int8), ("k_scale", k_scale, torch.float32),
+              ("v_scale", v_scale, torch.float32))
+    for name, x, dt in dtypes:
+        if not x.is_cuda or x.device != q.device:
+            raise ValueError(f"decode_attention_update_q8: {name} must be on "
+                             f"{q.device}")
+        if x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"decode_attention_update_q8: {name} must be "
+                             f"contiguous {dt}, got {x.dtype}")
+    groups = hq // hkv
+    if (d not in KERNEL_HEAD_DIMS or hq % hkv or groups not in DECODE_GROUPS
+            or tuple(k_new.shape) != (b, hkv, d)
+            or v_new.shape != k_new.shape or v_cache.shape != k_cache.shape
+            or tuple(k_scale.shape) != (b, hkv, s)
+            or v_scale.shape != k_scale.shape):
+        raise ValueError(
+            f"decode_attention_update_q8: unsupported shapes q{tuple(q.shape)} "
+            f"k_new{tuple(k_new.shape)} cache{tuple(k_cache.shape)} "
+            f"scales{tuple(k_scale.shape)}")
+    out = torch.empty_like(q)
+    lib = _kernels.lib("decode_attn_q8")
+    code = lib.k8s_decode_attn_q8(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), pos_v.data_ptr(), out.data_ptr(),
+        b, hkv, groups, s, d, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _kernels.check(code, "decode_attn_q8")
+    decode_attention_update_q8.launches += 1
+    return out, k_cache, v_cache, k_scale, v_scale
+
+
+decode_attention_update_q8.launches = 0

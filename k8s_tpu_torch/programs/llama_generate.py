@@ -11,14 +11,18 @@ Run config (``KTPU_PROGRAM_ARGS``):
   --steps=N                generation rounds (default 3)
   --seed=N                 weight-init seed (default 0)
   --device=cuda|cpu        default cuda; raises without a card
+  --quant=int8_serving     weight-only int8 (projections, MLP, lm_head)
+  --kv_quant=int8          int8 KV cache with per-row scales
 
-Weights are random from ``--seed`` and cast to bf16; restoring a
-checkpoint comes in a later slice, so a non-empty ``checkpoint_dir``
-raises. Prints one JSON line per round with tokens/sec.
+Weights are random from ``--seed`` and cast to bf16 (then quantized with
+``--quant=int8_serving``); restoring a checkpoint comes in a later
+slice, so a non-empty ``checkpoint_dir`` raises. Prints one JSON line
+per round with tokens/sec.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 
@@ -27,6 +31,7 @@ import torch
 from k8s_tpu_torch import resolve_device
 from k8s_tpu_torch.models import LlamaConfig, LlamaForCausalLM, generate
 from k8s_tpu_torch.models.convert import init_params
+from k8s_tpu_torch.ops.quant import quantize_params_for_serving
 from k8s_tpu_torch.programs.common import parse_run_config
 
 
@@ -43,18 +48,15 @@ def decode_model_config(model_name: str, max_seq: int, extra: dict,
     shared between batch generation (this program) and the
     continuous-batching server.
     ``ragged=True`` enables per-row cache depths (the engine's slot
-    contract). The port serves the unrolled layout with a bf16 cache."""
-    kv_quant = extra.get("kv_quant", "none")
-    if kv_quant != "none":
-        raise NotImplementedError(
-            f"kv_quant={kv_quant!r}: the int8 KV cache is not ported yet")
+    contract); ``--kv_quant`` picks the cache (``none`` bf16, ``int8``).
+    The port serves the unrolled layout."""
+    common = dict(ragged_decode=ragged, decode=True,
+                  kv_quant=extra.get("kv_quant", "none"))
     if model_name == "llama3-8b":
-        return LlamaConfig.llama3_8b(max_seq_len=max_seq, ragged_decode=ragged,
-                                     decode=True)
+        return LlamaConfig.llama3_8b(max_seq_len=max_seq, **common)
     # the JAX package's tiny serving layout (llama_train's head layout)
     return LlamaConfig.tiny(max_seq_len=max(max_seq, 128), num_heads=8,
-                            num_kv_heads=4, head_dim=16, ragged_decode=ragged,
-                            decode=True)
+                            num_kv_heads=4, head_dim=16, **common)
 
 
 def load_decode_params(lcfg: LlamaConfig, checkpoint_dir: str = "",
@@ -62,17 +64,25 @@ def load_decode_params(lcfg: LlamaConfig, checkpoint_dir: str = "",
                        quant: str = "") -> LlamaForCausalLM:
     """A decode model on ONE device with random weights from ``seed``,
     every f32 parameter cast to bf16 (decode re-reads every weight each
-    step, so f32 masters would double its bandwidth-bound time)."""
+    step, so f32 masters would double its bandwidth-bound time). With
+    ``quant="int8_serving"`` the model is built in that layout and each
+    projection is quantized where it lies, one tensor at a time, so an
+    8B load peaks near the bf16 weights plus one f32 tensor."""
     if checkpoint_dir:
         raise NotImplementedError(
             f"checkpoint_dir={checkpoint_dir!r}: checkpoint restore is not "
             "ported yet; serve random weights with an empty checkpoint_dir")
-    if quant:
-        raise NotImplementedError(
-            f"quant={quant!r}: weight-only int8 is not ported yet")
+    if quant not in ("", "none", "int8_serving"):
+        raise ValueError(f"unknown quant {quant!r}; expected "
+                         "'int8_serving' or none")
     dev = resolve_device(device)
+    params = init_params(lcfg, seed, dev, dtype=torch.bfloat16)
+    if quant == "int8_serving":
+        lcfg = dataclasses.replace(lcfg, quant="int8_serving")
+        for name in list(params):  # each bf16 weight freed as it goes
+            params.update(quantize_params_for_serving({name: params.pop(name)}))
     model = LlamaForCausalLM(lcfg, device=dev)
-    model.load_params(init_params(lcfg, seed, dev, dtype=torch.bfloat16))
+    model.load_params(params)
     return model
 
 

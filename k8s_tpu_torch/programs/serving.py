@@ -24,9 +24,11 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
                             (default KTPU_SERVING_MAX_QUEUE or 0 = off)
   --seed=N                  weight-init seed (default 0)
   --device=cuda|cpu         default cuda; raises without a card
+  --quant=int8_serving      weight-only int8
+  --kv_quant=int8           int8 KV cache
 The pump runs synchronously (``pipeline_depth`` is always 1). Options
 of later slices — prefix cache, speculative decode, disaggregation
-roles, migration, int8 weights or KV — raise when set.
+roles, migration — raise when set.
 
 Lifecycle events (JSON lines): ``serving_ready`` once the server
 accepts traffic, ``serving_drained`` after a SIGTERM-triggered drain.
@@ -56,7 +58,6 @@ _UNPORTED = (
     ("spec_decode_tokens", "KTPU_SERVING_SPEC_DECODE", "0"),
     ("role", "KTPU_SERVING_ROLE", ""),
     ("migration", "KTPU_SERVING_MIGRATION", "0"),
-    ("quant", None, ""),
 )
 
 
@@ -100,10 +101,11 @@ def main(rdzv) -> None:
             f"no prompt buckets fit max_seq_len={max_seq}: pass "
             "--prompt_buckets with at least one length < max_seq_len")
 
+    quant = extra.get("quant", "")
     lcfg = decode_model_config(model_name, max_seq, extra, ragged=True)
     model = load_decode_params(lcfg, cfg.checkpoint_dir,
                                seed=int(extra.get("seed", "0")),
-                               device=device)
+                               device=device, quant=quant)
     engine = ContinuousBatchingEngine(
         model, max_slots=max_slots, temperature=temperature, eos_id=eos_id,
         decode_chunk=decode_chunk, prompt_buckets=buckets,
@@ -125,6 +127,7 @@ def main(rdzv) -> None:
         "max_tokens_per_round": engine.max_tokens_per_round,
         "max_queue_depth": max_queue_depth,
         "prefix_cache_tokens": 0, "role": "", "spec_decode_tokens": 0,
+        "quant": quant or "none", "kv_quant": lcfg.kv_quant,
         "restored": False,
     }), flush=True)
     frontend.serve(should_stop=preempt_requested)

@@ -22,7 +22,11 @@ Slot-based ragged batching, as in the JAX package:
 Inactive slots still compute (static shapes): a frozen slot decodes at
 ``min(length, max_seq - 1)`` and writes its garbage row there, masked
 until the slot's next occupant overwrites it. Every cache write is in
-place on the engine's one cache tensor per layer.
+place on the engine's one cache tensor per layer. With an int8 KV cache
+(``kv_quant="int8"``) the big cache and every staged working cache
+carry their per-row scales (:class:`~k8s_tpu_torch.models.KVCache`),
+and the slot views and the working-cache copy take them along, as the
+JAX engine's scale leaves are scattered with the rows.
 
 This port runs the pump synchronously (pipeline depth 1, no harvester
 threads); the prefix cache, speculative decode, the disaggregation and

@@ -8,9 +8,11 @@ no JAX (the repo's conftest imports JAX, hence ``--noconftest``):
 Tests marked ``gpu`` hold each kernel against its plain PyTorch version
 computed in f32, at the serving and training shapes, with chip_smoke.py's
 limits (the largest row error ||out - ref|| / ||ref||: 8e-3 for the flash
-forward, which also rounds P to bf16, 5e-3 for decode, 1e-2 for each of
-dq, dk and dv of the flash backward, which rounds P and dS to bf16; f32
-lse 1e-4 absolute); without a CUDA device they skip.
+forward, which also rounds P to bf16, 5e-3 for decode over a bf16 or an
+int8 cache, 1e-2 for each of dq, dk and dv of the flash backward, which
+rounds P and dS to bf16; f32 lse 1e-4 absolute; the int8 rows and
+scales the int8-KV decode kernel appends bit-equal); without a CUDA
+device they skip.
 """
 
 import pathlib
@@ -21,7 +23,7 @@ import sys
 import pytest
 import torch
 
-from chip_smoke import (DECODE_REL_TOL, FLASH_BWD_REL_TOL,
+from chip_smoke import (DECODE_Q8_REL_TOL, DECODE_REL_TOL, FLASH_BWD_REL_TOL,
                         FLASH_BWD_ROW_FLOOR, FLASH_LSE_TOL, FLASH_REL_TOL,
                         row_rel_err)
 from k8s_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
@@ -60,8 +62,11 @@ def test_cuda_config_check_refuses_configs_without_a_kernel():
     f32 model or another group size raise instead of running plain
     attention there. Pure config logic, so it runs here too."""
     check_cuda_config(LlamaConfig.llama3_8b())
+    check_cuda_config(LlamaConfig.llama3_8b(decode=True, kv_quant="int8",
+                                            quant="int8_serving"))
     for cfg in (LlamaConfig.tiny(),
                 LlamaConfig.tiny(dtype=torch.bfloat16),
+                LlamaConfig.tiny(dtype=torch.bfloat16, kv_quant="int8"),
                 LlamaConfig.llama3_8b(dtype=torch.float32),
                 LlamaConfig.llama3_8b(num_kv_heads=4)):
         with pytest.raises(ValueError, match="no CUDA kernel instance"):
@@ -172,6 +177,35 @@ def test_decode_kernel_matches_plain_on_card(cuda, pos):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pos", [[0, 255, 7, 130], [64, 63, 1, 200]])
+def test_decode_q8_kernel_matches_plain_on_card(cuda, pos):
+    """K5 against its plain version on the same int8 cache: out within
+    the decode limit, and the caches and scales after the append (the
+    new row quantized in the kernel) bit-equal everywhere."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).bfloat16()  # noqa: E731
+    q, kn, vn = rnd(4, 32, 128), rnd(4, 8, 128), rnd(4, 8, 128)
+    kc, ks = tattn.quantize_kv_rows(rnd(4, 8, 256, 128))
+    vc, vs = tattn.quantize_kv_rows(rnd(4, 8, 256, 128))
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    got = [t.clone() for t in (kc, vc, ks, vs)]
+    want = [t.clone() for t in (kc, vc, ks, vs)]
+    n0 = tattn.decode_attention_update_q8.launches
+    out, k_out, *_ = tattn.decode_attention_update_q8(q, kn, vn, *got, pos)
+    ref = tattn.decode_attention_q8_plain(*_f32(q, kn, vn), *want, pos,
+                                          128 ** -0.5)
+    assert tattn.decode_attention_update_q8.launches == n0 + 1
+    assert k_out is got[0]  # in place
+    assert row_rel_err(out, ref) <= DECODE_Q8_REL_TOL
+    at_pos = torch.zeros(4, 8, 256, dtype=torch.bool, device=cuda)
+    at_pos[torch.arange(4, device=cuda), :, pos.long()] = True
+    for x, y, old in zip(got, want, (kc, vc, ks, vs)):
+        assert torch.equal(x, y)
+        changed = (x != old).any(-1) if x.dim() == 4 else x != old
+        assert not (changed & ~at_pos).any()  # only row pos[b] moved
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros(1, 16, 4, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
@@ -195,3 +229,10 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     cache = torch.zeros(2, 2, 64, 128, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
         tattn.decode_attention_update(qd, kn, kn, cache, cache.clone(), 3)
+    # the int8-KV kernel takes int8 caches and f32 scales only
+    kn8 = torch.zeros(2, 8, 128, dtype=torch.bfloat16, device=cuda)
+    c8 = torch.zeros(2, 8, 64, 128, dtype=torch.bfloat16, device=cuda)
+    sc = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        tattn.decode_attention_update_q8(qd, kn8, kn8, c8, c8.clone(), sc,
+                                         sc.clone(), 3)

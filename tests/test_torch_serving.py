@@ -226,16 +226,21 @@ def test_program_main_cpu_emits_ready_and_drains(monkeypatch, capsys):
 
     monkeypatch.setenv("KTPU_PREEMPT_REQUESTED", "1")
     monkeypatch.setenv("KTPU_PREEMPT_AWARE", "0")
-    rdzv = types.SimpleNamespace(
-        program_args="--device=cpu --max_seq_len=64 --max_slots=2 "
-                     "--host=127.0.0.1")
-    prog.main(rdzv)
-    events = [json.loads(line) for line in capsys.readouterr().out.splitlines()
-              if line.startswith("{")]
-    ready = next(e for e in events if e.get("event") == "serving_ready")
-    assert ready["port"] > 0 and ready["device"] == "cpu"
-    assert ready["prompt_buckets"] == [16, 32]
-    assert any(e.get("event") == "serving_drained" for e in events)
+    for flags, quant, kv_quant in (
+            ("", "none", "none"),
+            ("--quant=int8_serving --kv_quant=int8", "int8_serving", "int8")):
+        rdzv = types.SimpleNamespace(
+            program_args="--device=cpu --max_seq_len=64 --max_slots=2 "
+                         f"--host=127.0.0.1 {flags}")
+        prog.main(rdzv)
+        events = [json.loads(line)
+                  for line in capsys.readouterr().out.splitlines()
+                  if line.startswith("{")]
+        ready = next(e for e in events if e.get("event") == "serving_ready")
+        assert ready["port"] > 0 and ready["device"] == "cpu"
+        assert ready["prompt_buckets"] == [16, 32]
+        assert (ready["quant"], ready["kv_quant"]) == (quant, kv_quant)
+        assert any(e.get("event") == "serving_drained" for e in events)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         prog.main(types.SimpleNamespace(
             program_args="--device=cpu --checkpoint_dir=/nonexistent"))
@@ -243,17 +248,23 @@ def test_program_main_cpu_emits_ready_and_drains(monkeypatch, capsys):
 
 def test_llama_generate_main_cpu(capsys):
     """programs.llama_generate.main with --device=cpu: random tiny
-    weights, one JSON line per generation round."""
+    weights, one JSON line per generation round — bf16, and with int8
+    weights and an int8 KV cache."""
     from k8s_tpu_torch.programs import llama_generate as prog
 
-    prog.main(types.SimpleNamespace(
-        program_args="--device=cpu --batch_size=2 --prompt_len=5 "
-                     "--new_tokens=3 --steps=2"))
-    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
-             if line.startswith("{")]
-    assert [ln["step"] for ln in lines] == [1, 2]
-    assert all(ln["tokens_per_sec"] > 0 and ln["device"] == "cpu"
-               for ln in lines)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
+    for flags in ("", "--kv_quant=int8 --quant=int8_serving"):
         prog.main(types.SimpleNamespace(
-            program_args="--device=cpu --kv_quant=int8"))
+            program_args="--device=cpu --batch_size=2 --prompt_len=5 "
+                         f"--new_tokens=3 --steps=2 {flags}"))
+        lines = [json.loads(line)
+                 for line in capsys.readouterr().out.splitlines()
+                 if line.startswith("{")]
+        assert [ln["step"] for ln in lines] == [1, 2]
+        assert all(ln["tokens_per_sec"] > 0 and ln["device"] == "cpu"
+                   for ln in lines)
+    with pytest.raises(ValueError, match="kv_quant"):
+        prog.main(types.SimpleNamespace(
+            program_args="--device=cpu --kv_quant=fp8"))
+    with pytest.raises(ValueError, match="unknown quant"):
+        prog.main(types.SimpleNamespace(
+            program_args="--device=cpu --quant=int8"))
