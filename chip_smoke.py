@@ -40,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -109,6 +110,9 @@ GRAD_ORACLE_TOL = 5e-2
 # against another request's logits.
 ORACLE_Q8_LOGIT_TOL = 1.0
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 8, 10, 2048, 8
+# K1's tile config -> its kernel instance (csrc/flash_fwd.cu, templated on
+# the number of consumer warpgroups), as torch.profiler names it
+K1_INSTANCES = {0: "flash_fwd_kernel<2>", 1: "flash_fwd_kernel<1>"}
 
 
 def fail(msg: str) -> None:
@@ -120,22 +124,32 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
-    """Device time per call: the device-side events (kernels, memcpy,
-    memset) that torch.profiler records over ``reps`` calls, summed."""
+def _profiled(torch, fn, reps: int):
+    """key_averages() of ``reps`` calls of ``fn`` under torch.profiler
+    (after one warm-up call). A session that records no device event at
+    all is taken once more before giving up: one came back empty in a
+    process that had opened ~40 sessions (PERF.md)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total_us <= 0:
-        fail("torch.profiler recorded no device time")
-    return total_us / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if events:
+            return events
+    fail("torch.profiler recorded no device time")
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Device time per call: the device-side events (kernels, memcpy,
+    memset) that torch.profiler records over ``reps`` calls, summed."""
+    return sum(e.self_device_time_total for e in _profiled(torch, fn, reps)) / 1e3 / reps
 
 
 def call_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -156,20 +170,11 @@ def call_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 def kernel_ms(torch, fn, names, reps: int = 5):
     """Device time per call of each kernel whose name contains one of
     ``names`` (torch.profiler over ``reps`` calls of ``fn``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {n: 0.0 for n in names}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for n in names:
-                if n in e.key:
-                    out[n] += e.self_device_time_total / 1e3 / reps
+    for e in _profiled(torch, fn, reps):
+        for n in names:
+            if n in e.key:
+                out[n] += e.self_device_time_total / 1e3 / reps
     if not all(out.values()):
         fail(f"torch.profiler recorded no device time for {out}")
     return out
@@ -197,24 +202,53 @@ def sdpa(torch, q, k, v, **kw):
     return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
-def phase_flash(torch, attn, gen):
-    """K1 against its plain version: B=1, Hq 32, Hkv 8, D 128, causal."""
-    b, hq, hkv, d = 1, 32, 8, 128
+def phase_flash(torch, attn, kernels, gen):
+    """K1 against its plain version, Hq 32, Hkv 8, D 128: causal at B 1
+    over the serving sweep S 16, 100, 256, 512, 1024, 2048 (each also
+    timed under both tile configs: _flash_fwd_config's threshold)
+    and at the training shape B 8 S 2048; then the edges of the tiling at
+    B 2 — ragged causal S 129, 1000, 2047, non-causal Sq 300 over Sk 777,
+    and q/k/v as strided views of one fused [B, S, Hq + 2 Hkv, D]
+    tensor (the tensor maps' strides)."""
+    hq, hkv, d = 32, 8, 128
     scale = 1.0 / d ** 0.5
-    rows, worst, worst_rel, headline, faults = [], 0.0, 0.0, None, {}
-    for s in (16, 100, 256, 2048):
-        q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
-        k = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
-        v = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
-        out, lse = attn.flash_fwd(q, k, v, True, scale, with_lse=True)
-        ref, ref_lse = attn.flash_fwd_plain(q.float(), k.float(), v.float(), True, scale)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+
+    def check(what, q, k, v, causal):
+        out, lse = attn.flash_fwd(q, k, v, causal, scale, with_lse=True)
+        ref, ref_lse = attn.flash_fwd_plain(q.float(), k.float(), v.float(), causal, scale)
         torch.cuda.synchronize()
-        err = row_rel_err(out, ref)
-        abs_err = (out.float() - ref).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        if not (err <= FLASH_REL_TOL and lse_err <= FLASH_LSE_TOL):
-            fail(f"flash_fwd S={s}: row error {err} (tol {FLASH_REL_TOL}), "
-                 f"lse err {lse_err} (tol {FLASH_LSE_TOL})")
+        row = {"rel_err": row_rel_err(out, ref),
+               "max_abs_err": (out.float() - ref).abs().max().item(),
+               "lse_err": (lse - ref_lse).abs().max().item(),
+               "config": attn._flash_fwd_config(q.shape[0], q.shape[1], hq)}
+        if not (row["rel_err"] <= FLASH_REL_TOL and row["lse_err"] <= FLASH_LSE_TOL):
+            fail(f"flash_fwd {what}: {row} (tol {FLASH_REL_TOL}, lse {FLASH_LSE_TOL})")
+        return row, ref, ref_lse
+
+    def timed(row, b, s, q, k, v, plain=False):
+        kernel = lambda: attn.flash_fwd(q, k, v, True, scale)  # noqa: E731
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library = sdpa(torch, qt, kt, vt, is_causal=True)
+        nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+        flops = 4 * b * hq * d * s * (s + 1) / 2  # visible causal pairs
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        # both tile configs in one profiler session, told apart by instance
+        both = kernel_ms(torch, lambda: [attn.flash_fwd(q, k, v, True, scale, config=c)
+                                         for c in K1_INSTANCES], list(K1_INSTANCES.values()), reps=10)
+        row["config_ms"] = {str(c): both[name] for c, name in K1_INSTANCES.items()}
+        row["ms"] = row["config_ms"][str(row["config"])]
+        row["tflops"] = flops / row["ms"] / 1e9
+        if plain:
+            row["plain_ms"] = device_ms(torch, lambda: attn.flash_fwd_plain(q, k, v, True, scale), reps=1)
+        row["library_ms"] = device_ms(torch, library)
+        row["call_ms"] = call_ms(torch, kernel)
+        row["library_call_ms"] = call_ms(torch, library)
+
+    rows, faults = [], {}
+    for s in (16, 100, 256, 512, 1024, 2048):
+        q, k, v = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d)
+        row, ref, ref_lse = check(f"B=1 S={s}", q, k, v, True)
         if s == 2048:
             # planted faults: the last query row without its last n keys,
             # rounded to bf16 as the kernel's output would be
@@ -230,34 +264,51 @@ def phase_flash(torch, attn, gen):
                     and caught["lse_err"] > FLASH_LSE_TOL):
                 fail(f"flash_fwd: the tolerances do not see a planted fault "
                      f"({FAULT_ROWS} keys dropped): {caught}")
-        kernel = lambda: attn.flash_fwd(q, k, v, True, scale)  # noqa: E731
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        library = sdpa(torch, qt, kt, vt, is_causal=True)
-        nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-        flops = 4 * b * hq * d * s * (s + 1) / 2  # visible causal pairs
-        bound_ms, by = bound(nbytes, flops)
-        row = {"S": s, "rel_err": err, "max_abs_err": abs_err, "lse_err": lse_err,
-               "ms": device_ms(torch, kernel),
-               "plain_ms": device_ms(torch, lambda: attn.flash_fwd_plain(q, k, v, True, scale), reps=3),
-               "library_ms": device_ms(torch, library),
-               "bound_ms": bound_ms, "bound_by": by,
-               "call_ms": call_ms(torch, kernel),
-               "library_call_ms": call_ms(torch, library)}
-        rows.append(row)
-        worst, worst_rel = max(worst, abs_err), max(worst_rel, err)
-        if s == 256:
-            headline = row
-    emit({"phase": "flash_fwd", "shape": "B=1 Hq=32 Hkv=8 D=128 causal bf16",
+        timed(row, 1, s, q, k, v, plain=s == 256)
+        rows.append(dict(row, B=1, S=s))
+    headline = next(r for r in rows if r["S"] == 256)
+
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d)
+    train, _, _ = check(f"B={b} S={s}", q, k, v, True)
+    timed(train, b, s, q, k, v, plain=True)
+    del q, k, v
+
+    edges = []
+    for sq, sk, causal, fused in ((129, 129, True, False), (1000, 1000, True, False),
+                                  (2047, 2047, True, False), (300, 777, False, False),
+                                  (1000, 1000, True, True)):
+        if fused:
+            qkv = rnd(2, sq, hq + 2 * hkv, d)
+            q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+        else:
+            q, k, v = rnd(2, sq, hq, d), rnd(2, sk, hkv, d), rnd(2, sk, hkv, d)
+        row, _, _ = check(f"B=2 Sq={sq} Sk={sk} causal={causal} fused={fused}",
+                          q, k, v, causal)
+        edges.append(dict(row, B=2, Sq=sq, Sk=sk, causal=causal, fused_qkv=fused))
+
+    # registers, spills (ptxas -v) and dynamic shared memory of both instances
+    log = kernels.build_log("flash_fwd")
+    ptxas = [ln.strip() for ln in log.splitlines() if "flash_fwd_kernel" in ln
+             or "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
+    spill_bytes = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
+    smem = {str(c): kernels.lib("flash_fwd").k8s_flash_fwd_smem_bytes(c)
+            for c in attn.FLASH_FWD_TILES}
+    emit({"phase": "flash_fwd", "shape": "Hq=32 Hkv=8 D=128 bf16",
           "rel_tol": FLASH_REL_TOL, "lse_tol": FLASH_LSE_TOL,
-          "planted_faults_S2048": faults, "rows": rows})
-    return dict(headline, max_abs_err=worst, rel_err=worst_rel)
+          "planted_faults_S2048": faults, "rows_B1_causal": rows,
+          "train_shape": dict(train, B=b, S=s), "edges_B2": edges,
+          "ptxas": ptxas, "spill_bytes": spill_bytes, "dynamic_smem_bytes": smem})
+    worst = max([*rows, train, *edges], key=lambda r: r["rel_err"])
+    return dict(headline, max_abs_err=max(r["max_abs_err"] for r in [*rows, train, *edges]),
+                rel_err=worst["rel_err"], train=train)
 
 
 def phase_flash_bwd(torch, attn, gen):
     """K2 and K3 against their plain version in f32: B=2, Hq 32, Hkv 8,
     D 128, causal at S 128, 1000 (ragged tail) and 2048, and non-causal
-    at S 777; then K1, K2, K3, the plain backward and SDPA's backward
-    timed at the training shape (B=8, S=2048, causal)."""
+    at S 777; then K2, K3, the plain backward and SDPA's backward timed
+    at the training shape (B=8, S=2048, causal)."""
     b, hq, hkv, d = 2, 32, 8, 128
     scale = 1.0 / d ** 0.5
     rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
@@ -309,9 +360,8 @@ def phase_flash_bwd(torch, attn, gen):
     b, s = TRAIN_BATCH, TRAIN_SEQ
     q, k, v, do = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
     out, lse = attn.flash_fwd(q, k, v, True, scale, with_lse=True)
-    names = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-    t_fwd = kernel_ms(torch, lambda: attn.flash_fwd(q, k, v, True, scale, with_lse=True), names[:1])
-    t_bwd = kernel_ms(torch, lambda: attn.flash_bwd(q, k, v, out, lse, do, True, scale), names[1:])
+    names = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    t_bwd = kernel_ms(torch, lambda: attn.flash_bwd(q, k, v, out, lse, do, True, scale), names)
     bwd_ms = device_ms(torch, lambda: attn.flash_bwd(q, k, v, out, lse, do, True, scale))
     plain_ms = device_ms(torch, lambda: attn.flash_bwd_plain(q, k, v, out, lse, do, True, scale), reps=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
@@ -320,20 +370,16 @@ def phase_flash_bwd(torch, attn, gen):
     dot = do.transpose(1, 2).contiguous()
     library_ms = device_ms(torch, lambda: torch.autograd.grad(
         o_sdpa, (qt, kt, vt), dot, retain_graph=True))
-    library_fwd_ms = device_ms(torch, sdpa(torch, qt.detach(), kt.detach(), vt.detach(), is_causal=True))
     pairs = s * (s + 1) / 2  # visible causal (query, key) pairs per head
     qo_bytes = 2 * b * s * hq * d           # one bf16 [B, S, Hq, D] tensor
     kv_bytes = 2 * b * s * hkv * d          # one bf16 [B, S, Hkv, D] tensor
     row_bytes = 4 * b * hq * s              # one f32 [B, Hq, S] row tensor
-    k1 = bound(2 * qo_bytes + 2 * kv_bytes + row_bytes, 4 * b * hq * d * pairs)
     k2 = bound(3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, 6 * b * hq * d * pairs)
     k3 = bound(2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes, 8 * b * hq * d * pairs)
     train = {
         "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal bf16",
-        "k1_ms": t_fwd[names[0]], "k1_bound_ms": k1[0], "k1_bound_by": k1[1],
-        "k1_library_ms": library_fwd_ms,
-        "k2_ms": t_bwd[names[1]], "k2_bound_ms": k2[0], "k2_bound_by": k2[1],
-        "k3_ms": t_bwd[names[2]], "k3_bound_ms": k3[0], "k3_bound_by": k3[1],
+        "k2_ms": t_bwd[names[0]], "k2_bound_ms": k2[0], "k2_bound_by": k2[1],
+        "k3_ms": t_bwd[names[1]], "k3_bound_ms": k3[0], "k3_bound_by": k3[1],
         "flash_bwd_ms": bwd_ms, "plain_bwd_ms": plain_ms,
         "sdpa_bwd_ms": library_ms}
     emit({"phase": "flash_bwd", "shape": "B=2 Hq=32 Hkv=8 D=128 bf16",
@@ -349,7 +395,6 @@ def phase_flash_bwd(torch, attn, gen):
         "flash_bwd_dkv": dict(common, max_abs_err=worst_abs["dkv"],
                               rel_err=max(worst["dk"], worst["dv"]),
                               ms=train["k3_ms"], bound_ms=k3[0], bound_by=k3[1]),
-        "k1_train": {"ms": train["k1_ms"], "bound_ms": k1[0], "library_ms": library_fwd_ms},
     }
 
 
@@ -422,8 +467,8 @@ def phase_decode(torch, attn, gen):
 def phase_decode_q8(torch, attn, gen):
     """K5 against its plain version: B=16 slots, S=8192, Hq 32, Hkv 8,
     D 128, ragged pos over [0, S) with 0 and S - 1, caches quantized
-    from seeded bf16 rows; K4 timed at the same positions over those
-    bf16 rows."""
+    from seeded bf16 rows; K4 and SDPA timed at the same positions over
+    those bf16 rows."""
     b, hq, hkv, s, d = 16, 32, 8, 8192, 128
     scale = 1.0 / d ** 0.5
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
@@ -505,6 +550,12 @@ def phase_decode_q8(torch, attn, gen):
            "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
            "k4_same_pos_ms": device_ms(torch, k4),
            "k4_same_pos_bound_ms": k4_bound_ms, "k4_bytes": k4_bytes,
+           # the library yardstick for K4 at these positions: SDPA over the
+           # bf16 rows, visibility mask as above
+           "k4_same_pos_library_ms": device_ms(torch, sdpa(
+               torch, q[:, :, None], kb4, vb4, attn_mask=visible[:, None, None, :])),
+           "k4_same_pos_plain_ms": device_ms(torch, lambda: attn.decode_attention_plain(
+               q, kn, vn, kb, vb, pos, scale), reps=3),
            "call_ms": call_ms(torch, kernel),
            "library_call_ms": call_ms(torch, library)}
     emit({"phase": "decode_attn_q8",
@@ -1143,7 +1194,7 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    k1 = phase_flash(torch, attn, gen)
+    k1 = phase_flash(torch, attn, _kernels, gen)
     bwd = phase_flash_bwd(torch, attn, gen)
     k4 = phase_decode(torch, attn, gen)
     k5 = phase_decode_q8(torch, attn, gen)
@@ -1172,10 +1223,12 @@ def main() -> None:
     emit({"kernels": [
         dict(entry("flash_fwd", "k8s_tpu_torch/csrc/flash_fwd.cu",
                    "k8s_tpu/ops/attention.py:185", k1),
-             shape="B=1 S=256 Hq=32 Hkv=8 D=128 causal (errors: worst over S in 16,100,256,2048)",
-             train_shape_ms=bwd["k1_train"]["ms"],
-             train_shape_bound_ms=bwd["k1_train"]["bound_ms"],
-             train_shape_library_ms=bwd["k1_train"]["library_ms"]),
+             shape="B=1 S=256 Hq=32 Hkv=8 D=128 causal (errors: worst over B=1 S in "
+                   "16..2048, B=8 S=2048 and the B=2 edges)",
+             train_shape_ms=k1["train"]["ms"],
+             train_shape_bound_ms=k1["train"]["bound_ms"],
+             train_shape_library_ms=k1["train"]["library_ms"],
+             train_shape_tflops=k1["train"]["tflops"]),
         entry("flash_bwd_dq", "k8s_tpu_torch/csrc/flash_bwd.cu",
               "k8s_tpu/ops/attention.py:354", bwd["flash_bwd_dq"])
         | {"shape": bwd["flash_bwd_dq"]["shape"],
@@ -1192,6 +1245,8 @@ def main() -> None:
              shape="B=16 S=8192 Hq=32 Hkv=8 D=128 int8 cache, ragged pos",
              k4_same_pos_ms=k5["k4_same_pos_ms"],
              k4_same_pos_bound_ms=k5["k4_same_pos_bound_ms"],
+             k4_same_pos_library_ms=k5["k4_same_pos_library_ms"],
+             k4_same_pos_plain_ms=k5["k4_same_pos_plain_ms"],
              note="library_ms: SDPA over the cache dequantized to bf16 "
                   "(dequantization not timed)"),
     ]})

@@ -5,9 +5,12 @@ into its own shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers: a few seconds per source instead of
 minutes). The build runs at first use, from the sources in the
 checkout only, into ``k8s_tpu_torch/build/`` (git-ignored); one
-``nvcc`` per source, all started together. A library is keyed by a
-hash of its source and flags, so an edited source rebuilds and an
-unchanged one is reused.
+``nvcc`` per source, all started together. A source may include the
+shared header ``csrc/hopper.cuh`` (TMA tensor maps and loads, mbarrier
+rings, wgmma descriptors and products, ``setmaxnreg``). A library is
+keyed by a hash of its source, every ``csrc/*.cuh`` header and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.
 
 Every C entry point takes device pointers, sizes, strides and the CUDA
 stream, launches on that stream without synchronising or allocating,
@@ -41,8 +44,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", {
         # q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D,
-        # q/k/v/o strides (batch, seq, head), scale, causal, stream
-        "k8s_flash_fwd_bf16": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
+        # q/k/v/o strides (batch, seq, head), scale, causal, tile config,
+        # stream
+        "k8s_flash_fwd_bf16": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _I, _I, _P],
+        # tile config -> dynamic shared memory per block (bytes)
+        "k8s_flash_fwd_smem_bytes": [_I],
     }),
     "flash_bwd": ("flash_bwd.cu", {
         # q, k, v, dout, lse, dd, dq, B, Sq, Sk, Hq, Hkv, D,
@@ -82,10 +88,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``name``'s library is built: keyed by its source, the bytes
+    of every header under ``csrc/`` (any source may include any) and
+    the nvcc flags."""
+    digest = hashlib.sha1((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_log(name: str) -> str:

@@ -3,9 +3,10 @@
 Five kernels, each beside its plain PyTorch version:
 
 - :func:`flash_fwd` — blockwise online-softmax attention forward
-  (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel``). The
-  engine's one-shot prefill of a fresh cache and every training
-  forward run it.
+  (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel``: TMA
+  loads and ``wgmma`` products, with a tile size chosen per call by
+  :func:`_flash_fwd_config`). The engine's one-shot prefill of a fresh
+  cache and every training forward run it.
 - :func:`flash_bwd` — the flash backward: dQ (``_bwd_dq_kernel``) and
   dK/dV summed over the GQA group (``_bwd_dkv_kernel``), both in
   ``csrc/flash_bwd.cu``, recomputing P from the forward's logsumexp.
@@ -52,6 +53,14 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128,)
 # query heads per kv head the decode kernel is instantiated for
 DECODE_GROUPS = (4,)
+# csrc/flash_fwd.cu's two instances: config -> (query rows, keys) per
+# block. 0 runs two consumer warpgroups, 1 one.
+FLASH_FWD_TILES = {0: (128, 128), 1: (64, 128)}
+# 128-row tiles need at least this many blocks, else 64-row tiles
+# (twice the blocks) finish first. On an H100 (132 SMs), causal, B 1,
+# Hq 32: 64 blocks of 128 rows (S 256) 0.0078 ms against 0.0061 for 128
+# of 64; 128 blocks (S 512) 0.0115 against 0.0127 (PERF.md)
+FLASH_FWD_MIN_BLOCKS = 128
 
 
 def _attention_f32(q, k, v, causal: bool, scale: float, segment_ids=None):
@@ -106,14 +115,26 @@ def _check_bhsd(name: str, x: torch.Tensor) -> None:
             f"multiple of 8 and 16-byte alignment (strides {x.stride()})")
 
 
+def _flash_fwd_config(b: int, sq: int, hq: int) -> int:
+    """The forward kernel's tile configuration for a call (a key of
+    :data:`FLASH_FWD_TILES`): 128-row query tiles when they make enough
+    blocks to fill the card, else 64-row tiles. The key length does not
+    enter: both stream the same 128-key tiles."""
+    blocks = b * hq * -(-sq // FLASH_FWD_TILES[0][0])
+    return 0 if blocks >= FLASH_FWD_MIN_BLOCKS else 1
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool, scale: float, with_lse: bool = False):
+              causal: bool, scale: float, with_lse: bool = False,
+              config: Optional[int] = None):
     """Flash attention forward. q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D];
     returns ``out`` (q's layout and dtype), or ``(out, lse [B, Hq,
     Sq] f32)`` with ``with_lse``. On a CUDA tensor this launches
     ``csrc/flash_fwd.cu`` (bf16, D in KERNEL_HEAD_DIMS, causal only with
-    Sq == Sk) or raises; on a CPU tensor it runs the plain version (in
-    f32 when given f32)."""
+    Sq == Sk, scale > 0) with the tiles of ``config`` — None takes
+    :func:`_flash_fwd_config`'s choice; the tests and chip_smoke.py's
+    sweep force each — or raises; on a CPU tensor it runs the plain
+    version (in f32 when given f32)."""
     if q.device.type == "cpu":
         out, lse = flash_fwd_plain(q, k, v, causal, scale)
         return (out, lse) if with_lse else out
@@ -122,6 +143,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, sk, hkv, _ = k.shape
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_bhsd(name, x)
+    if not scale > 0:
+        raise ValueError(f"flash_fwd: the kernel takes scale > 0, got {scale}")
+    if config is None:
+        config = _flash_fwd_config(b, sq, hq)
+    if config not in FLASH_FWD_TILES:
+        raise ValueError(f"flash_fwd: config {config} not in {list(FLASH_FWD_TILES)}")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -131,7 +158,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr() if lse is not None else None,
         b, sq, sk, hq, hkv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        float(scale), int(bool(causal)),
+        float(scale), int(bool(causal)), config,
         torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check(code, "flash_fwd")
     flash_fwd.launches += 1

@@ -105,6 +105,32 @@ def test_flash_kernel_matches_plain_on_card(cuda, s):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("config", [0, 1])
+@pytest.mark.parametrize("sq,sk,causal,fused", [
+    (129, 129, True, False), (1000, 1000, True, False),
+    (2047, 2047, True, False), (300, 777, False, False),
+    (1000, 1000, True, True)])
+def test_flash_kernel_tiling_edges_on_card(cuda, config, sq, sk, causal, fused):
+    """K1 under both tile configs at B 2: ragged tails (lengths that are
+    not multiples of 128), Sq != Sk non-causal, and q/k/v as strided
+    views of one fused [B, S, Hq + 2 Hkv, D] tensor (the tensor maps'
+    strides)."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).bfloat16()  # noqa: E731
+    if fused:
+        qkv = rnd(2, sq, 48, 128)
+        q, k, v = qkv[:, :, :32], qkv[:, :, 32:40], qkv[:, :, 40:]
+    else:
+        q, k, v = rnd(2, sq, 32, 128), rnd(2, sk, 8, 128), rnd(2, sk, 8, 128)
+    out, lse = tattn.flash_fwd(q, k, v, causal, 128 ** -0.5, with_lse=True,
+                               config=config)
+    ref, ref_lse = tattn.flash_fwd_plain(*_f32(q, k, v), causal, 128 ** -0.5)
+    assert out.is_contiguous() and out.shape == q.shape
+    assert row_rel_err(out, ref) <= FLASH_REL_TOL
+    assert (lse - ref_lse).abs().max().item() <= FLASH_LSE_TOL
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("s,sk,causal", [(128, 128, True), (1000, 1000, True),
                                          (200, 237, False)])
 def test_flash_bwd_kernels_match_plain_on_card(cuda, s, sk, causal):
@@ -215,6 +241,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     f32 = torch.zeros(1, 16, 4, 128, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         tattn.flash_fwd(f32, f32, f32, True, 1.0)
+    bf = f32.bfloat16()
+    with pytest.raises(ValueError, match="scale > 0"):
+        tattn.flash_fwd(bf, bf, bf, True, 0.0)
+    with pytest.raises(ValueError, match="config"):
+        tattn.flash_fwd(bf, bf, bf, True, 1.0, config=2)
     # the backward kernels: head dim 64 has no instance, f32 is refused
     q64 = torch.zeros(1, 16, 4, 64, dtype=torch.bfloat16, device=cuda)
     lse = torch.zeros(1, 4, 16, device=cuda)
