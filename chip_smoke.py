@@ -186,14 +186,30 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def row_rel_err(out, ref, floor: float = 0.0) -> float:
+def row_rel_err(out, ref, floor: float = 0.0, floor_of=None) -> float:
     """Largest error of a row (the last axis): ||out - ref|| / ||ref||,
-    with ||ref|| raised to ``floor`` times the largest row norm."""
+    with ||ref|| raised to ``floor`` times the largest row norm of
+    ``floor_of`` (default: ref itself)."""
     ref = ref.float()
     diff = (out.float() - ref).norm(dim=-1)
     norms = ref.norm(dim=-1)
-    denom = norms.clamp_min(max(floor * norms.max().item(), 1e-30))
+    top = (norms if floor_of is None else floor_of.float().norm(dim=-1)).max().item()
+    denom = norms.clamp_min(max(floor * top, 1e-30))
     return (diff / denom).max().item()
+
+
+def uncancelled_dq_dk(q, k, v, do, scale):
+    """scale * dP * K and scale * dP * Q (f32, dP = dO . V per query row),
+    what dq and dk would be with one visible key and no cancellation.
+    At causal S 1 that is the situation: P = 1, dS = dP - D = 0 in exact
+    math, so dq and dk vanish and their reference rows are rounding
+    noise; their floor is taken from these instead (FLASH_BWD_ROW_FLOOR
+    of it), so the limit says they are zero to 1e-5 of their terms."""
+    hq, hkv = q.shape[2], k.shape[2]
+    kx, vx = (x.float().repeat_interleave(hq // hkv, dim=2) for x in (k, v))
+    dp = (do.float() * vx).sum(-1, keepdim=True)
+    dk = (dp * q.float()).reshape(*q.shape[:2], hkv, hq // hkv, -1).sum(3)
+    return scale * dp * kx, scale * dk
 
 
 def sdpa(torch, q, k, v, **kw):
@@ -304,34 +320,46 @@ def phase_flash(torch, attn, kernels, gen):
                 rel_err=worst["rel_err"], train=train)
 
 
-def phase_flash_bwd(torch, attn, gen):
+def phase_flash_bwd(torch, attn, kernels, gen):
     """K2 and K3 against their plain version in f32: B=2, Hq 32, Hkv 8,
     D 128, causal at S 128, 1000 (ragged tail) and 2048, and non-causal
-    at S 777; then K2, K3, the plain backward and SDPA's backward timed
-    at the training shape (B=8, S=2048, causal)."""
+    at S 777; then the edges of the tiling at B 2 — causal S 1, 65, 129,
+    1000, 2047, non-causal Sq 300 over Sk 777, q/k/v as strided views of
+    one fused [B, S, Hq + 2 Hkv, D] tensor, and Hq 12 over Hkv 4 (G 3);
+    a repeat call bit-identical (no atomics); `ptxas -v` of both kernels;
+    then K2, K3, the plain backward and SDPA's backward timed at the
+    training shape (B=8, S=2048, causal)."""
     b, hq, hkv, d = 2, 32, 8, 128
     scale = 1.0 / d ** 0.5
     rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
-    rows, faults = [], {}
+    rows, edges, faults = [], [], {}
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     worst_abs = {"dq": 0.0, "dkv": 0.0}
-    for s, causal in ((128, True), (1000, True), (2048, True), (777, False)):
-        q, k, v, do = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+
+    def check(what, q, k, v, do, causal):
         out, lse = attn.flash_fwd(q, k, v, causal, scale, with_lse=True)
         got = attn.flash_bwd(q, k, v, out, lse, do, causal, scale)
         ref = attn.flash_bwd_plain(q.float(), k.float(), v.float(), out.float(),
                                    lse, do.float(), causal, scale)
         torch.cuda.synchronize()
-        row = {"S": s, "causal": causal}
-        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
-            row[name + "_rel_err"] = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR)
+        sq = q.shape[1]
+        floor_of = (uncancelled_dq_dk(q, k, v, do, scale) if causal and sq == 1
+                    else (None, None)) + (None,)
+        row = {}
+        for name, x, r, fl in zip(("dq", "dk", "dv"), got, ref, floor_of):
+            row[name + "_rel_err"] = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR, floor_of=fl)
             row[name + "_max_abs_err"] = (x.float() - r).abs().max().item()
             worst[name] = max(worst[name], row[name + "_rel_err"])
         worst_abs["dq"] = max(worst_abs["dq"], row["dq_max_abs_err"])
         worst_abs["dkv"] = max(worst_abs["dkv"], row["dk_max_abs_err"],
                                row["dv_max_abs_err"])
         if max(row[n + "_rel_err"] for n in ("dq", "dk", "dv")) > FLASH_BWD_REL_TOL:
-            fail(f"flash_bwd S={s} causal={causal}: {row} (tol {FLASH_BWD_REL_TOL})")
+            fail(f"flash_bwd {what}: {row} (tol {FLASH_BWD_REL_TOL})")
+        return row, out, lse, got, ref
+
+    for s, causal in ((128, True), (1000, True), (2048, True), (777, False)):
+        q, k, v, do = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        row, out, lse, got, ref = check(f"S={s} causal={causal}", q, k, v, do, causal)
         if s == 2048:
             # planted faults. dq: the last query row without its last key
             # (a kv loop one key short). dk/dv: the first key of the last
@@ -353,8 +381,43 @@ def phase_flash_bwd(torch, attn, gen):
             }
             if not min(faults.values()) > FLASH_BWD_REL_TOL:
                 fail(f"flash_bwd: the tolerance does not see a planted fault: {faults}")
-        rows.append(row)
+        rows.append(dict(row, S=s, causal=causal))
         del q, k, v, do, out, lse, got, ref
+
+    repeat = None
+    for sq, sk, causal, fused, h in ((1, 1, True, False, (32, 8)), (65, 65, True, False, (32, 8)),
+                                     (129, 129, True, False, (32, 8)),
+                                     (1000, 1000, True, False, (32, 8)),
+                                     (2047, 2047, True, False, (32, 8)),
+                                     (300, 777, False, False, (32, 8)),
+                                     (1000, 1000, True, True, (32, 8)),
+                                     (1000, 1000, True, False, (12, 4))):
+        eq, ekv = h
+        if fused:
+            qkv = rnd(b, sq, eq + 2 * ekv, d)
+            q, k, v = qkv[:, :, :eq], qkv[:, :, eq:eq + ekv], qkv[:, :, eq + ekv:]
+        else:
+            q, k, v = rnd(b, sq, eq, d), rnd(b, sk, ekv, d), rnd(b, sk, ekv, d)
+        do = rnd(b, sq, eq, d)
+        what = f"B=2 Sq={sq} Sk={sk} Hq={eq} Hkv={ekv} causal={causal} fused={fused}"
+        row, out, lse, got, _ = check(what, q, k, v, do, causal)
+        if fused:
+            # the repeat check: no atomics, so a second call is bit-identical
+            again = attn.flash_bwd(q, k, v, out, lse, do, causal, scale)
+            torch.cuda.synchronize()
+            repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+            if not repeat:
+                fail(f"flash_bwd {what}: a repeat call is not bit-identical")
+        edges.append(dict(row, B=b, Sq=sq, Sk=sk, Hq=eq, Hkv=ekv, causal=causal, fused_qkv=fused))
+        del q, k, v, do, out, lse, got
+
+    # registers, spills (ptxas -v) and dynamic shared memory of both kernels
+    log = kernels.build_log("flash_bwd")
+    ptxas = [ln.strip() for ln in log.splitlines() if "flash_bwd_d" in ln
+             or "registers" in ln or "spill" in ln]
+    spill_bytes = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
+    smem = {name: kernels.lib("flash_bwd").k8s_flash_bwd_smem_bytes(i)
+            for i, name in enumerate(("dq", "dkv"))}
 
     # the training shape: one layer's attention, B 8, S 2048, causal
     b, s = TRAIN_BATCH, TRAIN_SEQ
@@ -374,20 +437,28 @@ def phase_flash_bwd(torch, attn, gen):
     qo_bytes = 2 * b * s * hq * d           # one bf16 [B, S, Hq, D] tensor
     kv_bytes = 2 * b * s * hkv * d          # one bf16 [B, S, Hkv, D] tensor
     row_bytes = 4 * b * hq * s              # one f32 [B, Hq, S] row tensor
-    k2 = bound(3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, 6 * b * hq * d * pairs)
-    k3 = bound(2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes, 8 * b * hq * d * pairs)
+    k2_flops, k3_flops = 6 * b * hq * d * pairs, 8 * b * hq * d * pairs
+    k2 = bound(3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, k2_flops)
+    k3 = bound(2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes, k3_flops)
     train = {
         "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal bf16",
         "k2_ms": t_bwd[names[0]], "k2_bound_ms": k2[0], "k2_bound_by": k2[1],
+        "k2_tflops": k2_flops / t_bwd[names[0]] / 1e9,
         "k3_ms": t_bwd[names[1]], "k3_bound_ms": k3[0], "k3_bound_by": k3[1],
+        "k3_tflops": k3_flops / t_bwd[names[1]] / 1e9,
+        "k2_k3_ms": t_bwd[names[0]] + t_bwd[names[1]],
         "flash_bwd_ms": bwd_ms, "plain_bwd_ms": plain_ms,
-        "sdpa_bwd_ms": library_ms}
+        "sdpa_bwd_ms": library_ms,
+        "k2_k3_over_sdpa": (t_bwd[names[0]] + t_bwd[names[1]]) / library_ms}
     emit({"phase": "flash_bwd", "shape": "B=2 Hq=32 Hkv=8 D=128 bf16",
           "rel_tol": FLASH_BWD_REL_TOL, "row_floor": FLASH_BWD_ROW_FLOOR,
-          "planted_faults_S2048": faults, "rows": rows, "train_shape": train})
+          "planted_faults_S2048": faults, "rows": rows, "edges": edges,
+          "repeat_bit_identical": repeat, "train_shape": train,
+          "ptxas": ptxas, "spill_bytes": spill_bytes, "dynamic_smem_bytes": smem})
     del q, k, v, do, out, lse, qt, kt, vt, o_sdpa, dot
     torch.cuda.empty_cache()
-    common = {"shape": train["shape"] + " (errors: worst over B=2 S 128,1000,2048 causal, 777 non-causal)",
+    common = {"shape": train["shape"] + " (errors: worst over B=2 S 128,1000,2048 causal, "
+                                        "777 non-causal and the edges)",
               "plain_ms": plain_ms, "library_ms": library_ms}
     return {
         "flash_bwd_dq": dict(common, max_abs_err=worst_abs["dq"], rel_err=worst["dq"],
@@ -1195,7 +1266,7 @@ def main() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1 = phase_flash(torch, attn, _kernels, gen)
-    bwd = phase_flash_bwd(torch, attn, gen)
+    bwd = phase_flash_bwd(torch, attn, _kernels, gen)
     k4 = phase_decode(torch, attn, gen)
     k5 = phase_decode_q8(torch, attn, gen)
     serving = phase_serving(torch, attn, card)

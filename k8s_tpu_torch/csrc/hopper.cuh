@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// TMA tensor maps and loads, mbarrier rings, wgmma shared-memory
-// descriptors and products, register reallocation between warpgroups.
+// TMA tensor maps (bf16 [B, S, H, D] tiles, f32 row slices) and loads,
+// mbarrier rings, wgmma shared-memory descriptors and products (m64n64
+// and m64n128), register reallocation between warpgroups.
 // Raw PTX, no CUTLASS: a source that includes this builds in seconds.
 //
 // Shared-memory layout used throughout: a tile of rows x 64 bf16 that
@@ -82,6 +83,26 @@ inline int make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A rank-2 map over an f32 row tensor [rows, S] whose rows lie
+// `row_stride` elements apart (a multiple of 4: TMA's 16-byte stride
+// rule), read in boxes of `box` consecutive elements of one row, no
+// swizzle. Elements past S read as zeros. Returns a cudaError_t code.
+inline int make_rows_map(CUtensorMap* map, const void* base, int rows, int S,
+                         long long row_stride, int box) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t dims[2] = {(cuuint64_t)S, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)row_stride * 4};  // bytes, dim 1
+  cuuint32_t boxes[2] = {(cuuint32_t)box, 1};
+  cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+      strides, boxes, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // ---------------------------------------------------------------------------
 // Device: shared memory, mbarriers, TMA
 // ---------------------------------------------------------------------------
@@ -140,6 +161,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA: the box at coordinates (c0 innermost, c1) of a rank-2 `map`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -219,6 +250,28 @@ __device__ __forceinline__ void fence_operands(uint32_t (&r)[N]) {
 // 16w + g, columns 8j + 2t, 8j + 2t + 1, and d[4j + 2, 3] the same
 // columns of row 16w + g + 8. Packed to bf16 pairs, d[8i .. 8i + 7] is
 // the register A operand of the k step over columns 16i .. 16i + 15.
+
+// D[64 x 64] (f32) (+)= A[64 x 16] * B[16 x 64], A and B from shared
+// memory through descriptors; TRANS_B = 1 for an MN-major B.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
 
 // D[64 x 128] (f32) (+)= A[64 x 16] * B[16 x 128], A and B from shared
 // memory through descriptors; TRANS_B = 1 for an MN-major B.

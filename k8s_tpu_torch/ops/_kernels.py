@@ -52,11 +52,15 @@ KERNELS = {
     }),
     "flash_bwd": ("flash_bwd.cu", {
         # q, k, v, dout, lse, dd, dq, B, Sq, Sk, Hq, Hkv, D,
-        # q/k/v/dout/dq strides (batch, seq, head), scale, causal, stream
-        "k8s_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_L] * 15 + [_F, _I, _P],
+        # q/k/v/dout/dq strides (batch, seq, head), lse/dd row stride,
+        # scale, causal, stream
+        "k8s_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_L] * 16 + [_F, _I, _P],
         # q, k, v, dout, lse, dd, dk, dv, B, Sq, Sk, Hq, Hkv, D,
-        # q/k/v/dout/dk/dv strides (batch, seq, head), scale, causal, stream
-        "k8s_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_L] * 18 + [_F, _I, _P],
+        # q/k/v/dout/dk/dv strides (batch, seq, head), lse/dd row stride,
+        # scale, causal, stream
+        "k8s_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_L] * 19 + [_F, _I, _P],
+        # kernel (0: dq, 1: dk/dv) -> dynamic shared memory per block (bytes)
+        "k8s_flash_bwd_smem_bytes": [_I],
     }),
     "decode_attn": ("decode_attn.cu", {
         # q, k_new, v_new, k_cache, v_cache, pos, out,

@@ -8,9 +8,10 @@ Five kernels, each beside its plain PyTorch version:
   :func:`_flash_fwd_config`). The engine's one-shot prefill of a fresh
   cache and every training forward run it.
 - :func:`flash_bwd` — the flash backward: dQ (``_bwd_dq_kernel``) and
-  dK/dV summed over the GQA group (``_bwd_dkv_kernel``), both in
-  ``csrc/flash_bwd.cu``, recomputing P from the forward's logsumexp.
-  Every training backward runs them.
+  dK/dV summed over the GQA group in registers (``_bwd_dkv_kernel``),
+  both in ``csrc/flash_bwd.cu`` (TMA loads and ``wgmma`` products, no
+  atomics), recomputing P from the forward's logsumexp. Every training
+  backward runs them.
 - :func:`decode_attention_update` — ragged single-token decode with the
   in-place cache append (``csrc/decode_attn.cu``, replacing the Pallas
   ``_decode_attn_kernel``). Every decode step over a bf16 cache runs it.
@@ -225,6 +226,21 @@ def _check_rows(name: str, x: torch.Tensor, shape, device) -> None:
                          f"{tuple(x.shape)} on {x.device}")
 
 
+def _tma_row_stride(sq: int) -> int:
+    """The row stride of the lse and D rows the backward kernels read: Sq
+    rounded up to 4 f32, since a TMA tensor map needs its strides in
+    multiples of 16 bytes."""
+    return -(-sq // 4) * 4
+
+
+def _tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x [B, Hq, Sq]`` with its rows padded to :func:`_tma_row_stride`
+    (a copy only when Sq is not a multiple of 4; the kernels never read
+    the padding)."""
+    pad = _tma_row_stride(x.shape[-1]) - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
               causal: bool, scale: float):
@@ -247,6 +263,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_bhsd(name, x)
     dd = compute_dd(out, dout)
     _check_rows("flash_bwd: lse", lse, (b, hq, sq), q.device)
+    lse, dd, row_stride = _tma_rows(lse), _tma_rows(dd), _tma_row_stride(sq)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -257,7 +274,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
         b, sq, sk, hq, hkv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *dout.stride()[:3], *dq.stride()[:3],
+        *dout.stride()[:3], *dq.stride()[:3], row_stride,
         float(scale), int(bool(causal)), stream)
     _kernels.check(code, "flash_bwd")
     flash_bwd.launches_dq += 1
@@ -266,7 +283,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, sq, sk, hq, hkv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+        *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], row_stride,
         float(scale), int(bool(causal)), stream)
     _kernels.check(code, "flash_bwd")
     flash_bwd.launches_dkv += 1

@@ -25,7 +25,7 @@ import torch
 
 from chip_smoke import (DECODE_Q8_REL_TOL, DECODE_REL_TOL, FLASH_BWD_REL_TOL,
                         FLASH_BWD_ROW_FLOOR, FLASH_LSE_TOL, FLASH_REL_TOL,
-                        row_rel_err)
+                        row_rel_err, uncancelled_dq_dk)
 from k8s_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                         check_cuda_config)
 from k8s_tpu_torch.ops import attention as tattn
@@ -154,6 +154,57 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, s, sk, causal):
         assert x.dtype == torch.bfloat16 and x.shape == ref.shape, name
         err = row_rel_err(x, ref, floor=FLASH_BWD_ROW_FLOOR)
         assert err <= FLASH_BWD_REL_TOL, (name, err)
+
+
+def _bwd_inputs(cuda, seed, sq, sk, hq, hkv, fused):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).bfloat16()  # noqa: E731
+    if fused:
+        qkv = rnd(2, sq, hq + 2 * hkv, 128)
+        q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    else:
+        q, k, v = rnd(2, sq, hq, 128), rnd(2, sk, hkv, 128), rnd(2, sk, hkv, 128)
+    return q, k, v, rnd(2, sq, hq, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,hq,hkv,causal,fused", [
+    (1, 1, 32, 8, True, False), (65, 65, 32, 8, True, False),
+    (129, 129, 32, 8, True, False), (1000, 1000, 32, 8, True, False),
+    (2047, 2047, 32, 8, True, False), (300, 777, 32, 8, False, False),
+    (1000, 1000, 32, 8, True, True), (1000, 1000, 12, 4, True, False)])
+def test_flash_bwd_kernels_tiling_edges_on_card(cuda, sq, sk, hq, hkv, causal, fused):
+    """K2 and K3 at the edges of their tiling, B 2: lengths that are not
+    multiples of the 128-row blocks or 64-row tiles (and S 1), Sq != Sk
+    non-causal, q/k/v as strided views of one fused [B, S, Hq + 2 Hkv, D]
+    tensor, and 3 query heads per kv head. At causal S 1 dq and dk vanish
+    in exact math (dS = dP - D = 0), so their floor is taken from the
+    uncancelled terms (chip_smoke.uncancelled_dq_dk)."""
+    q, k, v, do = _bwd_inputs(cuda, sq + sk + hq, sq, sk, hq, hkv, fused)
+    scale = 128 ** -0.5
+    out, lse = tattn.flash_fwd(q, k, v, causal, scale, with_lse=True)
+    got = tattn.flash_bwd(q, k, v, out, lse, do, causal, scale)
+    want = tattn.flash_bwd_plain(*_f32(q, k, v, out), lse, do.float(),
+                                 causal, scale)
+    floors = (uncancelled_dq_dk(q, k, v, do, scale) if causal and sq == 1
+              else (None, None)) + (None,)
+    for name, x, ref, fl in zip(("dq", "dk", "dv"), got, want, floors):
+        assert x.dtype == torch.bfloat16 and x.shape == ref.shape, name
+        assert x.is_contiguous(), name
+        err = row_rel_err(x, ref, floor=FLASH_BWD_ROW_FLOOR, floor_of=fl)
+        assert err <= FLASH_BWD_REL_TOL, (name, err)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernels_bit_identical_on_repeat(cuda):
+    """No atomics: every gradient element is written once by one block,
+    so two calls on the same inputs give bit-identical dq, dk and dv."""
+    q, k, v, do = _bwd_inputs(cuda, 11, 1000, 1000, 32, 8, False)
+    out, lse = tattn.flash_fwd(q, k, v, True, 128 ** -0.5, with_lse=True)
+    first = tattn.flash_bwd(q, k, v, out, lse, do, True, 128 ** -0.5)
+    second = tattn.flash_bwd(q, k, v, out, lse, do, True, 128 ** -0.5)
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.gpu
