@@ -113,6 +113,15 @@ TRAIN_LAYERS, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 8, 10, 2048, 8
 # K1's tile config -> its kernel instance (csrc/flash_fwd.cu, templated on
 # the number of consumer warpgroups), as torch.profiler names it
 K1_INSTANCES = {0: "flash_fwd_kernel<2>", 1: "flash_fwd_kernel<1>"}
+# the decode kernels' two launches per call (split, merge), by library
+DECODE_KERNELS = {
+    "decode_attn": ("decode_attn_split_kernel", "decode_attn_merge_kernel"),
+    "decode_attn_q8": ("decode_attn_q8_split_kernel", "decode_attn_q8_merge_kernel"),
+}
+# the engine's slot depths in chip_smoke's decode profiles (bf16, int8)
+SERVING_DEPTHS = [12, 300, 700, 1000, 1500, 2000, 40, 97]
+SERVING_DEPTHS_INT8 = [12, 300, 700, 1000, 1500, 2000, 2500, 3000, 3500,
+                       4000, 5000, 6000, 7000, 8000, 40, 97]
 
 
 def fail(msg: str) -> None:
@@ -469,8 +478,87 @@ def phase_flash_bwd(torch, attn, kernels, gen):
     }
 
 
-def phase_decode(torch, attn, gen):
-    """K4 against its plain version: B=8 slots, S=2048, Hq 32, Hkv 8."""
+def ptxas_by_kernel(log: str, names) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel of
+    ``names`` from a ``ptxas -v`` build log (mangled names contain them)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = next((n for n in names if n in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        row = out.setdefault(cur, {})
+        if (r := re.search(r"Used (\d+) registers", ln)):
+            row["registers"] = int(r.group(1))
+        if (r := re.search(r"(\d+) bytes smem", ln)):
+            row["static_smem_bytes"] = int(r.group(1))
+        if (r := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            row["spill_bytes"] = int(r.group(1)) + int(r.group(2))
+    return out
+
+
+def split_boundary_pos(s: int, rows: int):
+    """Cache depths on the decode kernels' split boundaries for split
+    length ``rows``, with 0, 1, S - 2 and S - 1."""
+    cand = {0, 1, rows - 1, rows, rows + 1, 2 * rows - 1, 2 * rows, 2 * rows + 1,
+            s - rows - 1, s - rows, s - rows + 1, s - 2, s - 1}
+    return sorted(p for p in cand if 0 <= p < s)
+
+
+def decode_split_checks(torch, attn, kernels, lib, call, plain, fresh, b, s, hkv,
+                        pos, sweep_pos):
+    """The split grid's extras for one decode kernel (``lib``): split length
+    and grid, the device time of its split and merge launches at ``pos``,
+    a repeat call bit-identical (outputs and caches), every split boundary
+    within the decode limit, ``ptxas -v`` of both kernels, and each split
+    length of DECODE_SPLIT_ROWS timed at ``pos`` and at ``sweep_pos``.
+    ``call(caches, pos, split_rows)`` runs the kernel on ``caches``,
+    ``plain(caches, pos)`` the plain version in f32 (each returns out and
+    appends to the caches), ``fresh()`` gives a copy of the original
+    caches."""
+    names = DECODE_KERNELS[lib]
+    rows = attn._decode_split_rows(b, hkv, s)
+    first, second = fresh(), fresh()
+    a, b_out = call(first, pos, None), call(second, pos, None)
+    torch.cuda.synchronize()
+    repeat = torch.equal(a, b_out) and all(torch.equal(x, y) for x, y in zip(first, second))
+    if not repeat:
+        fail(f"{lib}: a repeat call is not bit-identical")
+    tol = DECODE_Q8_REL_TOL if lib == "decode_attn_q8" else DECODE_REL_TOL
+    boundary = split_boundary_pos(s, rows)
+    errs = []
+    for i in range(0, len(boundary), b):
+        chunk = boundary[i:i + b]
+        p = torch.tensor(chunk + [0] * (b - len(chunk)), dtype=torch.int32, device="cuda")
+        got, want = fresh(), fresh()
+        out = call(got, p, None)
+        ref = plain(want, p)
+        torch.cuda.synchronize()
+        errs.append(row_rel_err(out, ref))
+        if not (errs[-1] <= tol and all(torch.equal(x, y) for x, y in zip(got, want))):
+            fail(f"{lib}: at split-boundary depths {chunk}: row error {errs[-1]} "
+                 f"(tol {tol}); caches after the append equal the plain "
+                 f"version's: {all(torch.equal(x, y) for x, y in zip(got, want))}")
+    caches = fresh()
+    split_ms = kernel_ms(torch, lambda: call(caches, pos, None), names, reps=10)
+    sweep = {}
+    for label, sp in (("pos", pos), ("serving_depths", sweep_pos)):
+        for c in attn.DECODE_SPLIT_ROWS:
+            t = kernel_ms(torch, lambda: call(caches, sp, c), names, reps=10)
+            sweep[f"{label}_C{c}"] = {"split": t[names[0]], "merge": t[names[1]],
+                                      "total": t[names[0]] + t[names[1]]}
+    return {"split_rows": rows, "grid": [-(-s // rows), hkv, b],
+            "kernel_ms": split_ms, "repeat_bit_identical": repeat,
+            "boundary_pos": boundary, "boundary_rel_err": max(errs),
+            "split_rows_sweep_ms": sweep,
+            "ptxas": ptxas_by_kernel(kernels.build_log(lib), names)}
+
+
+def phase_decode(torch, attn, kernels, gen):
+    """K4 against its plain version: B=8 slots, S=2048, Hq 32, Hkv 8;
+    then its split grid's extras (decode_split_checks)."""
     b, hq, hkv, s, d = 8, 32, 8, 2048, 128
     scale = 1.0 / d ** 0.5
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
@@ -521,8 +609,16 @@ def phase_decode(torch, attn, gen):
               + 4 * b)                             # pos
     flops = 4 * (rows_read + b) * hq * d
     bound_ms, by = bound(nbytes, flops)
-    row = {"rel_err": err, "max_abs_err": abs_err, "cache_rows_ok": cache_ok,
-           "planted_faults": faults,
+    def call(caches, p, rows):
+        return attn.decode_attention_update(q, kn, vn, *caches, p, scale, split_rows=rows)[0]
+
+    split = decode_split_checks(
+        torch, attn, kernels, "decode_attn", call,
+        lambda caches, p: attn.decode_attention_plain(
+            *(x.float() for x in (q, kn, vn)), *caches, p, scale),
+        lambda: [kc.clone(), vc.clone()], b, s, hkv, pos, torch.tensor(SERVING_DEPTHS, dtype=torch.int32, device="cuda"))
+    row = {"rel_err": max(err, split["boundary_rel_err"]), "max_abs_err": abs_err,
+           "cache_rows_ok": cache_ok, "planted_faults": faults, **split,
            "ms": device_ms(torch, kernel),
            "plain_ms": device_ms(torch, lambda: attn.decode_attention_plain(q, kn, vn, kc2, vc2, pos, scale)),
            "library_ms": device_ms(torch, library),
@@ -535,11 +631,12 @@ def phase_decode(torch, attn, gen):
     return row
 
 
-def phase_decode_q8(torch, attn, gen):
+def phase_decode_q8(torch, attn, kernels, gen):
     """K5 against its plain version: B=16 slots, S=8192, Hq 32, Hkv 8,
     D 128, ragged pos over [0, S) with 0 and S - 1, caches quantized
-    from seeded bf16 rows; K4 and SDPA timed at the same positions over
-    those bf16 rows."""
+    from seeded bf16 rows, then its split grid's extras
+    (decode_split_checks); K4 and SDPA timed at the same positions over
+    those bf16 rows, K4's split and merge apart."""
     b, hq, hkv, s, d = 16, 32, 8, 8192, 128
     scale = 1.0 / d ** 0.5
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
@@ -591,6 +688,16 @@ def phase_decode_q8(torch, attn, gen):
     if not min(faults[f"drop_{FAULT_ROWS}"], faults["v_scale_of_previous_row"]) > DECODE_Q8_REL_TOL:
         fail(f"decode_attn_q8: the tolerance does not see a planted fault: {faults}")
 
+    def call(caches, p, rows):
+        return attn.decode_attention_update_q8(q, kn, vn, *caches, p, scale,
+                                               split_rows=rows)[0]
+
+    split = decode_split_checks(
+        torch, attn, kernels, "decode_attn_q8", call,
+        lambda caches, p: attn.decode_attention_q8_plain(
+            *(x.float() for x in (q, kn, vn)), *caches, p, scale),
+        lambda: [t.clone() for t in orig], b, s, hkv, pos,
+        torch.tensor(SERVING_DEPTHS_INT8, dtype=torch.int32, device="cuda"))
     kernel = lambda: attn.decode_attention_update_q8(q, kn, vn, *got, pos, scale)  # noqa: E731
     # the library yardstick: SDPA over the cache dequantized to bf16 (the
     # dequantization itself is not timed: SDPA has no int8 input)
@@ -612,14 +719,16 @@ def phase_decode_q8(torch, attn, gen):
     k4_bytes = (2 * rows_read * hkv * d * 2 + 2 * (2 * b * hq * d)
                 + 2 * 2 * new_rows + 4 * b)
     k4_bound_ms, _ = bound(k4_bytes, flops)
-    row = {"rel_err": err, "max_abs_err": abs_err, "caches_bit_equal": caches_ok,
-           "planted_faults": faults,
+    row = {"rel_err": max(err, split["boundary_rel_err"]), "max_abs_err": abs_err,
+           "caches_bit_equal": caches_ok, "planted_faults": faults, **split,
            "ms": device_ms(torch, kernel),
            "plain_ms": device_ms(torch, lambda: attn.decode_attention_q8_plain(
                q, kn, vn, *plain_caches, pos, scale), reps=3),
            "library_ms": device_ms(torch, library),
            "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
            "k4_same_pos_ms": device_ms(torch, k4),
+           "k4_same_pos_split_rows": attn._decode_split_rows(b, hkv, s),
+           "k4_same_pos_kernel_ms": kernel_ms(torch, k4, DECODE_KERNELS["decode_attn"]),
            "k4_same_pos_bound_ms": k4_bound_ms, "k4_bytes": k4_bytes,
            # the library yardstick for K4 at these positions: SDPA over the
            # bf16 rows, visibility mask as above
@@ -1267,8 +1376,8 @@ def main() -> None:
     gen.manual_seed(0)
     k1 = phase_flash(torch, attn, _kernels, gen)
     bwd = phase_flash_bwd(torch, attn, _kernels, gen)
-    k4 = phase_decode(torch, attn, gen)
-    k5 = phase_decode_q8(torch, attn, gen)
+    k4 = phase_decode(torch, attn, _kernels, gen)
+    k5 = phase_decode_q8(torch, attn, _kernels, gen)
     serving = phase_serving(torch, attn, card)
     train = phase_train(torch, attn, card)
     serving_int8 = phase_serving_int8(torch, attn, card)
@@ -1310,7 +1419,8 @@ def main() -> None:
            "note": "plain_ms and library_ms compute dq, dk and dv together"},
         dict(entry("decode_attn", "k8s_tpu_torch/csrc/decode_attn.cu",
                    "k8s_tpu/ops/attention.py:875", k4),
-             shape="B=8 S=2048 Hq=32 Hkv=8 D=128 ragged pos"),
+             shape="B=8 S=2048 Hq=32 Hkv=8 D=128 ragged pos",
+             split_rows=k4["split_rows"], kernel_ms=k4["kernel_ms"]),
         dict(entry("decode_attn_q8", "k8s_tpu_torch/csrc/decode_attn_q8.cu",
                    "k8s_tpu/ops/attention.py:1012", k5),
              shape="B=16 S=8192 Hq=32 Hkv=8 D=128 int8 cache, ragged pos",
@@ -1318,6 +1428,7 @@ def main() -> None:
              k4_same_pos_bound_ms=k5["k4_same_pos_bound_ms"],
              k4_same_pos_library_ms=k5["k4_same_pos_library_ms"],
              k4_same_pos_plain_ms=k5["k4_same_pos_plain_ms"],
+             split_rows=k5["split_rows"], kernel_ms=k5["kernel_ms"],
              note="library_ms: SDPA over the cache dequantized to bf16 "
                   "(dequantization not timed)"),
     ]})

@@ -9,22 +9,43 @@
 //
 // What bounds it on the H100: bytes. Each cache row is 2*D*2 bytes and
 // takes 4*G*D flops, about G flops per byte — two orders of magnitude
-// under the ridge — so the floor is (rows read) / 3.35 TB/s.
+// under the ridge — so the floor is (rows read) * 512 B / 3.35 TB/s
+// (PERF.md's K4 byte count: the rows < pos[b] of k and v, plus q, out
+// and the new rows).
 //
-// Design: one block of 8 warps owns one (batch, kv-head) and serves all
-// G queries of the group, so each cache row is read from memory once
-// for the group. It reads ONLY rows < pos[b] (the TPU kernel stages the
-// whole [S, D] slab into VMEM and masks), plus the new k/v for row
-// pos[b]. A row is split over D/8 lanes holding 8 contiguous elements
-// each (one 16-byte load per lane per row, coalesced), the dot products
-// are finished with lane shuffles, and each row group keeps its own
-// running max/sum/accumulator (online softmax, 4 rows in flight per
-// iteration). The partials are merged with shuffles inside a warp and
-// through shared memory across warps. The new row is written straight
-// to cache row pos[b] — no aligned 8-row window is needed. pos is read
-// on the device (no host sync) and clamped to [0, S - 1] so a bad
-// index cannot write out of bounds. Not yet used: split-S across
-// blocks (only B*Hkv blocks are launched), cp.async prefetch.
+// Design: split-S with a merge, two kernels on one stream.
+//
+// - decode_attn_split_kernel, grid (ceil(S / C), Hkv, B): block c of
+//   (b, h) owns cache rows [c*C, (c+1)*C). One block per (b, h), as
+//   before, left the deepest slot's block walking all its rows alone
+//   while the card's other SMs idled (64 or 128 blocks on 132 SMs); now
+//   that slot's rows are spread over ceil(pos/C) blocks of the same
+//   length as everyone else's. C depends on (B, Hkv, S) only (the
+//   wrapper's _decode_split_rows), never on pos, so the grid needs no
+//   host read of pos. A block of 8 warps serves all G queries of the
+//   group, so each cache row is read once for the group, and reads ONLY
+//   rows < pos[b]. A row is split over D/8 lanes holding 8 contiguous
+//   elements each (one 16-byte load per lane per row, coalesced); the
+//   dot products are finished with lane shuffles; each row group keeps
+//   its own running max/sum/accumulator (online softmax, 4 rows in
+//   flight per iteration), merged with shuffles inside a warp and
+//   through shared memory across warps. The block whose range holds
+//   pos[b] takes row pos[b] from k_new/v_new (the new token's term) and
+//   writes it to the cache; no block reads cache row pos[b], so the
+//   append races with nothing. A block that starts past pos[b] writes
+//   an empty partial (lse = -inf) and returns. Each block writes its G
+//   partial outputs normalised, in f32, with their natural-log lse.
+// - decode_attn_merge_kernel, grid (Hkv, B): out = sum_c e^(lse_c - M)
+//   O_c / sum_c e^(lse_c - M), M = max_c lse_c, over the splits in
+//   ascending order; empty partials are skipped (weight 0, their O_c is
+//   never read). The split owning pos[b] is never empty, so M is finite.
+//
+// The order of every sum is fixed and nothing is atomic: a repeat call
+// is bit-identical. pos is read on the device and clamped to
+// [0, S - 1], so a bad index cannot write out of bounds. Prefetch: each
+// lane already has 4 rows (8 16-byte loads) in flight per iteration,
+// and the split loop reads 62-80% of 3.35 TB/s at chip_smoke's shapes
+// (PERF.md), so there is no shared-memory ring.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,14 +70,15 @@ __device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
 
 template <int D, int G>
 __global__ void __launch_bounds__(THREADS)
-decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k_new,
-                   const __nv_bfloat16* __restrict__ v_new,
-                   __nv_bfloat16* __restrict__ k_cache,
-                   __nv_bfloat16* __restrict__ v_cache,
-                   const int* __restrict__ pos_v,
-                   __nv_bfloat16* __restrict__ out, int Hkv, int S,
-                   float scale) {
+decode_attn_split_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k_new,
+                         const __nv_bfloat16* __restrict__ v_new,
+                         __nv_bfloat16* __restrict__ k_cache,
+                         __nv_bfloat16* __restrict__ v_cache,
+                         const int* __restrict__ pos_v,
+                         float* __restrict__ part_o,
+                         float* __restrict__ part_lse, int S, int C,
+                         float scale) {
   constexpr int LPR = D / 8;          // lanes per row
   constexpr int RPW = 32 / LPR;       // row groups per warp
   constexpr int GROUPS = NUM_WARPS * RPW;
@@ -64,13 +86,25 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ float sm_l[NUM_WARPS][G];
   __shared__ float sm_acc[NUM_WARPS][G][D];
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pos = min(max(pos_v[b], 0), S - 1);
+  const long long head = static_cast<long long>(b) * gridDim.y + h;
+  const long long split = head * gridDim.x + c;
+  float* po = part_o + split * G * D;
+  float* pl = part_lse + split * G;
+  const int start = c * C;
+  if (start > pos) {  // past the last row: an empty partial
+    if (tid < G) pl[tid] = -INFINITY;
+    return;
+  }
+  // rows [start, end): cache rows < pos, and row pos (in the owning
+  // split only) from k_new / v_new
+  const int end = min(start + C, pos + 1);
+
   const int sub = lane / LPR, li = lane % LPR;
   const int grp = warp * RPW + sub;   // this thread's row group
   const int d0 = li * 8;              // this lane's 8 head-dim elements
-  const int pos = min(max(pos_v[b], 0), S - 1);
-  const long long head = static_cast<long long>(b) * Hkv + h;
   __nv_bfloat16* kc = k_cache + head * S * D;
   __nv_bfloat16* vc = v_cache + head * S * D;
   const __nv_bfloat16* kn = k_new + head * D;
@@ -94,15 +128,13 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < 8; ++j) acc[g][j] = 0.f;
   }
 
-  // rows [0, pos) from the cache, row pos from k_new / v_new
-  const int n_rows = pos + 1;
-  for (int base = 0; base < n_rows; base += GROUPS * UNROLL) {
+  for (int base = start; base < end; base += GROUPS * UNROLL) {
     uint4 kr[UNROLL], vr[UNROLL];
     bool ok[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int r = base + u * GROUPS + grp;
-      ok[u] = r < n_rows;
+      ok[u] = r < end;
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       if (ok[u]) {
         const __nv_bfloat16* ks = r == pos ? kn : kc + static_cast<long long>(r) * D;
@@ -160,12 +192,12 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
       const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
       const float mn = fmaxf(m[g], mo);
       const float a = m[g] == -INFINITY ? 0.f : __expf(m[g] - mn);
-      const float c = mo == -INFINITY ? 0.f : __expf(mo - mn);
-      l[g] = l[g] * a + lo * c;
+      const float e = mo == -INFINITY ? 0.f : __expf(mo - mn);
+      l[g] = l[g] * a + lo * e;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[g][j], off);
-        acc[g][j] = acc[g][j] * a + ao * c;
+        acc[g][j] = acc[g][j] * a + ao * e;
       }
       m[g] = mn;
     }
@@ -181,16 +213,19 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
       for (int j = 0; j < 8; ++j) sm_acc[warp][g][d0 + j] = acc[g][j];
     }
   }
-  // append the new row in place; no thread reads cache row pos
-  for (int i = tid; i < D / 8; i += THREADS) {
-    reinterpret_cast<uint4*>(kc + static_cast<long long>(pos) * D)[i] =
-        reinterpret_cast<const uint4*>(kn)[i];
-    reinterpret_cast<uint4*>(vc + static_cast<long long>(pos) * D)[i] =
-        reinterpret_cast<const uint4*>(vn)[i];
+  // the owning split appends the new row in place
+  if (end == pos + 1) {
+    for (int i = tid; i < D / 8; i += THREADS) {
+      reinterpret_cast<uint4*>(kc + static_cast<long long>(pos) * D)[i] =
+          reinterpret_cast<const uint4*>(kn)[i];
+      reinterpret_cast<uint4*>(vc + static_cast<long long>(pos) * D)[i] =
+          reinterpret_cast<const uint4*>(vn)[i];
+    }
   }
   __syncthreads();
 
-  // merge across warps; row pos always exists, so M is finite
+  // merge across warps into this split's partial; the split holds at
+  // least one row, so M is finite
   for (int i = tid; i < G * D; i += THREADS) {
     const int g = i / D, d = i % D;
     float M = -INFINITY;
@@ -204,8 +239,41 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
       L += sm_l[w][g] * f;
       A += sm_acc[w][g][d] * f;
     }
-    out[(head * G + g) * D + d] = __float2bfloat16(A / L);
+    po[i] = A / L;
+    if (d == 0) pl[g] = M + logf(L);
   }
+}
+
+// One block per (kv head, batch): G*D/4 threads, each merging 4
+// consecutive elements of one query head's output over the splits.
+template <int D, int G>
+__global__ void __launch_bounds__(G * D / 4)
+decode_attn_merge_kernel(const float* __restrict__ part_o,
+                         const float* __restrict__ part_lse,
+                         __nv_bfloat16* __restrict__ out, int nsplit) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int g = threadIdx.x / (D / 4), d0 = (threadIdx.x % (D / 4)) * 4;
+  const long long head = static_cast<long long>(b) * gridDim.x + h;
+  const float* pl = part_lse + head * nsplit * G + g;
+  const float* po = part_o + head * nsplit * G * D + g * D + d0;
+  float M = -INFINITY;
+  for (int c = 0; c < nsplit; ++c) M = fmaxf(M, pl[c * G]);
+  float L = 0.f, A[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c = 0; c < nsplit; ++c) {
+    const float lse = pl[c * G];
+    if (lse == -INFINITY) continue;  // an empty split: weight 0
+    const float w = __expf(lse - M);
+    const float4 o = *reinterpret_cast<const float4*>(po + static_cast<long long>(c) * G * D);
+    L += w;
+    A[0] = fmaf(w, o.x, A[0]);
+    A[1] = fmaf(w, o.y, A[1]);
+    A[2] = fmaf(w, o.z, A[2]);
+    A[3] = fmaf(w, o.w, A[3]);
+  }
+  __nv_bfloat162 r[2] = {__floats2bfloat162_rn(A[0] / L, A[1] / L),
+                         __floats2bfloat162_rn(A[2] / L, A[3] / L)};
+  *reinterpret_cast<uint2*>(out + (head * G + g) * D + d0) =
+      *reinterpret_cast<const uint2*>(r);
 }
 
 }  // namespace
@@ -215,21 +283,33 @@ extern "C" const char* k8s_cuda_error_string(int code) {
 }
 
 // q [B, Hkv*G, D], k_new/v_new [B, Hkv, D], caches [B, Hkv, S, D] (all
-// bf16, contiguous), pos [B] int32 on the device, out like q. Built for
-// D = 128, G = 4 (Llama-3-8B); other shapes return cudaErrorInvalidValue.
+// bf16, contiguous), pos [B] int32 on the device, out like q; workspace
+// part_o [B, Hkv, ceil(S/C), G, D] and part_lse [B, Hkv, ceil(S/C), G]
+// f32. C is the split length in rows. Built for D = 128, G = 4
+// (Llama-3-8B); other shapes return cudaErrorInvalidValue.
 extern "C" int k8s_decode_attn_bf16(const void* q, const void* k_new,
                                     const void* v_new, void* k_cache,
-                                    void* v_cache, const void* pos, void* out,
-                                    int B, int Hkv, int G, int S, int D,
+                                    void* v_cache, const void* pos,
+                                    void* part_o, void* part_lse, void* out,
+                                    int B, int Hkv, int G, int S, int D, int C,
                                     float scale, void* stream) {
-  if (D != 128 || G != 4) return static_cast<int>(cudaErrorInvalidValue);
-  decode_attn_kernel<128, 4>
-      <<<dim3(Hkv, B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k_new),
-          static_cast<const __nv_bfloat16*>(v_new),
-          static_cast<__nv_bfloat16*>(k_cache),
-          static_cast<__nv_bfloat16*>(v_cache), static_cast<const int*>(pos),
-          static_cast<__nv_bfloat16*>(out), Hkv, S, scale);
+  constexpr int kD = 128, kG = 4;
+  if (D != kD || G != kG || S <= 0 || C <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Hkv == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nsplit = (S + C - 1) / C;
+  decode_attn_split_kernel<kD, kG><<<dim3(nsplit, Hkv, B), THREADS, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new),
+      static_cast<__nv_bfloat16*>(k_cache),
+      static_cast<__nv_bfloat16*>(v_cache), static_cast<const int*>(pos),
+      static_cast<float*>(part_o), static_cast<float*>(part_lse), S, C, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_attn_merge_kernel<kD, kG><<<dim3(Hkv, B), kG * kD / 4, 0, st>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_lse),
+      static_cast<__nv_bfloat16*>(out), nsplit);
   return static_cast<int>(cudaGetLastError());
 }

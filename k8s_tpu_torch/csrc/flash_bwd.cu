@@ -561,9 +561,9 @@ extern "C" int k8s_flash_bwd_dq_bf16(
   if (!err) err = make_bshd_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, TILE);
   if (!err) err = make_bshd_map(&tdo, dout, B, Sq, Hq, D, do_sb, do_ss, do_sh, OWN_ROWS);
   if (err) return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
+  const cudaError_t attr =
+      hopper::set_smem_limit_once(flash_bwd_dq_kernel, C::SMEM, smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(Hq, B, (Sq + OWN_ROWS - 1) / OWN_ROWS);
   flash_bwd_dq_kernel
@@ -598,9 +598,9 @@ extern "C" int k8s_flash_bwd_dkv_bf16(
   if (!err) err = make_rows_map(&tl, lse, B * Hq, Sq, row_stride, TILE);
   if (!err) err = make_rows_map(&tdd, dd, B * Hq, Sq, row_stride, TILE);
   if (err) return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
+  const cudaError_t attr =
+      hopper::set_smem_limit_once(flash_bwd_dkv_kernel, C::SMEM, smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sk + OWN_ROWS - 1) / OWN_ROWS, Hkv, B);
   flash_bwd_dkv_kernel

@@ -289,9 +289,9 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            long long o_sb, long long o_ss, long long o_sh, float scale_log2,
            int causal, cudaStream_t stream) {
   using C = Cfg<NC>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
+  static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
+  const cudaError_t attr =
+      hopper::set_smem_limit_once(flash_fwd_kernel<NC>, C::SMEM, smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(Hq, B, (Sq + C::BLOCK_M - 1) / C::BLOCK_M);
   flash_fwd_kernel<NC><<<grid, C::THREADS, C::SMEM, stream>>>(

@@ -26,7 +26,34 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace hopper {
+
+// ---------------------------------------------------------------------------
+// Host: the dynamic shared-memory limit, once per device
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_DEVICES = 64;
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device the first time it launches there. The attribute belongs to a
+// device, so a process that launches on several cards sets it on each;
+// `done` is the calling launcher's own table, indexed by device.
+template <typename Kernel>
+inline cudaError_t set_smem_limit_once(Kernel* kernel, int bytes,
+                                       std::atomic<bool> (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES)
+    done[dev].store(true, std::memory_order_release);
+  return err;
+}
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps

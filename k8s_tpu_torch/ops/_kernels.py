@@ -63,14 +63,15 @@ KERNELS = {
         "k8s_flash_bwd_smem_bytes": [_I],
     }),
     "decode_attn": ("decode_attn.cu", {
-        # q, k_new, v_new, k_cache, v_cache, pos, out,
-        # B, Hkv, G, S, D, scale, stream
-        "k8s_decode_attn_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
+        # q, k_new, v_new, k_cache, v_cache, pos, partial out, partial
+        # lse, out, B, Hkv, G, S, D, split rows, scale, stream
+        "k8s_decode_attn_bf16": [_P] * 9 + [_I] * 6 + [_F, _P],
     }),
     "decode_attn_q8": ("decode_attn_q8.cu", {
-        # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pos, out,
-        # B, Hkv, G, S, D, scale, stream
-        "k8s_decode_attn_q8": [_P] * 9 + [_I] * 5 + [_F, _P],
+        # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pos,
+        # partial out, partial lse, out, B, Hkv, G, S, D, split rows,
+        # scale, stream
+        "k8s_decode_attn_q8": [_P] * 11 + [_I] * 6 + [_F, _P],
     }),
 }
 

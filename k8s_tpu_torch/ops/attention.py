@@ -14,7 +14,10 @@ Five kernels, each beside its plain PyTorch version:
   backward runs them.
 - :func:`decode_attention_update` — ragged single-token decode with the
   in-place cache append (``csrc/decode_attn.cu``, replacing the Pallas
-  ``_decode_attn_kernel``). Every decode step over a bf16 cache runs it.
+  ``_decode_attn_kernel``): blocks over splits of the cache rows, of a
+  length :func:`_decode_split_rows` picks from the cache's shape, then
+  a log-sum-exp merge of their partials. Every decode step over a bf16
+  cache runs it.
 - :func:`decode_attention_update_q8` — the same over an int8 cache with
   per-row f32 scales, quantizing the appended row in the kernel
   (``csrc/decode_attn_q8.cu``, replacing ``_decode_attn_kernel_q8``).
@@ -24,7 +27,9 @@ A wrapper runs the plain version only because the tensor it was given
 lies on the CPU; for a CUDA tensor it launches the kernel or raises.
 Each counts its launches in ``<wrapper>.launches`` (``flash_bwd``
 counts the two kernels apart: ``flash_bwd.launches_dq`` and
-``flash_bwd.launches_dkv``).
+``flash_bwd.launches_dkv``; a decode wrapper counts one per call, its
+split and merge kernels together). Every launch runs under a guard
+for its tensors' device (:func:`_launch`).
 
 :func:`mha_reference` is the plain attention path the JAX package runs
 through XLA, and :func:`flash_attention` the public gate: the plain
@@ -116,6 +121,17 @@ def _check_bhsd(name: str, x: torch.Tensor) -> None:
             f"multiple of 8 and 16-byte alignment (strides {x.stride()})")
 
 
+def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call the C entry ``entry`` of kernel library ``name`` for tensors
+    on ``device``: inside a device guard, since a C entry launches on the
+    runtime's current device, and with that device's current stream as
+    its last argument. Raises if the launch was refused."""
+    with torch.cuda.device(device):
+        code = getattr(_kernels.lib(name), entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    _kernels.check(code, name)
+
+
 def _flash_fwd_config(b: int, sq: int, hq: int) -> int:
     """The forward kernel's tile configuration for a call (a key of
     :data:`FLASH_FWD_TILES`): 128-row query tiles when they make enough
@@ -153,15 +169,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    lib = _kernels.lib("flash_fwd")
-    code = lib.k8s_flash_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        b, sq, sk, hq, hkv, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        float(scale), int(bool(causal)), config,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _kernels.check(code, "flash_fwd")
+    _launch("flash_fwd", "k8s_flash_fwd_bf16", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            b, sq, sk, hq, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], float(scale), int(bool(causal)), config)
     flash_fwd.launches += 1
     return (out, lse) if with_lse else out
 
@@ -267,25 +280,21 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _kernels.lib("flash_bwd")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.k8s_flash_bwd_dq_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
-        b, sq, sk, hq, hkv, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *dout.stride()[:3], *dq.stride()[:3], row_stride,
-        float(scale), int(bool(causal)), stream)
-    _kernels.check(code, "flash_bwd")
+    _launch("flash_bwd", "k8s_flash_bwd_dq_bf16", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+            b, sq, sk, hq, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3], *dq.stride()[:3], row_stride,
+            float(scale), int(bool(causal)))
     flash_bwd.launches_dq += 1
-    code = lib.k8s_flash_bwd_dkv_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, sq, sk, hq, hkv, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], row_stride,
-        float(scale), int(bool(causal)), stream)
-    _kernels.check(code, "flash_bwd")
+    _launch("flash_bwd", "k8s_flash_bwd_dkv_bf16", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, sk, hq, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            row_stride, float(scale), int(bool(causal)))
     flash_bwd.launches_dkv += 1
     return dq, dk, dv
 
@@ -380,6 +389,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# The decode kernels split each (batch, kv head)'s cache rows into
+# blocks of one of these lengths, so that the deepest slot no longer sets
+# the time alone (csrc/decode_attn.cu, csrc/decode_attn_q8.cu)
+DECODE_SPLIT_ROWS = (128, 256, 512, 1024)
+# the longest split that still makes this many blocks (b * hkv * splits);
+# else the shortest. On an H100 (132 SMs), K4 at B 8, S 2048: C 256 (512
+# blocks) 0.0166 ms against 0.0205 for C 128 and 0.0245 for C 512; K5 at
+# B 16, S 8192: C 1024 (1024 blocks) 0.090 against 0.105 for C 512
+# (PERF.md)
+DECODE_MIN_BLOCKS = 512
+
+
+def _decode_split_rows(b: int, hkv: int, s: int) -> int:
+    """The split length C of the decode kernels' grid ``(ceil(s / C), hkv,
+    b)``: the longest of :data:`DECODE_SPLIT_ROWS` whose grid has at
+    least :data:`DECODE_MIN_BLOCKS` blocks, else the shortest. It reads
+    the cache's shape only, never ``pos``, so the step needs no host
+    sync and the grid is fixed for a given cache (capturable)."""
+    for rows in reversed(DECODE_SPLIT_ROWS):
+        if b * hkv * -(-s // rows) >= DECODE_MIN_BLOCKS:
+            return rows
+    return DECODE_SPLIT_ROWS[0]
+
+
+def _decode_workspace(q: torch.Tensor, hkv: int, s: int, split_rows):
+    """``(C, partial outputs [B, Hkv, splits, G, D] f32, their lse [B, Hkv,
+    splits, G] f32)`` for one decode kernel call: C from
+    :func:`_decode_split_rows` unless ``split_rows`` forces one."""
+    b, hq, d = q.shape
+    rows = _decode_split_rows(b, hkv, s) if split_rows is None else split_rows
+    if rows not in DECODE_SPLIT_ROWS:
+        raise ValueError(f"split_rows {rows} not in {DECODE_SPLIT_ROWS}")
+    splits = -(-s // rows)
+    part_o = torch.empty((b, hkv, splits, hq // hkv, d), dtype=torch.float32,
+                         device=q.device)
+    part_lse = torch.empty((b, hkv, splits, hq // hkv), dtype=torch.float32,
+                           device=q.device)
+    return rows, part_o, part_lse
+
+
 def _pos_vector(pos, b: int, device) -> torch.Tensor:
     """Normalize a decode append index to a [B] int32 vector on
     ``device``: scalars broadcast (uniform batch), [B] vectors pass
@@ -421,7 +470,8 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
 def decode_attention_update(q: torch.Tensor, k_new: torch.Tensor,
                             v_new: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, pos,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None,
+                            split_rows: Optional[int] = None):
     """Fused single-token decode attention with IN-PLACE cache append.
 
     q [B, Hq, D], k_new/v_new [B, Hkv, D], caches head-major [B, Hkv, S,
@@ -430,8 +480,10 @@ def decode_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     ``pos[b]``). Returns ``(out [B, Hq, D], k_cache, v_cache)`` — the
     SAME cache tensors, written at row ``pos[b]``. The new token's term
     comes from ``k_new``/``v_new``, so the row being written is never
-    read. On a CUDA tensor this launches ``csrc/decode_attn.cu`` or
-    raises; on a CPU tensor it runs the plain version."""
+    read. On a CUDA tensor this launches ``csrc/decode_attn.cu`` (its
+    split kernel over blocks of ``split_rows`` cache rows — None takes
+    :func:`_decode_split_rows`'s choice — then its merge) or raises; on
+    a CPU tensor it runs the plain version."""
     b, hq, d = q.shape
     _, hkv, s, _ = k_cache.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -456,14 +508,13 @@ def decode_attention_update(q: torch.Tensor, k_new: torch.Tensor,
         raise ValueError(
             f"decode_attention_update: unsupported shapes q{tuple(q.shape)} "
             f"k_new{tuple(k_new.shape)} cache{tuple(k_cache.shape)}")
+    rows, part_o, part_lse = _decode_workspace(q, hkv, s, split_rows)
     out = torch.empty_like(q)
-    lib = _kernels.lib("decode_attn")
-    code = lib.k8s_decode_attn_bf16(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), pos_v.data_ptr(),
-        out.data_ptr(), b, hkv, groups, s, d, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _kernels.check(code, "decode_attn")
+    _launch("decode_attn", "k8s_decode_attn_bf16", q.device,
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), pos_v.data_ptr(),
+            part_o.data_ptr(), part_lse.data_ptr(), out.data_ptr(),
+            b, hkv, groups, s, d, rows, float(scale))
     decode_attention_update.launches += 1
     return out, k_cache, v_cache
 
@@ -534,7 +585,8 @@ def decode_attention_update_q8(q: torch.Tensor, k_new: torch.Tensor,
                                v_new: torch.Tensor, k_cache: torch.Tensor,
                                v_cache: torch.Tensor, k_scale: torch.Tensor,
                                v_scale: torch.Tensor, pos,
-                               scale: Optional[float] = None):
+                               scale: Optional[float] = None,
+                               split_rows: Optional[int] = None):
     """int8-KV fused decode step with IN-PLACE append.
 
     q [B, Hq, D] and k_new/v_new [B, Hkv, D] bf16; caches int8 [B, Hkv,
@@ -543,8 +595,9 @@ def decode_attention_update_q8(q: torch.Tensor, k_new: torch.Tensor,
     ``(out [B, Hq, D], k_cache, v_cache, k_scale, v_scale)`` — the SAME
     tensors, written at row ``pos[b]`` only (the new row quantized:
     amax / 127, round half to even). On a CUDA tensor this launches
-    ``csrc/decode_attn_q8.cu`` or raises; on a CPU tensor it runs the
-    plain version."""
+    ``csrc/decode_attn_q8.cu`` (split and merge, as
+    :func:`decode_attention_update`) or raises; on a CPU tensor it runs
+    the plain version."""
     b, hq, d = q.shape
     _, hkv, s, _ = k_cache.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -574,15 +627,14 @@ def decode_attention_update_q8(q: torch.Tensor, k_new: torch.Tensor,
             f"decode_attention_update_q8: unsupported shapes q{tuple(q.shape)} "
             f"k_new{tuple(k_new.shape)} cache{tuple(k_cache.shape)} "
             f"scales{tuple(k_scale.shape)}")
+    rows, part_o, part_lse = _decode_workspace(q, hkv, s, split_rows)
     out = torch.empty_like(q)
-    lib = _kernels.lib("decode_attn_q8")
-    code = lib.k8s_decode_attn_q8(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), pos_v.data_ptr(), out.data_ptr(),
-        b, hkv, groups, s, d, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _kernels.check(code, "decode_attn_q8")
+    _launch("decode_attn_q8", "k8s_decode_attn_q8", q.device,
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), pos_v.data_ptr(), part_o.data_ptr(),
+            part_lse.data_ptr(), out.data_ptr(),
+            b, hkv, groups, s, d, rows, float(scale))
     decode_attention_update_q8.launches += 1
     return out, k_cache, v_cache, k_scale, v_scale
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, and the port's import hygiene.
+"""The port's CUDA kernels on the card, the wrappers' device guard, and
+the port's import hygiene.
 
 This file imports no JAX, so it also runs on a machine with a card and
 no JAX (the repo's conftest imports JAX, hence ``--noconftest``):
@@ -12,7 +13,8 @@ forward, which also rounds P to bf16, 5e-3 for decode over a bf16 or an
 int8 cache, 1e-2 for each of dq, dk and dv of the flash backward, which
 rounds P and dS to bf16; f32 lse 1e-4 absolute; the int8 rows and
 scales the int8-KV decode kernel appends bit-equal); without a CUDA
-device they skip.
+device they skip. The device-guard tests run here: the guard, the
+stream lookup and the kernel libraries are stubbed.
 """
 
 import pathlib
@@ -22,12 +24,14 @@ import sys
 
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from chip_smoke import (DECODE_Q8_REL_TOL, DECODE_REL_TOL, FLASH_BWD_REL_TOL,
                         FLASH_BWD_ROW_FLOOR, FLASH_LSE_TOL, FLASH_REL_TOL,
                         row_rel_err, uncancelled_dq_dk)
 from k8s_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                         check_cuda_config)
+from k8s_tpu_torch.ops import _kernels
 from k8s_tpu_torch.ops import attention as tattn
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -36,7 +40,11 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 def test_package_imports_no_jax_flax_or_triton():
     """Importing the port and every submodule loads none of JAX, flax,
     triton or the JAX package (a fresh interpreter), and no source of
-    the port or of chip_smoke.py imports JAX or the JAX package."""
+    the port or of chip_smoke.py imports JAX or the JAX package. Every
+    ``.py`` under ``k8s_tpu_torch/`` is a source, except what lies in
+    the kernels' git-ignored build directory (``_kernels.BUILD_DIR``),
+    where probe scripts and unpacked copies of the tree may sit; the
+    walk needs no git, so it also runs on an unpacked archive."""
     code = (
         "import importlib, pkgutil, sys, k8s_tpu_torch\n"
         "for m in pkgutil.walk_packages(k8s_tpu_torch.__path__, "
@@ -49,7 +57,11 @@ def test_package_imports_no_jax_flax_or_triton():
     assert res.stdout.strip() == "[]", res.stdout
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|flax|optax|orbax|k8s_tpu)(\.|\s|$)", re.M)
-    sources = list((REPO / "k8s_tpu_torch").rglob("*.py"))
+    build = _kernels.BUILD_DIR
+    assert build == REPO / "k8s_tpu_torch" / "build"
+    sources = [p for p in (REPO / "k8s_tpu_torch").rglob("*.py")
+               if not p.is_relative_to(build)]
+    assert REPO / "k8s_tpu_torch" / "ops" / "attention.py" in sources
     sources.append(REPO / "chip_smoke.py")
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if bad.search(p.read_text())]
@@ -71,6 +83,135 @@ def test_cuda_config_check_refuses_configs_without_a_kernel():
                 LlamaConfig.llama3_8b(num_kv_heads=4)):
         with pytest.raises(ValueError, match="no CUDA kernel instance"):
             check_cuda_config(cfg)
+
+
+class _OnCard1(torch.Tensor):
+    """A CPU tensor that reports itself on ``cuda:1``: the wrappers take
+    their CUDA path with it, while its data stay readable here."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 1)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _CardAllocsOnCpu(TorchFunctionMode):
+    """Allocations the wrappers make on their tensors' CUDA device land on
+    the CPU instead (this build of torch has no CUDA)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if kwargs.get("device") is not None and torch.device(kwargs["device"]).type == "cuda":
+            kwargs["device"] = "cpu"
+        return func(*args, **kwargs)
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """torch.cuda.device, the stream lookup and the kernel libraries
+    stubbed: returns the log of guard entries and exits, stream lookups
+    and C entry calls, in order, and a maker of cuda:1 tensors."""
+    log = []
+
+    class Guard:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            log.append(("enter", self.device))
+
+        def __exit__(self, *exc):
+            log.append(("exit", self.device))
+
+    class Stream:
+        def __init__(self, device):
+            log.append(("stream", device))
+            self.cuda_stream = 0x5EED
+
+    class Lib:
+        def __getattr__(self, entry):
+            def call(*args):
+                log.append(("call", entry, args))
+                return 0
+            return call
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(_kernels, "lib", lambda name: Lib())
+    gen = torch.Generator().manual_seed(0)
+
+    def card(*shape, dtype=torch.bfloat16):
+        x = torch.randn(shape, generator=gen).to(dtype)
+        return x.as_subclass(_OnCard1)
+
+    with _CardAllocsOnCpu():
+        yield log, card
+
+
+def _flash_fwd_call(card):
+    q, k, v = card(1, 16, 8, 128), card(1, 16, 2, 128), card(1, 16, 2, 128)
+    tattn.flash_fwd(q, k, v, True, 0.125)
+
+
+def _flash_bwd_call(card):
+    q, k, v, o = card(1, 16, 8, 128), card(1, 16, 2, 128), card(1, 16, 2, 128), card(1, 16, 8, 128)
+    tattn.flash_bwd(q, k, v, o, card(1, 8, 16, dtype=torch.float32), card(1, 16, 8, 128),
+                    True, 0.125)
+
+
+def _decode_call(card):
+    tattn.decode_attention_update(card(2, 8, 128), card(2, 2, 128), card(2, 2, 128),
+                                  card(2, 2, 64, 128), card(2, 2, 64, 128), 3)
+
+
+def _decode_q8_call(card):
+    tattn.decode_attention_update_q8(
+        card(2, 8, 128), card(2, 2, 128), card(2, 2, 128),
+        card(2, 2, 64, 128, dtype=torch.int8), card(2, 2, 64, 128, dtype=torch.int8),
+        card(2, 2, 64, dtype=torch.float32), card(2, 2, 64, dtype=torch.float32), 3)
+
+
+@pytest.mark.parametrize("call,entries", [
+    (_flash_fwd_call, ["k8s_flash_fwd_bf16"]),
+    (_flash_bwd_call, ["k8s_flash_bwd_dq_bf16", "k8s_flash_bwd_dkv_bf16"]),
+    (_decode_call, ["k8s_decode_attn_bf16"]),
+    (_decode_q8_call, ["k8s_decode_attn_q8"]),
+])
+def test_wrappers_launch_under_their_tensors_device_guard(fake_card, call, entries):
+    """Every C entry is called inside ``torch.cuda.device(<the tensors'
+    device>)`` — a C entry launches on the runtime's current device — with
+    that device's current stream as its last argument. Runs here: the
+    guard, the stream lookup and the libraries are stubbed, and the
+    tensors report cuda:1."""
+    log, card = fake_card
+    call(card)
+    dev = torch.device("cuda", 1)
+    want = []
+    for entry in entries:
+        want += [("enter", dev), ("stream", dev), ("call", entry), ("exit", dev)]
+    assert [e[:2] for e in log] == want
+    assert all(e[2][-1] == 0x5EED for e in log if e[0] == "call")
+
+
+def test_decode_split_rows_reach_the_c_entry(fake_card):
+    """The decode wrappers pass _decode_split_rows's C (or a forced one) and
+    a workspace of ceil(S / C) splits to the C entry; a split length that
+    is not one of DECODE_SPLIT_ROWS raises."""
+    log, card = fake_card
+    args = (card(2, 8, 128), card(2, 2, 128), card(2, 2, 128),
+            card(2, 2, 300, 128), card(2, 2, 300, 128), 3)
+    tattn.decode_attention_update(*args)
+    tattn.decode_attention_update(*args, split_rows=256)
+    calls = [e[2] for e in log if e[0] == "call"]
+    # ..., B, Hkv, G, S, D, C, scale, stream
+    assert [c[-8:-2] for c in calls] == [
+        (2, 2, 4, 300, 128, tattn._decode_split_rows(2, 2, 300)),
+        (2, 2, 4, 300, 128, 256)]
+    with pytest.raises(ValueError, match="split_rows"):
+        tattn.decode_attention_update(*args, split_rows=100)
 
 
 @pytest.fixture
@@ -280,6 +421,147 @@ def test_decode_q8_kernel_matches_plain_on_card(cuda, pos):
         assert torch.equal(x, y)
         changed = (x != old).any(-1) if x.dim() == 4 else x != old
         assert not (changed & ~at_pos).any()  # only row pos[b] moved
+
+
+def _decode_inputs(device, seed, b, s, q8):
+    """q, k_new, v_new and the caches ([k, v] bf16, or [k, v, k_scale,
+    v_scale] int8 with f32 row scales) at Hq 32, Hkv 8, D 128."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=device).bfloat16()  # noqa: E731
+    q, kn, vn = rnd(b, 32, 128), rnd(b, 8, 128), rnd(b, 8, 128)
+    kc, vc = rnd(b, 8, s, 128), rnd(b, 8, s, 128)
+    if not q8:
+        return q, kn, vn, [kc, vc]
+    (kq, ks), (vq, vs) = tattn.quantize_kv_rows(kc), tattn.quantize_kv_rows(vc)
+    return q, kn, vn, [kq, vq, ks, vs]
+
+
+def _decode_kernel(q8):
+    return tattn.decode_attention_update_q8 if q8 else tattn.decode_attention_update
+
+
+def _decode_plain_f32(q, kn, vn, caches, pos, q8):
+    """The plain version in f32 on copies of ``caches`` (which it appends
+    to): ``(out, caches after the append)``."""
+    pos_v = tattn._pos_vector(pos, q.shape[0], q.device)
+    caches = [c.clone() for c in caches]
+    args = [q.float(), kn.float(), vn.float()]
+    if q8:
+        out = tattn.decode_attention_q8_plain(*args, *caches, pos_v, 128 ** -0.5)
+    else:
+        out = tattn.decode_attention_plain(*args, *caches, pos_v, 128 ** -0.5)
+    return out, caches
+
+
+def _check_decode(q, kn, vn, caches, pos, q8, split_rows=None):
+    """The kernel on copies of ``caches`` against the plain version: out
+    within the decode limit, the caches after the append bit-equal (K4
+    copies the new row, K5 quantizes it as quantize_kv_rows)."""
+    got = [c.clone() for c in caches]
+    out = _decode_kernel(q8)(q, kn, vn, *got, pos, split_rows=split_rows)[0]
+    ref, want = _decode_plain_f32(q, kn, vn, caches, pos, q8)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    err = row_rel_err(out, ref)
+    assert err <= (DECODE_Q8_REL_TOL if q8 else DECODE_REL_TOL), err
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("rows", tattn.DECODE_SPLIT_ROWS)
+def test_decode_kernels_split_boundaries_on_card(cuda, rows, q8):
+    """K4 and K5 under each split length at B 8, S 2048: pos on split
+    boundaries (C - 1, C, C + 1, S - C), 0, 1 and S - 2, S - 1."""
+    s = 2048
+    q, kn, vn, caches = _decode_inputs(cuda, rows, 8, s, q8)
+    pos = torch.tensor([0, rows - 1, rows, rows + 1, s - rows, s - 2, s - 1, 1],
+                       dtype=torch.int32, device=cuda)
+    _check_decode(q, kn, vn, caches, pos, q8, split_rows=rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernels_long_cache_on_card(cuda, q8):
+    """16 slots of 8192 rows (the int8 serving cache) at ragged depths
+    with 0 and S - 1, under _decode_split_rows's choice."""
+    q, kn, vn, caches = _decode_inputs(cuda, 3, 16, 8192, q8)
+    pos = torch.tensor([0, 8191, 1, 37, 500, 1024, 2047, 3000, 4095, 4500,
+                        5000, 6000, 6500, 7000, 7777, 8190],
+                       dtype=torch.int32, device=cuda)
+    _check_decode(q, kn, vn, caches, pos, q8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernels_scalar_pos_on_card(cuda, q8):
+    """A uniform batch: one scalar pos for every slot."""
+    q, kn, vn, caches = _decode_inputs(cuda, 4, 4, 1024, q8)
+    _check_decode(q, kn, vn, caches, 700, q8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernels_bit_identical_on_repeat(cuda, q8):
+    """No atomics and a merge in a fixed order: two calls on the same
+    inputs give bit-identical outputs and caches."""
+    q, kn, vn, caches = _decode_inputs(cuda, 5, 8, 2048, q8)
+    pos = torch.tensor([0, 2047, 1, 100, 513, 1024, 1500, 2000],
+                       dtype=torch.int32, device=cuda)
+    first, second = [c.clone() for c in caches], [c.clone() for c in caches]
+    a = _decode_kernel(q8)(q, kn, vn, *first, pos)[0]
+    b = _decode_kernel(q8)(q, kn, vn, *second, pos)[0]
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernels_never_read_rows_past_pos(cuda, q8):
+    """Cache rows at and past pos[b] hold NaN (K5: NaN row scales, int8
+    has none): the output matches the plain version on a clean cache and
+    is finite, and the append leaves the NaN rows past pos alone."""
+    s = 1024
+    q, kn, vn, caches = _decode_inputs(cuda, 6, 4, s, q8)
+    pos = torch.tensor([0, 255, 256, 1023], dtype=torch.int32, device=cuda)
+    ref, want = _decode_plain_f32(q, kn, vn, caches, pos, q8)
+    past = torch.arange(s, device=cuda)[None, :] >= pos[:, None].long()  # [B, S]
+    poisoned = [c.clone() for c in caches]
+    for c in poisoned[2:] if q8 else poisoned:
+        c[past[:, None].expand(c.shape[:3])] = float("nan")
+    out = _decode_kernel(q8)(q, kn, vn, *poisoned, pos)[0]
+    assert torch.isfinite(out).all()
+    assert row_rel_err(out, ref) <= DECODE_REL_TOL
+    at = ~past.clone()
+    at[torch.arange(4, device=cuda), pos.long()] = True  # rows < pos and pos
+    for x, w in zip(poisoned, want):
+        assert torch.equal(x[at[:, None].expand(x.shape[:3])],
+                           w[at[:, None].expand(w.shape[:3])])
+    for x in poisoned[2:] if q8 else poisoned:
+        assert x[(~at)[:, None].expand(x.shape[:3])].isnan().all()
+
+
+@pytest.mark.gpu
+def test_kernels_run_on_a_second_card(cuda):
+    """K1, K4 and K5 on cuda:1 while cuda:0 is the current device: the
+    wrappers launch under their tensors' device guard, and the flash
+    kernel's shared-memory limit is set on that card too."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(sh, generator=g, device=dev).bfloat16()
+               for sh in ((2, 300, 32, 128), (2, 300, 8, 128), (2, 300, 8, 128)))
+    for config in tattn.FLASH_FWD_TILES:
+        out = tattn.flash_fwd(q, k, v, True, 128 ** -0.5, config=config)
+        ref, _ = tattn.flash_fwd_plain(*_f32(q, k, v), True, 128 ** -0.5)
+        assert out.device == dev and row_rel_err(out, ref) <= FLASH_REL_TOL
+    for q8 in (False, True):
+        qd, kn, vn, caches = _decode_inputs(dev, 9, 4, 1024, q8)
+        pos = torch.tensor([0, 300, 511, 1023], dtype=torch.int32, device=dev)
+        _check_decode(qd, kn, vn, caches, pos, q8)
+    assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.gpu
