@@ -12,8 +12,13 @@ roofline bound), then drives the port's three main paths, in this order:
 
 - serving: Llama-3-8B at full width and depth (random bf16 weights from
   a fixed seed) through the continuous-batching engine behind a real
-  HTTP front-end, every emitted token checked against a teacher-forced
-  forward;
+  HTTP front-end (two decode chunks in flight, each after the engine's
+  first replayed from its CUDA graph), every emitted token checked
+  against a teacher-forced forward; then the compiled chunk alone at
+  the decode-profile depths: one replay bit-equal to one eager chunk
+  from the same state (packed output, state, cache), the eager and
+  graph walls per step, the replays' device time and busy share, and
+  fresh draws in two replays at temperature 1;
 - training: ``programs.llama_train.main`` at Llama-3-8B width cut to 8
   layers (seq 2048, batch 8, ``flash`` remat, fused CE, f32 AdamW) for
   10 steps on learnable data, the loss required to fall; a gradient
@@ -24,11 +29,16 @@ roofline bound), then drives the port's three main paths, in this order:
   the same Llama-3-8B with int8 weights and an int8 KV cache
   (``--quant=int8_serving --kv_quant=int8``), 16 slots of 8192 rows, 16
   concurrent requests of 12…6000 prompt tokens, every emitted token
-  checked against a teacher-forced forward of the same int8 model, and
-  the bf16 model of the same seed compared for information.
+  checked against a teacher-forced forward of the same int8 model, the
+  compiled chunk checked and timed as above (cache scales included),
+  and the bf16 model of the same seed compared for information.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after, and fails unless every kernel of the path launched. Every
+just after, and fails unless every kernel of the path launched. A
+wrapper's counter ticks when it launches its kernel eagerly or records
+it into a graph; a serving path's launches are the eager ones plus, for
+each graph replay, the launches its capture recorded
+(:func:`path_launches`). Every
 phase must pass; the script exits non-zero at the first failure and
 prints its result lines only on success. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -136,14 +146,17 @@ def emit(obj) -> None:
 def _profiled(torch, fn, reps: int):
     """key_averages() of ``reps`` calls of ``fn`` under torch.profiler
     (after one warm-up call). A session that records no device event at
-    all is taken once more before giving up: one came back empty in a
-    process that had opened ~40 sessions (PERF.md)."""
+    all is taken again, up to four sessions, after a pause that grows,
+    the later ones with CPU activity on too: sessions have come back
+    empty at random, twice in a row once (PERF.md)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(4):
+        activities = [ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if attempt >= 2 else [])
+        with profile(activities=activities) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -152,6 +165,9 @@ def _profiled(torch, fn, reps: int):
                   and e.self_device_time_total > 0]
         if events:
             return events
+        print(f"chip_smoke: torch.profiler session {attempt + 1} recorded no "
+              "device time; taking it again", file=sys.stderr, flush=True)
+        time.sleep(attempt + 1)
     fail("torch.profiler recorded no device time")
 
 
@@ -755,6 +771,252 @@ def post(port, payload, timeout=600):
         return json.loads(r.read())
 
 
+def _pcts(xs):
+    """(p50, p95) as benches/serving_bench.py takes them (copied)."""
+    if len(xs) == 0:
+        return 0.0, 0.0
+    xs = np.sort(np.asarray(xs))
+    return (float(xs[int(0.5 * (len(xs) - 1))]),
+            float(xs[int(0.95 * (len(xs) - 1))]))
+
+
+def itl_pcts(reqs):
+    """Inter-token latency p50 / p95 (s) from the requests'
+    ``token_times``, as benches/serving_bench.py ``_stream_stats`` takes
+    it (copied): each gap between two attributions over the tokens the
+    later one delivered, counted once per token."""
+    itl = []
+    for r in reqs:
+        for (t_prev, _), (t_cur, n_cur) in zip(r.token_times, r.token_times[1:]):
+            itl.extend([(t_cur - t_prev) / n_cur] * n_cur)
+    return _pcts(itl)
+
+
+def recording_engine(engine_cls):
+    """``engine_cls`` keeping every request it hands out in ``finished``
+    (their ``token_times`` give the inter-token latencies)."""
+
+    class Recording(engine_cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.finished = []
+
+        def pop_finished(self):
+            done = super().pop_finished()
+            self.finished.extend(done.values())
+            return done
+
+    return Recording
+
+
+def path_launches(counted, stats, engine):
+    """Kernel launches of a serving run: the wrappers' counters over the
+    run (eager launches, plus those a capture in the run recorded, which
+    ran no kernel) less the captures', plus each replay's launches.
+    ``counted`` maps a kernel name to its counter's delta, ``stats`` is
+    the engine's stats delta."""
+    per = engine.graph_launches or {}
+    return {name: n + (stats["graph_replays"] - stats["graph_captures"])
+            * per.get(name, 0) for name, n in counted.items()}
+
+
+def fill_engine_state(torch, engine, depths, seed):
+    """Every slot of ``engine`` decoding at ``depths`` (random tokens,
+    budgets that outlast the measurement) over a cache of random rows
+    (int8 rows and scales of the size int8 quantization makes)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    b, vocab = engine.max_slots, engine.model.config.vocab_size
+    engine._tok.copy_(torch.randint(0, vocab, (b,), generator=g, device="cuda"))
+    engine._lengths.copy_(torch.tensor(depths, dtype=torch.int32))
+    engine._active.fill_(True)
+    engine._budget.fill_(1 << 30)
+    for t in engine._cache._tensors():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device="cuda",
+                                  dtype=torch.int8))
+        elif t.dtype == torch.float32:
+            t.copy_(torch.rand(t.shape, generator=g, device="cuda") * 0.02 + 0.01)
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+
+
+def engine_state(engine):
+    return [engine._tok, engine._lengths, engine._active, engine._budget]
+
+
+def graph_vs_eager(torch, engine):
+    """One chunk replayed from the engine's CUDA graph against one eager
+    chunk (the module-level ``_decode_chunk``) from a clone of the same
+    state and cache: ``{what: number of differing elements}`` over the
+    packed array, the state and every cache tensor (rows and scales).
+    The engine's first chunk runs eagerly, as it does in serving, then
+    the graph is captured."""
+    from k8s_tpu_torch.models import KVCache
+    from k8s_tpu_torch.serving.engine import _decode_chunk
+
+    engine._run_decode()  # the engine's eager first chunk
+    engine._capture()
+    cache = engine._cache
+    copy = (lambda ts: None if ts is None else [t.clone() for t in ts])  # noqa: E731
+    twin = KVCache(copy(cache.keys), copy(cache.values), False,
+                   copy(cache.key_scales), copy(cache.value_scales))
+    *state, packed = _decode_chunk(
+        engine.model, twin, *[t.clone() for t in engine_state(engine)],
+        engine._gen, n_steps=engine.decode_chunk,
+        temperature=engine.temperature, eos_id=engine.eos_id)
+    replayed = engine._run_decode()
+    torch.cuda.synchronize()
+    if engine.stats["graph_replays"] != 1:
+        fail(f"graph_vs_eager: {engine.stats['graph_replays']} replays, not 1")
+
+    def ne(a, b):
+        return int((a != b).sum().item())
+
+    diff = {"packed": ne(packed, replayed)}
+    for name, a, b in zip(("tok", "lengths", "active", "budget"), state,
+                          engine_state(engine)):
+        diff[name] = ne(a, b)
+    diff["cache"] = sum(ne(a, b) for a, b in zip(twin._tensors(), cache._tensors()))
+    return diff
+
+
+def graph_draws_fresh(torch, engine):
+    """Two replays of a sampling engine's graph from the same state: the
+    share of (step, slot) tokens that differ (0 if a replay repeated the
+    generator's draws)."""
+    engine._run_decode()
+    engine._capture()
+    saved = [t.clone() for t in engine_state(engine)]
+    first = engine._run_decode().clone()
+    for dst, src in zip(engine_state(engine), saved):
+        dst.copy_(src)
+    second = engine._run_decode()
+    k = engine.decode_chunk
+    return (first[1:k + 1] != second[1:k + 1]).float().mean().item()
+
+
+def chunk_walls(torch, engine, reps: int = 3):
+    """Per decode step: the eager chunk's wall and the graph replay's,
+    each over ``reps`` whole chunks started from the same state (every
+    slot active), and the replays' device time (torch.profiler) and
+    busy share (that device time over the unprofiled replay wall). The
+    engine must hold a captured graph."""
+    from k8s_tpu_torch.serving.engine import _decode_chunk
+
+    saved = [t.clone() for t in engine_state(engine)]
+    k = engine.decode_chunk
+
+    def restore():
+        for dst, src in zip(engine_state(engine), saved):
+            dst.copy_(src)
+
+    def eager():
+        restore()
+        _decode_chunk(engine.model, engine._cache, *engine_state(engine),
+                      engine._gen, n_steps=k, temperature=engine.temperature,
+                      eos_id=engine.eos_id)
+
+    def replay():
+        restore()
+        engine._graph.replay()
+
+    walls = {}
+    for name, fn in (("eager", eager), ("graph", replay)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3 / (reps * k)
+    device = sum(e.self_device_time_total
+                 for e in _profiled(torch, replay, reps)) / 1e3 / (reps * k)
+    restore()
+    return {"eager_step_wall_ms": walls["eager"], "graph_step_wall_ms": walls["graph"],
+            "graph_step_device_ms": device, "graph_busy_share": device / walls["graph"],
+            "profiled_replays": reps}
+
+
+def phase_decode_chunk_graph(torch, model, card, depths, phase, sampling: bool):
+    """The compiled chunk at the decode-profile depths: bit-equality of a
+    replay with an eager chunk, the eager and graph walls per step, and
+    (``sampling``) fresh draws in consecutive replays at temperature 1."""
+    from k8s_tpu_torch.serving import ContinuousBatchingEngine
+
+    engine = ContinuousBatchingEngine(model, max_slots=len(depths), decode_chunk=32)
+    fill_engine_state(torch, engine, depths, seed=5)
+    diff = graph_vs_eager(torch, engine)
+    if any(diff.values()):
+        fail(f"{phase}: the replayed chunk differs from the eager one: {diff}")
+    row = {"phase": phase, "batch": len(depths), "depths": list(depths),
+           "decode_chunk": engine.decode_chunk, "bit_equal": True,
+           "launches_per_capture": engine.graph_launches,
+           **chunk_walls(torch, engine)}
+    del engine
+    if sampling:
+        engine = ContinuousBatchingEngine(model, max_slots=len(depths), decode_chunk=32,
+                                          temperature=1.0, seed=3)
+        fill_engine_state(torch, engine, depths, seed=5)
+        share = graph_draws_fresh(torch, engine)
+        if not share > 0:
+            fail(f"{phase}: two replays at temperature 1 drew the same tokens")
+        row["sampling_replays_differ_share"] = share
+        del engine
+    row["card"] = card
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+# the streams whose inter-token latency the serving phases report: each
+# request's 128 tokens span several 32-step chunks (a 32-token request
+# arrives in one attribution and has no inter-token gap to measure)
+ITL_NEW_TOKENS = 128
+
+
+def burst(port, prompts, new_tokens):
+    """Post every prompt at once, one client thread each: the
+    responses (None where a client failed), the start time and the wall
+    until the last response."""
+    results = [None] * len(prompts)
+
+    def client(i):
+        results[i] = post(port, {"prompt": prompts[i], "max_new_tokens": new_tokens})
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+    t1 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return results, t1, time.perf_counter() - t1
+
+
+def itl_burst(port, engine, prompts):
+    """One long stream per slot (``ITL_NEW_TOKENS`` each): their
+    responses and their inter-token latency p50 / p95 in ms, from the
+    engine's ``token_times``."""
+    results, t1, wall = burst(port, prompts, ITL_NEW_TOKENS)
+    p50, p95 = itl_pcts([r for r in engine.finished if r.submitted_at >= t1])
+    return results, {"itl_requests": len(prompts), "itl_new_tokens": ITL_NEW_TOKENS,
+                     "itl_wall_s": wall, "itl_p50_ms": 1e3 * p50,
+                     "itl_p95_ms": 1e3 * p95}
+
+
+def decode_rates(stats, decoded: int) -> dict:
+    """Decode rates of a serving run from the engine's stats delta:
+    ``decode_step_wall_ms`` and ``decode_tokens_per_s`` over the wall
+    time in which a chunk was in flight (``decode_wall_s``), and
+    ``decode_step_ms``, each chunk's dispatch-to-attribution latency per
+    step (``chunk_s``; chunks in flight together both count their
+    overlap, so with pipeline_depth > 1 it is not the step's wall)."""
+    return {"decode_tokens_per_s": decoded / stats["decode_wall_s"],
+            "decode_step_wall_ms": 1e3 * stats["decode_wall_s"] / stats["decode_steps"],
+            "decode_step_ms": 1e3 * stats["chunk_s"] / stats["decode_steps"]}
+
+
 def phase_serving(torch, attn, card):
     """Llama-3-8B through the engine and a real HTTP front-end: the
     wiring of k8s_tpu_torch.programs.serving.main."""
@@ -769,9 +1031,9 @@ def phase_serving(torch, attn, card):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     buckets = [b for b in (16, 32, 64, 128, 256, 512, 1024) if b < max_seq]
-    engine = ContinuousBatchingEngine(
+    engine = recording_engine(ContinuousBatchingEngine)(
         model, max_slots=8, decode_chunk=32, prompt_buckets=buckets,
-        prefill_chunk=256)
+        prefill_chunk=256, pipeline_depth=2)
     frontend = ServingFrontend(engine, port=0)
     stop = threading.Event()
     pump = threading.Thread(target=frontend.serve, args=(stop.is_set,))
@@ -779,44 +1041,44 @@ def phase_serving(torch, attn, card):
     rng = np.random.RandomState(0)
     lens = [12, 40, 97, 160, 256, 257, 300, 513, 700, 1000]
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
-    results = [None] * len(prompts)
+    itl_prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+                   for n in (16, 33, 64, 100, 150, 200, 256, 300)]
     try:
         post(frontend.port, {"prompt": prompts[0][:20], "max_new_tokens": 4})  # warm-up
         stats0 = dict(engine.stats)
         attn.flash_fwd.launches = 0
         attn.decode_attention_update.launches = 0
-
-        def client(i):
-            results[i] = post(frontend.port, {"prompt": prompts[i],
-                                              "max_new_tokens": new_tokens})
-
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
-        t1 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t1
-        launches = {"flash_fwd": attn.flash_fwd.launches,
-                    "decode_attn": attn.decode_attention_update.launches}
+        results, t1, wall = burst(frontend.port, prompts, new_tokens)
+        counted = {"flash_fwd": attn.flash_fwd.launches,
+                   "decode_attn": attn.decode_attention_update.launches}
+        stats = {k: v - stats0.get(k, 0) for k, v in engine.stats.items()
+                 if k != "queue_depth"}
+        itl_results, itl = itl_burst(frontend.port, engine, itl_prompts)
     finally:
         stop.set()
         pump.join(timeout=300)
-    if pump.is_alive() or any(r is None for r in results):
+    counted_all = {"flash_fwd": attn.flash_fwd.launches,
+                   "decode_attn": attn.decode_attention_update.launches}
+    if pump.is_alive() or any(r is None for r in results + itl_results):
         fail("serving: a request or the pump did not finish")
+    launches = path_launches(counted, stats, engine)
     for name, n in launches.items():
         if n <= 0:
             fail(f"serving: kernel {name} never launched on the main path")
+    if stats["graph_replays"] <= 0:
+        fail("serving: no decode chunk replayed the CUDA graph")
 
     # oracle: one teacher-forced forward per request through the plain
     # attention path (a warm cache of its own takes _cached_attention),
     # so neither kernel runs on the oracle's side and a kernel fault
     # cannot cancel out
     gaps, exact = [], 0
-    for p, r in zip(prompts, results):
+    served = [(p, r, new_tokens) for p, r in zip(prompts, results)]
+    served += [(p, r, ITL_NEW_TOKENS) for p, r in zip(itl_prompts, itl_results)]
+    for p, r, n in served:
         toks = r["tokens"]
-        if len(toks) != new_tokens:
-            fail(f"serving: {len(toks)} tokens for a {new_tokens}-token request")
+        if len(toks) != n:
+            fail(f"serving: {len(toks)} tokens for a {n}-token request")
         ids = torch.tensor([p + toks], dtype=torch.long, device="cuda")
         cache = model.new_cache(1)
         cache.fresh = False
@@ -831,35 +1093,38 @@ def phase_serving(torch, attn, card):
         gaps.append(gap.max().item())
         exact += int((logits.argmax(-1) == tok_t).sum().item())
     worst = max(gaps)
-    if (attn.flash_fwd.launches, attn.decode_attention_update.launches) != (
-            launches["flash_fwd"], launches["decode_attn"]):
+    oracle_launches = (attn.flash_fwd.launches, attn.decode_attention_update.launches)
+    if oracle_launches != tuple(counted_all.values()):
         fail("serving oracle: a kernel launched on the oracle's plain path")
     if worst > ORACLE_LOGIT_TOL:
         fail(f"serving oracle: emitted-token logit {worst} below the row max "
              f"(tol {ORACLE_LOGIT_TOL})")
     n_tok = new_tokens * len(prompts)
+    n_served = sum(n for _, _, n in served)
     ttfts = sorted(r["ttft_s"] for r in results)
-    stats = {k: v - stats0.get(k, 0) for k, v in engine.stats.items()
-             if k != "queue_depth"}
     emit({
         "phase": "serving", "model": "llama3_8b", "layers": cfg.num_layers,
         "vocab": cfg.vocab_size, "dtype": "bfloat16", "max_seq_len": max_seq,
         "max_slots": 8, "decode_chunk": 32, "prefill_chunk": 256,
+        "pipeline_depth": engine.pipeline_depth,
         "requests": len(prompts), "prompt_lens": lens, "new_tokens": new_tokens,
         "load_s": load_s, "wall_s": wall, "tokens_per_s": n_tok / wall,
-        # tokens decoded (all but each request's prefill token) over the
-        # engine's decode-chunk time
-        "decode_tokens_per_s": (n_tok - len(prompts)) / stats["chunk_s"],
-        "decode_step_ms": 1e3 * stats["chunk_s"] / stats["decode_steps"],
-        "ttft_p50_s": float(np.median(ttfts)), "ttft_max_s": ttfts[-1],
+        **decode_rates(stats, n_tok - len(prompts)),
+        "ttft_p50_s": float(np.median(ttfts)), "ttft_max_s": ttfts[-1], **itl,
+        "graph_replays": stats["graph_replays"],
+        "launches_per_replay": engine.graph_launches,
         "oracle_max_gap": worst, "oracle_tol": ORACLE_LOGIT_TOL,
-        "oracle_exact_share": exact / n_tok, "launches": launches,
-        "engine_stats": stats, "card": card,
+        "oracle_tokens": n_served, "oracle_exact_share": exact / n_served,
+        "launches": launches,
+        "launches_counted": counted, "engine_stats": stats, "card": card,
     })
-    phase_decode_profile(torch, model, card,
-                         [12, 300, 700, 1000, 1500, 2000, 40, 97])
+    del engine, frontend
+    gc.collect()
+    phase_decode_chunk_graph(torch, model, card, SERVING_DEPTHS,
+                             "decode_chunk_graph", sampling=True)
+    phase_decode_profile(torch, model, card, SERVING_DEPTHS)
     # free the serving model (16 GB) and its caches before training
-    del engine, frontend, model
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -955,9 +1220,9 @@ def phase_serving_int8(torch, attn, card):
     bf16_cfg = dataclasses.replace(cfg, quant="none", kv_quant="none")
     bf16_weight_bytes = _param_bytes(LlamaForCausalLM(bf16_cfg, device="meta"))
     buckets = [b for b in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096) if b < max_seq]
-    engine = ContinuousBatchingEngine(
+    engine = recording_engine(ContinuousBatchingEngine)(
         model, max_slots=slots, decode_chunk=32, prompt_buckets=buckets,
-        prefill_chunk=256)
+        prefill_chunk=256, pipeline_depth=2)
     kv = engine._cache
     kv_bytes = sum(t.numel() * t.element_size() for t in
                    kv.keys + kv.values + kv.key_scales + kv.value_scales)
@@ -970,40 +1235,36 @@ def phase_serving_int8(torch, attn, card):
     lens = [12, 33, 64, 100, 150, 200, 256, 300, 400, 512, 800, 1000, 1500,
             2500, 4000, 6000]
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
-    results = [None] * len(prompts)
+    itl_prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+                   for n in (16, 33, 64, 100, 150, 200, 256, 300, 350, 400,
+                             450, 500, 20, 40, 80, 120)]
     try:
         post(frontend.port, {"prompt": prompts[0][:20], "max_new_tokens": 4})  # warm-up
         stats0 = dict(engine.stats)
         attn.flash_fwd.launches = 0
         attn.decode_attention_update.launches = 0
         attn.decode_attention_update_q8.launches = 0
-
-        def client(i):
-            results[i] = post(frontend.port, {"prompt": prompts[i],
-                                              "max_new_tokens": new_tokens})
-
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
-        t1 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t1
-        launches = {"flash_fwd": attn.flash_fwd.launches,
-                    "decode_attn": attn.decode_attention_update.launches,
-                    "decode_attn_q8": attn.decode_attention_update_q8.launches}
+        results, t1, wall = burst(frontend.port, prompts, new_tokens)
+        counted = {"flash_fwd": attn.flash_fwd.launches,
+                   "decode_attn": attn.decode_attention_update.launches,
+                   "decode_attn_q8": attn.decode_attention_update_q8.launches}
+        stats = {k: v - stats0.get(k, 0) for k, v in engine.stats.items()
+                 if k != "queue_depth"}
+        itl_results, itl = itl_burst(frontend.port, engine, itl_prompts)
     finally:
         stop.set()
         pump.join(timeout=300)
-    if pump.is_alive() or any(r is None for r in results):
+    if pump.is_alive() or any(r is None for r in results + itl_results):
         fail("serving_int8: a request or the pump did not finish")
+    launches = path_launches(counted, stats, engine)
     if launches["decode_attn_q8"] <= 0 or launches["flash_fwd"] <= 0:
         fail(f"serving_int8: a kernel of the path never launched: {launches}")
     if launches["decode_attn"] != 0:
         fail(f"serving_int8: the bf16 decode kernel ran over the int8 cache: {launches}")
+    if stats["graph_replays"] <= 0:
+        fail("serving_int8: no decode chunk replayed the CUDA graph")
     serve_peak = torch.cuda.max_memory_allocated()
-    stats = {k: v - stats0.get(k, 0) for k, v in engine.stats.items()
-             if k != "queue_depth"}
+    pipeline_depth, per_replay = engine.pipeline_depth, engine.graph_launches
     del engine, frontend, kv
     gc.collect()
     torch.cuda.empty_cache()
@@ -1034,15 +1295,24 @@ def phase_serving_int8(torch, attn, card):
             gap(logits, toks_all[(i + 1) % len(toks_all)]).max().item())
         exact += int((logits.argmax(-1) == torch.tensor(toks, device="cuda")).sum().item())
         int8_logits.append(logits)
+    for p, r in zip(itl_prompts, itl_results):  # the long streams: gaps only
+        toks = r["tokens"]
+        if len(toks) != ITL_NEW_TOKENS:
+            fail(f"serving_int8: {len(toks)} tokens for a {ITL_NEW_TOKENS}-token request")
+        logits = _forced_logits(torch, model, p, toks)
+        if not torch.isfinite(logits).all():
+            fail("serving_int8: non-finite logits in the oracle forward")
+        gaps.append(gap(logits, toks).max().item())
+        exact += int((logits.argmax(-1) == torch.tensor(toks, device="cuda")).sum().item())
     worst = max(gaps)
     fault_worst = {k: max(v) for k, v in faults.items()}
     if worst > ORACLE_Q8_LOGIT_TOL or not min(fault_worst.values()) > ORACLE_Q8_LOGIT_TOL:
         fail(f"serving_int8 oracle: emitted-token gap {worst} (tol "
              f"{ORACLE_Q8_LOGIT_TOL}, per request {gaps}); each planted fault's "
              f"worst gap must exceed it: {faults}")
-    depths = [12, 300, 700, 1000, 1500, 2000, 2500, 3000, 3500, 4000, 5000,
-              6000, 7000, 8000, 40, 97]
-    step_device_ms = phase_decode_profile(torch, model, card, depths,
+    phase_decode_chunk_graph(torch, model, card, SERVING_DEPTHS_INT8,
+                             "decode_chunk_graph_int8", sampling=False)
+    step_device_ms = phase_decode_profile(torch, model, card, SERVING_DEPTHS_INT8,
                                           phase="decode_profile_int8")
     del model
     gc.collect()
@@ -1061,29 +1331,32 @@ def phase_serving_int8(torch, attn, card):
     torch.cuda.empty_cache()
 
     n_tok = new_tokens * len(prompts)
+    n_served = n_tok + ITL_NEW_TOKENS * len(itl_prompts)
     ttfts = sorted(r["ttft_s"] for r in results)
     emit({
         "phase": "serving_int8", "model": "llama3_8b", "layers": cfg.num_layers,
         "vocab": cfg.vocab_size, "quant": cfg.quant, "kv_quant": cfg.kv_quant,
         "max_seq_len": max_seq, "max_slots": slots, "decode_chunk": 32,
-        "prefill_chunk": 256, "requests": len(prompts), "prompt_lens": lens,
+        "prefill_chunk": 256, "pipeline_depth": pipeline_depth,
+        "requests": len(prompts), "prompt_lens": lens,
         "new_tokens": new_tokens, "load_s": load_s, "wall_s": wall,
         "tokens_per_s": n_tok / wall,
-        "decode_tokens_per_s": (n_tok - len(prompts)) / stats["chunk_s"],
-        "decode_step_ms": 1e3 * stats["chunk_s"] / stats["decode_steps"],
+        **decode_rates(stats, n_tok - len(prompts)),
         "decode_step_device_ms": step_device_ms,
-        "ttft_p50_s": float(np.median(ttfts)), "ttft_max_s": ttfts[-1],
+        "ttft_p50_s": float(np.median(ttfts)), "ttft_max_s": ttfts[-1], **itl,
+        "graph_replays": stats["graph_replays"], "launches_per_replay": per_replay,
         "weight_bytes": weight_bytes, "bf16_weight_bytes": bf16_weight_bytes,
         "kv_bytes": kv_bytes, "bf16_kv_bytes": bf16_kv_bytes,
         "load_peak_gb": load_peak / 1e9, "serve_peak_gb": serve_peak / 1e9,
         "oracle_max_gap": worst, "oracle_tol": ORACLE_Q8_LOGIT_TOL,
-        "oracle_exact_share": exact / n_tok,
+        "oracle_tokens": n_served, "oracle_exact_share": exact / n_served,
         "planted_faults_worst_gap": fault_worst,
         "planted_faults_per_request": faults,
         "int8_vs_bf16": {"max_abs_logit_diff": max(diffs),
                          "top1_agreement": agree / n_tok,
                          "bf16_gap_of_int8_tokens_max": max(bf16_gaps)},
-        "launches": launches, "engine_stats": stats, "card": card,
+        "launches": launches, "launches_counted": counted, "engine_stats": stats,
+        "card": card,
     })
     return launches
 

@@ -47,8 +47,9 @@ kernel and the lm_head are int8 with per-column scales
 (:mod:`k8s_tpu_torch.ops.quant`).
 
 On the card the model runs only configs the kernels are built for
-(:func:`check_cuda_config`): it raises at construction rather than run
-plain attention there.
+(:func:`check_cuda_config`: a training config the flash kernels', a
+decode config also the decode kernels'): it raises at construction
+rather than run plain attention there.
 
 The append index is ``positions[:, 0]`` per row with
 ``ragged_decode=True`` (the continuous-batching engine owns per-slot
@@ -314,17 +315,28 @@ def _use_kernel_decode(cfg: LlamaConfig) -> bool:
 
 
 def check_cuda_config(cfg: LlamaConfig) -> None:
-    """Raise unless the kernels serve ``cfg`` on the card: the flash and
-    decode kernels (bf16 or int8 KV) are built for bf16 at head dims
-    KERNEL_HEAD_DIMS and group sizes DECODE_GROUPS, and the card runs no
-    plain attention in their place."""
-    if not _use_kernel_decode(cfg):
+    """Raise unless the kernels run ``cfg`` on the card, which runs no
+    plain attention in their place. A training config needs only the
+    flash kernels (forward and backward), built for bf16 at head dims
+    KERNEL_HEAD_DIMS with the group size taken at run time; a decode
+    config also the decode kernels (bf16 or int8 KV), instantiated per
+    group size (DECODE_GROUPS)."""
+    ok = (cfg.head_dim in KERNEL_HEAD_DIMS and cfg.dtype == torch.bfloat16
+          and cfg.num_heads % cfg.num_kv_heads == 0)
+    family = "flash kernels (K1-K3)"
+    built = (f"bfloat16, head_dim in {KERNEL_HEAD_DIMS}, any whole number "
+             "of q heads per kv head")
+    if cfg.decode:
+        ok = ok and _use_kernel_decode(cfg)
+        family = "decode kernels (K4, K5)"
+        built = (f"bfloat16, head_dim in {KERNEL_HEAD_DIMS}, q heads per kv "
+                 f"head in {DECODE_GROUPS}")
+    if not ok:
         raise ValueError(
             f"no CUDA kernel instance for head_dim={cfg.head_dim}, "
-            f"{cfg.num_heads // cfg.num_kv_heads} q heads per kv head, "
-            f"{cfg.dtype}: the kernels are built for bfloat16, head_dim in "
-            f"{KERNEL_HEAD_DIMS}, groups in {DECODE_GROUPS}; serve this "
-            "config with device='cpu' or add a kernel instance")
+            f"{cfg.num_heads}/{cfg.num_kv_heads} q/kv heads, {cfg.dtype}: "
+            f"the {family} are built for {built}; run this config with "
+            "device='cpu' or add a kernel instance")
 
 
 def _weight(cfg: LlamaConfig, *shape, dtype, device) -> nn.Parameter:
@@ -641,12 +653,15 @@ class LlamaForCausalLM(nn.Module):
 def _pick_token(logits_last: torch.Tensor, generator: Optional[torch.Generator],
                 temperature: float) -> torch.Tensor:
     """[B, V] logits -> [B] int32 tokens: argmax at temperature 0, else a
-    softmax sample drawn from ``generator``."""
+    softmax sample drawn from ``generator``: the argmax of p / q with q ~
+    Exp(1), which is what ``torch.multinomial`` computes for one sample
+    (the same tokens from the same generator state), without its host
+    read of a validity check, so a CUDA graph can capture it."""
     if temperature == 0.0:
         return torch.argmax(logits_last, dim=-1).to(torch.int32)
     probs = torch.softmax(logits_last.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    race = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / race, dim=-1).to(torch.int32)
 
 
 def _prefill(model: LlamaForCausalLM, prompt_ids, generator, temperature,

@@ -8,6 +8,8 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
   --max_seq_len=N           KV-cache depth per slot (default 256)
   --max_slots=N             static decode batch width (default 8)
   --decode_chunk=N          decode steps per host fetch (default 32)
+  --pipeline_depth=N        decode chunks in flight ahead of their
+                            attribution (default 2; 1 waits for each)
   --chunked_prefill=0|1     token-budget chunked prefill (default 1)
   --prefill_chunk=N         max padded tokens per prefill chunk (256)
   --max_tokens_per_round=N  per-round token budget (default:
@@ -26,9 +28,9 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
   --device=cuda|cpu         default cuda; raises without a card
   --quant=int8_serving      weight-only int8
   --kv_quant=int8           int8 KV cache
-The pump runs synchronously (``pipeline_depth`` is always 1). Options
-of later slices — prefix cache, speculative decode, disaggregation
-roles, migration — raise when set.
+On a card the engine replays its decode chunk as a CUDA graph after
+the first (eager) chunk. Options of later slices — prefix cache,
+speculative decode, disaggregation roles, migration — raise when set.
 
 Lifecycle events (JSON lines): ``serving_ready`` once the server
 accepts traffic, ``serving_drained`` after a SIGTERM-triggered drain.
@@ -74,6 +76,7 @@ def main(rdzv) -> None:
     max_seq = int(extra.get("max_seq_len", "256"))
     max_slots = int(extra.get("max_slots", "8"))
     decode_chunk = int(extra.get("decode_chunk", "32"))
+    pipeline_depth = int(extra.get("pipeline_depth", "2"))
     chunked_prefill = bool(int(extra.get("chunked_prefill", "1")))
     prefill_chunk = int(extra.get("prefill_chunk", "256"))
     max_tokens_per_round = (int(extra["max_tokens_per_round"])
@@ -110,7 +113,8 @@ def main(rdzv) -> None:
         model, max_slots=max_slots, temperature=temperature, eos_id=eos_id,
         decode_chunk=decode_chunk, prompt_buckets=buckets,
         chunked_prefill=chunked_prefill, prefill_chunk=prefill_chunk,
-        max_tokens_per_round=max_tokens_per_round)
+        max_tokens_per_round=max_tokens_per_round,
+        pipeline_depth=pipeline_depth)
     frontend = ServingFrontend(engine, host=host, port=port,
                                max_queue_depth=max_queue_depth)
     # use the SIGTERM grace period to drain instead of dying mid-request
@@ -122,6 +126,7 @@ def main(rdzv) -> None:
         "replica": int(replica) if replica else None,
         "model": model_name, "device": str(model.device),
         "max_slots": max_slots, "decode_chunk": decode_chunk,
+        "pipeline_depth": engine.pipeline_depth,
         "prompt_buckets": buckets, "chunked_prefill": chunked_prefill,
         "prefill_chunk": engine.prefill_chunk,
         "max_tokens_per_round": engine.max_tokens_per_round,

@@ -17,7 +17,20 @@ Slot-based ragged batching, as in the JAX package:
   more than one bounded chunk.
 - Decode runs in chunks of K steps. EOS, budget and cache-full
   deactivation happen ON THE DEVICE; the host fetches one packed int32
-  array per chunk.
+  array per chunk. On a CUDA device the chunk is ONE CUDA graph per
+  engine (the port's counterpart of the JAX package's jit over K
+  steps): the engine's first chunk runs eagerly, which builds the
+  kernels and creates the libraries' handles and workspaces, then the
+  chunk is captured over the engine's fixed state tensors and every
+  later chunk replays it. A failed capture or replay raises; nothing
+  falls back to the eager chunk on the card. The CPU runs every chunk
+  eagerly.
+- The pump keeps ``pipeline_depth`` chunks in flight (default 2):
+  dispatch enqueues a chunk and a non-blocking copy of its packed
+  array into pinned host memory; harvester threads own the only
+  blocking wait; attribution runs in dispatch order through the
+  slot→request snapshot taken at dispatch, since a slot may have been
+  refilled since.
 
 Inactive slots still compute (static shapes): a frozen slot decodes at
 ``min(length, max_seq - 1)`` and writes its garbage row there, masked
@@ -28,8 +41,9 @@ carry their per-row scales (:class:`~k8s_tpu_torch.models.KVCache`),
 and the slot views and the working-cache copy take them along, as the
 JAX engine's scale leaves are scattered with the rows.
 
-This port runs the pump synchronously (pipeline depth 1, no harvester
-threads); the prefix cache, speculative decode, the disaggregation and
+Prefill stays eager, on the stream the chunks run on, so it is ordered
+after the chunks in flight and writes the same state and cache tensors
+in place. The prefix cache, speculative decode, the disaggregation and
 migration entry points come in later slices. Oracle for correctness:
 each request's tokens equal a solo :func:`k8s_tpu_torch.models.generate`
 run (and the JAX engine's) with the same weights.
@@ -40,6 +54,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import queue
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
@@ -48,6 +63,7 @@ import numpy as np
 import torch
 
 from k8s_tpu_torch.models.llama import KVCache, LlamaForCausalLM, _pick_token
+from k8s_tpu_torch.ops import attention as _attention
 
 
 @dataclasses.dataclass
@@ -67,6 +83,9 @@ class Request:
     # queue): splits TTFT into engine-queue vs prefill
     prefill_start_at: float = 0.0
     prefill_done: int = 0        # real prompt tokens prefilled so far
+    # (attribution time, tokens attributed) per chunk that delivered
+    # tokens: the raw material of TTFT and inter-token percentiles
+    token_times: List = dataclasses.field(default_factory=list)
 
 
 def _next_chunk(chunk_buckets: Sequence[int], offset: int, plen: int,
@@ -173,6 +192,70 @@ def _decode_chunk(model: LlamaForCausalLM, cache: KVCache, tok, lengths,
     return tok, lengths, active, budget, packed
 
 
+# One capture stream per device, shared by every engine on it, as
+# torch.cuda.graph keeps one: PyTorch keeps a cuBLAS workspace per
+# stream for the life of the process, so a stream per engine would leave
+# one behind per engine. The lock keeps two engines from running their
+# eager first chunk or capturing on it at once.
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The capture stream of ``device`` (call with _CAPTURE_LOCK held)."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+def _launch_counts() -> Dict[str, int]:
+    """The decode path's kernel wrappers' launch counters."""
+    return {"flash_fwd": _attention.flash_fwd.launches,
+            "decode_attn": _attention.decode_attention_update.launches,
+            "decode_attn_q8": _attention.decode_attention_update_q8.launches}
+
+
+class _HostCopy:
+    """A chunk's packed array on its way to the host. On the card: a
+    non-blocking copy into a pinned host buffer, then an event recorded
+    after it on the current stream; on the CPU a clone. :meth:`fetch`
+    is the one blocking wait, and returns the array as numpy."""
+
+    __slots__ = ("buf", "event")
+
+    def __init__(self, packed: torch.Tensor,
+                 pinned: Optional[torch.Tensor] = None):
+        if pinned is None:
+            self.buf, self.event = packed.clone(), None
+            return
+        self.buf = pinned.copy_(packed, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(packed.device))
+
+    def fetch(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.buf.numpy().copy()
+
+
+def _harvest_loop(fetchq: "queue.Queue", readyq: "queue.Queue") -> None:
+    """Harvester thread: waits for chunks' packed arrays on the host, off
+    the dispatch path; attribution stays in the pump thread. A failed
+    fetch (a CUDA error surfaces at the wait) is shipped to the pump as
+    an error item, since a dead harvester would deadlock the engine."""
+    while True:
+        item = fetchq.get()
+        if item is None:
+            return
+        seq, handle, fills, snapshot, t0 = item
+        try:
+            readyq.put((seq, handle.fetch(), fills, snapshot, t0))
+        except Exception as e:  # noqa: BLE001 - crossing threads
+            readyq.put((seq, e, fills, snapshot, t0))
+
+
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over a ragged-decode model.
 
@@ -182,10 +265,17 @@ class ContinuousBatchingEngine:
     (decode steps per host fetch and per scheduling round),
     ``chunked_prefill`` (False: legacy one-shot prefill of the whole
     prompt, capped at the largest bucket), ``max_tokens_per_round``
-    (default ``prefill_chunk + max_slots * decode_chunk``) and
-    ``temperature``/``eos_id``. ``seed`` seeds the engine's
-    ``torch.Generator`` (sampling only). The engine runs on the model's
-    device.
+    (default ``prefill_chunk + max_slots * decode_chunk``),
+    ``pipeline_depth`` (decode chunks in flight ahead of attribution,
+    default 2, at least 1) and ``temperature``/``eos_id``. ``seed``
+    seeds the engine's ``torch.Generator`` (sampling only). The engine
+    runs on the model's device.
+
+    On a CUDA device a sampling engine (``temperature > 0``) registers
+    its generator with the graph, so every replay draws fresh samples.
+    ``stats["graph_replays"]`` counts replays and :attr:`graph_launches`
+    holds the kernel launches one capture recorded (each replay runs
+    them again; the wrappers' counters tick only while capturing).
 
     Thread safety: :meth:`submit`, :meth:`queue_depth` and
     :meth:`pop_finished` may be called from any thread; :meth:`step`
@@ -205,6 +295,7 @@ class ContinuousBatchingEngine:
         chunked_prefill: bool = True,
         prefill_chunk: int = 256,
         max_tokens_per_round: Optional[int] = None,
+        pipeline_depth: int = 2,
     ):
         cfg = model.config
         if not (cfg.decode and cfg.ragged_decode):
@@ -217,6 +308,9 @@ class ContinuousBatchingEngine:
         self.temperature = float(temperature)
         self.eos_id = eos_id
         self.decode_chunk = int(decode_chunk)
+        # chunks dispatched ahead of the oldest unattributed one: the
+        # host's wait for chunk N then overlaps chunk N+1 on the device
+        self.pipeline_depth = max(1, int(pipeline_depth))
         if prompt_buckets is None:
             prompt_buckets = [
                 b for b in (128, 256, 512, 1024, 2048, 4096, 8192)
@@ -308,11 +402,51 @@ class ContinuousBatchingEngine:
         # guards submit()'s closed-check + enqueue vs close(), and the
         # _done insert vs pop_finished()'s swap
         self._lock = threading.Lock()
+        # The compiled chunk (CUDA only): the first chunk runs eagerly on
+        # the capture stream, the second captures the graph; its packed
+        # output is overwritten by every replay, so each dispatch copies
+        # it out into one of pipeline_depth + 1 pinned host buffers (at
+        # most pipeline_depth chunks are unattributed at a dispatch, and
+        # a chunk's buffer is read before its attribution)
+        cuda = self.device.type == "cuda"
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_packed: Optional[torch.Tensor] = None
+        self._warmed = False  # the eager first chunk has run
+        self.graph_launches: Optional[Dict[str, int]] = None
+        k = self.decode_chunk
+        self._host_bufs = [
+            torch.empty((2 * k + 4, self.max_slots), dtype=torch.int32,
+                        pin_memory=True)
+            for _ in range(self.pipeline_depth + 1)] if cuda else []
+        # Dispatched chunks flow pump -> _fetchq -> harvester threads
+        # (which own the only blocking device->host waits) -> _readyq ->
+        # pump attribution, reordered by sequence number
+        self._fetchq: "queue.Queue" = queue.Queue()
+        self._readyq: "queue.Queue" = queue.Queue()
+        self._unattributed = 0   # dispatched, not yet attributed
+        self._seq = 0            # dispatch order
+        self._attr_seq = 0       # next chunk to attribute
+        self._ready_held: Dict[int, tuple] = {}  # out-of-order buffer
+        self._last_attr_t = 0.0  # when the last chunk was attributed
+        # the thread target closes over the QUEUES, not self: a bound
+        # method would pin the engine (and its device KV cache) for the
+        # process lifetime if close() is never called
+        self._harvesters = [
+            threading.Thread(target=_harvest_loop,
+                             args=(self._fetchq, self._readyq),
+                             daemon=True, name=f"serving-harvester-{i}")
+            for i in range(4)]
+        for t in self._harvesters:
+            t.start()
+        # chunk_s sums each chunk's dispatch-to-attribution latency
+        # (chunks overlap); decode_wall_s the wall time in which at least
+        # one chunk was in flight
         self.stats = {"prefills": 0, "chunks": 0, "decode_steps": 0,
                       "wasted_slot_steps": 0, "prefill_s": 0.0,
-                      "chunk_s": 0.0, "prefill_chunks": 0,
-                      "prefill_tokens": 0, "queue_depth": 0,
-                      "ttft_s_sum": 0.0, "ttft_count": 0}
+                      "chunk_s": 0.0, "decode_wall_s": 0.0,
+                      "prefill_chunks": 0, "prefill_tokens": 0,
+                      "queue_depth": 0, "ttft_s_sum": 0.0, "ttft_count": 0,
+                      "graph_captures": 0, "graph_replays": 0}
 
     # -- request intake --------------------------------------------------
 
@@ -517,56 +651,170 @@ class ContinuousBatchingEngine:
 
     # -- the pump --------------------------------------------------------
 
-    def _run_chunk(self, fills: Dict[int, int]) -> None:
-        """One decode chunk, then its packed fetch and the attribution of
-        its tokens to the requests in the slots."""
-        t0 = time.perf_counter()
-        (self._tok, self._lengths, self._active, self._budget,
-         packed) = _decode_chunk(
+    def _decode_state(self) -> torch.Tensor:
+        """One eager chunk on the engine's state, written back IN PLACE
+        (the graph reads and writes these same tensors); returns packed."""
+        tok, lengths, active, budget, packed = _decode_chunk(
             self.model, self._cache, self._tok, self._lengths, self._active,
             self._budget, self._gen, n_steps=self.decode_chunk,
             temperature=self.temperature, eos_id=self.eos_id)
-        arr = packed.cpu().numpy()  # the chunk's one host fetch
+        for dst, src in ((self._tok, tok), (self._lengths, lengths),
+                         (self._active, active), (self._budget, budget)):
+            dst.copy_(src)
+        return packed
+
+    def _capture(self) -> None:
+        """Capture one chunk as a CUDA graph on the device's capture
+        stream (the stream the eager first chunk warmed). Capturing runs
+        nothing: the state is unchanged until the first replay. Raises if
+        the capture fails."""
+        graph = torch.cuda.CUDAGraph()
+        if self.temperature > 0:
+            graph.register_generator_state(self._gen)
+        prev = torch.cuda.current_stream(self.device)
+        with _CAPTURE_LOCK:
+            before = _launch_counts()
+            try:
+                # thread_local: the harvester threads' event waits stay
+                # legal while this thread captures
+                with torch.cuda.graph(graph, stream=_capture_stream(self.device),
+                                      capture_error_mode="thread_local"):
+                    packed = self._decode_state()
+            finally:
+                # a capture that fails leaves torch.cuda.graph's stream
+                # context entered: this thread would stay on that stream
+                torch.cuda.set_stream(prev)
+            after = _launch_counts()
+        self.graph_launches = {k: after[k] - before[k] for k in after}
+        self._graph, self._graph_packed = graph, packed
+        self.stats["graph_captures"] += 1
+
+    def _run_decode(self) -> torch.Tensor:
+        """Run one chunk on the engine's state; returns its packed array,
+        ready in stream order on the current stream. The CPU runs it
+        eagerly; on a card the first chunk runs eagerly on the capture
+        stream, the second captures the graph, and that and every later
+        chunk replay it."""
+        if self.device.type != "cuda":
+            return self._decode_state()
+        if not self._warmed:
+            cur = torch.cuda.current_stream(self.device)
+            with _CAPTURE_LOCK:
+                side = _capture_stream(self.device)
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    packed = self._decode_state()
+                cur.wait_stream(side)
+            packed.record_stream(cur)
+            self._warmed = True
+            return packed
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        self.stats["graph_replays"] += 1
+        return self._graph_packed
+
+    def _dispatch_chunk(self, fills: Dict[int, int]) -> None:
+        """Enqueue one chunk and the copy of its packed array for the
+        harvesters, with the dispatch-time slot→request snapshot."""
+        t0 = time.perf_counter()
+        packed = self._run_decode()
+        pinned = (self._host_bufs[self._seq % len(self._host_bufs)]
+                  if self._host_bufs else None)
+        handle = _HostCopy(packed, pinned)
+        snapshot = [r.rid if r is not None else None
+                    for r in self._slot_req]
+        self._fetchq.put((self._seq, handle, fills, snapshot, t0))
+        self._seq += 1
+        self._unattributed += 1
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += self.decode_chunk
-        self.stats["chunk_s"] += time.perf_counter() - t0
+
+    def _next_ready(self, block: bool):
+        """Chunk results in DISPATCH order: parallel harvesters finish
+        out of order; attribution must not (token order per slot)."""
+        while self._attr_seq not in self._ready_held:
+            try:
+                item = self._readyq.get(block=block)
+            except queue.Empty:
+                return None
+            self._ready_held[item[0]] = item[1:]
+        out = self._ready_held.pop(self._attr_seq)
+        self._attr_seq += 1
+        return out
+
+    def _attribute(self, block: bool) -> bool:
+        """Apply one harvested chunk's results via the dispatch-time
+        slot→request snapshot — a slot may have been refilled since, so
+        the current ``_slot_req`` must not be trusted for old chunks."""
+        item = self._next_ready(block)
+        if item is None:
+            return False
+        arr, fills, snapshot, t0 = item
+        self._unattributed -= 1
+        if isinstance(arr, Exception):
+            raise RuntimeError(
+                f"decode chunk {self._attr_seq - 1} failed on device") from arr
         K = self.decode_chunk
         tok_in, toks = arr[0], arr[1:K + 1]
         valid = arr[K + 1:2 * K + 1].astype(bool)
         active_out = arr[2 * K + 1].astype(bool)
-        self.stats["wasted_slot_steps"] += int((~valid).sum())
         now = time.perf_counter()
-        for slot, req in enumerate(self._slot_req):
-            if req is None:
+        self.stats["chunk_s"] += now - t0
+        self.stats["decode_wall_s"] += now - max(t0, self._last_attr_t)
+        self._last_attr_t = now
+        self.stats["wasted_slot_steps"] += int((~valid).sum())
+        for slot, rid in enumerate(snapshot):
+            if rid is None:
+                continue
+            # finished requests leave _reqs at attribution (and may be
+            # drained entirely); stale snapshot entries for them skip
+            req = self._reqs.get(rid)
+            if req is None or req.done:
                 continue
             n_before = len(req.tokens)
-            if fills.get(slot) == req.rid:
+            if fills.get(slot) == rid:
                 # the prefill's token rode in as this chunk's input
                 req.tokens.append(int(tok_in[slot]))
             req.tokens.extend(int(t) for t in toks[valid[:, slot], slot])
-            if len(req.tokens) > n_before and not req.first_token_at:
-                req.first_token_at = now
-                self.stats["ttft_s_sum"] += now - req.submitted_at
-                self.stats["ttft_count"] += 1
+            n_new = len(req.tokens) - n_before
+            if n_new:
+                if not req.token_times:
+                    req.first_token_at = now
+                    self.stats["ttft_s_sum"] += now - req.submitted_at
+                    self.stats["ttft_count"] += 1
+                req.token_times.append((now, n_new))
             if not active_out[slot]:
                 req.done = True
                 req.finished_at = time.perf_counter()
+                # atomic vs pop_finished()'s swap (front-end threads)
                 with self._lock:
-                    self._done[req.rid] = self._reqs.pop(req.rid)
-                self._slot_req[slot] = None
-                self._active_h[slot] = False
+                    self._done[rid] = self._reqs.pop(rid)
+                if self._slot_req[slot] is req:
+                    self._slot_req[slot] = None
+                    self._active_h[slot] = False
+        return True
 
     def step(self) -> bool:
-        """One pump round: schedule prefill, then one decode chunk with
-        its attribution. Returns True while work remains."""
+        """One pump round: attribute whatever the harvesters finished,
+        wait while ``pipeline_depth`` chunks are unattributed, schedule
+        prefill, dispatch a chunk (or, with nothing to decode, drain
+        one). Returns True while work remains."""
         if self._closed:
             raise RuntimeError("engine is closed")
+        while self._attribute(block=False):
+            pass
+        if self._unattributed >= self.pipeline_depth:
+            self._attribute(block=True)
         fills = (self._schedule_prefill() if self.chunked_prefill
                  else self._fill_free_slots())
         self.stats["queue_depth"] = len(self._queue)
         if fills or self._active_h.any():
-            self._run_chunk(fills)
-        return bool(self._queue or self._prefilling is not None
+            self._dispatch_chunk(fills)
+        elif self._unattributed:
+            self._attribute(block=True)
+        return bool(self._queue or self._unattributed
+                    or self._prefilling is not None
                     or any(r is not None for r in self._slot_req))
 
     def pop_finished(self) -> Dict[int, Request]:
@@ -585,6 +833,20 @@ class ContinuousBatchingEngine:
                 for rid, r in self.pop_finished().items()}
 
     def close(self) -> None:
-        """Refuse further submit()/step() calls."""
+        """Stop the harvester threads; later submit()/step() calls raise.
+        Also runs from ``__del__``: the threads hold only the queues, so
+        an abandoned engine is collectible, and collection stops them."""
         with self._lock:
             self._closed = True
+        for _ in self._harvesters:
+            self._fetchq.put(None)
+        for t in self._harvesters:
+            if t is not threading.current_thread():
+                t.join(timeout=5)
+
+    def __del__(self):  # best effort; close() is the API
+        try:
+            for _ in self._harvesters:
+                self._fetchq.put(None)
+        except Exception:  # noqa: BLE001 - interpreter teardown
+            pass

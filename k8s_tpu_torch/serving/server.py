@@ -165,6 +165,7 @@ class ServingFrontend:
             "scheduler": {
                 "chunked_prefill": eng.chunked_prefill,
                 "decode_chunk": eng.decode_chunk,
+                "pipeline_depth": eng.pipeline_depth,
                 "prefill_chunk": eng.prefill_chunk,
                 "max_tokens_per_round": eng.max_tokens_per_round,
                 "max_queue_depth": self.max_queue_depth,

@@ -17,6 +17,7 @@ device they skip. The device-guard tests run here: the guard, the
 stream lookup and the kernel libraries are stubbed.
 """
 
+import dataclasses
 import pathlib
 import re
 import subprocess
@@ -69,10 +70,11 @@ def test_package_imports_no_jax_flax_or_triton():
 
 
 def test_cuda_config_check_refuses_configs_without_a_kernel():
-    """On the card the model serves only what both kernels are built for
-    (bf16, head_dim 128, 4 q heads per kv head): tiny's head_dim 32, an
-    f32 model or another group size raise instead of running plain
-    attention there. Pure config logic, so it runs here too."""
+    """On the card the model runs only what its kernels are built for
+    (bf16, head_dim 128; for serving also 4 q heads per kv head): tiny's
+    head_dim 32, an f32 model or a serving config with another group
+    size raise instead of running plain attention there. Pure config
+    logic, so it runs here too."""
     check_cuda_config(LlamaConfig.llama3_8b())
     check_cuda_config(LlamaConfig.llama3_8b(decode=True, kv_quant="int8",
                                             quant="int8_serving"))
@@ -80,9 +82,47 @@ def test_cuda_config_check_refuses_configs_without_a_kernel():
                 LlamaConfig.tiny(dtype=torch.bfloat16),
                 LlamaConfig.tiny(dtype=torch.bfloat16, kv_quant="int8"),
                 LlamaConfig.llama3_8b(dtype=torch.float32),
-                LlamaConfig.llama3_8b(num_kv_heads=4)):
+                LlamaConfig.llama3_8b(num_kv_heads=4, decode=True)):
         with pytest.raises(ValueError, match="no CUDA kernel instance"):
             check_cuda_config(cfg)
+
+
+# the training cell of benches/llama_bench.py: 12 q heads over 4 kv heads
+_G3 = dict(vocab_size=32768, hidden_size=1536, intermediate_size=4096,
+           num_layers=24, num_heads=12, num_kv_heads=4, head_dim=128)
+
+
+@pytest.mark.parametrize("cfg", [
+    LlamaConfig(**_G3), LlamaConfig(**_G3, remat_policy="flash"),
+    LlamaConfig.llama3_8b(num_kv_heads=4), LlamaConfig.llama3_8b(num_kv_heads=32),
+], ids=["g3", "g3_flash_remat", "g8", "g1"])
+def test_cuda_config_check_holds_training_to_the_flash_kernels_only(cfg):
+    """A training config needs K1-K3 only, which take the group size at
+    run time: Hq 12 / Hkv 4 (G 3), G 8 and G 1 in bf16 at head_dim 128
+    pass; the same heads in a decode config are refused by name of the
+    decode kernels, which are instantiated for G 4 only."""
+    check_cuda_config(cfg)
+    serving = dataclasses.replace(cfg, decode=True, ragged_decode=True)
+    with pytest.raises(ValueError, match=r"no CUDA kernel instance.*decode "
+                                         r"kernels \(K4, K5\)"):
+        check_cuda_config(serving)
+    with pytest.raises(ValueError, match="decode kernels"):
+        check_cuda_config(dataclasses.replace(serving, kv_quant="int8"))
+
+
+@pytest.mark.parametrize("decode", [False, True], ids=["train", "decode"])
+@pytest.mark.parametrize("bad", [dict(head_dim=64), dict(head_dim=96),
+                                 dict(dtype=torch.float32),
+                                 dict(num_heads=12, num_kv_heads=5)],
+                         ids=["d64", "d96", "f32", "g2.4"])
+def test_cuda_config_check_refuses_unbuilt_head_dims_and_dtypes(decode, bad):
+    """Any config, training or decode, with a head dim, dtype or head
+    split no kernel is built for is refused, naming the kernel family
+    that refused it."""
+    cfg = LlamaConfig.llama3_8b(decode=decode, **bad)
+    family = "decode kernels" if decode else r"flash kernels \(K1-K3\)"
+    with pytest.raises(ValueError, match=f"no CUDA kernel instance.*{family}"):
+        check_cuda_config(cfg)
 
 
 class _OnCard1(torch.Tensor):
