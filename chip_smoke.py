@@ -19,12 +19,22 @@ roofline bound), then drives the port's three main paths, in this order:
   from the same state (packed output, state, cache), the eager and
   graph walls per step, the replays' device time and busy share, and
   fresh draws in two replays at temperature 1;
-- training: ``programs.llama_train.main`` at Llama-3-8B width cut to 8
-  layers (seq 2048, batch 8, ``flash`` remat, fused CE, f32 AdamW) for
-  10 steps on learnable data, the loss required to fall; a gradient
-  oracle (2 layers, batch 1) against a forward of its own through plain
-  attention; step time, tokens/s, MFU, peak memory and one profiled
-  step's device-time split;
+- training: ``programs.llama_train.main`` through the launcher's API in
+  process (``Rendezvous`` of a dict env + ``run_program``, the tracer
+  on) at Llama-3-8B width cut to 8 layers (seq 2048, batch 8, ``flash``
+  remat, fused CE, f32 AdamW) for 10 steps on learnable data, the loss
+  required to fall; a gradient oracle (2 layers, batch 1) against a
+  forward of its own through plain attention; step time, tokens/s, MFU,
+  peak memory, the compile phase, the tracer's overhead, the median
+  step phases and one profiled step's device-time split;
+- the launcher: ``python -m k8s_tpu_torch.launcher.spmd_launcher`` as a
+  child process, three times: the mesh smoke check (exit 0); training
+  at Llama-3-8B width, 2 layers, 6 steps, with the per-host obs
+  endpoint polled mid-run (the ``/healthz`` heartbeat and its ``hbm``
+  block against the card's memory, the ``/metrics`` HBM series, a
+  one-second ``/debug/profile`` holding CUDA kernels, the live flight
+  recorder; exit 0); the same run sent SIGTERM after step 2 (exit 143,
+  the flight recorder's dump on disk);
 - int8 serving, once the bf16 model and the training state are freed:
   the same Llama-3-8B with int8 weights and an int8 KV cache
   (``--quant=int8_serving --kv_quant=int8``), 16 slots of 8192 rows, 16
@@ -50,13 +60,19 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
+import pathlib
+import queue
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
-import types
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -120,6 +136,9 @@ GRAD_ORACLE_TOL = 5e-2
 # against another request's logits.
 ORACLE_Q8_LOGIT_TOL = 1.0
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 8, 10, 2048, 8
+# the launcher phase's training child: Llama-3-8B width, 2 layers
+LAUNCHER_LAYERS, LAUNCHER_STEPS = 2, 6
+REPO = pathlib.Path(__file__).resolve().parent
 # K1's tile config -> its kernel instance (csrc/flash_fwd.cu, templated on
 # the number of consumer warpgroups), as torch.profiler names it
 K1_INSTANCES = {0: "flash_fwd_kernel<2>", 1: "flash_fwd_kernel<1>"}
@@ -223,6 +242,19 @@ def row_rel_err(out, ref, floor: float = 0.0, floor_of=None) -> float:
     return (diff / denom).max().item()
 
 
+def rows_off(out, ref, tol: float = FLASH_REL_TOL) -> dict:
+    """Where a [B, S, H, D] output errs past ``tol`` (row errors as in
+    :func:`row_rel_err`): the count of such rows, and the batches, heads
+    and 64-row query tiles they fall in."""
+    ref = ref.float()
+    err = (out.float() - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+    idx = (err > tol).nonzero().tolist()
+    return {"rows": len(idx), "of": err.numel(),
+            "batches": sorted({b for b, _, _ in idx}),
+            "heads": sorted({h for _, _, h in idx}),
+            "tiles64": sorted({s // 64 for _, s, _ in idx})[:32]}
+
+
 def uncancelled_dq_dk(q, k, v, do, scale):
     """scale * dP * K and scale * dP * Q (f32, dP = dO . V per query row),
     what dq and dk would be with one visible key and no cancellation.
@@ -264,7 +296,15 @@ def phase_flash(torch, attn, kernels, gen):
                "lse_err": (lse - ref_lse).abs().max().item(),
                "config": attn._flash_fwd_config(q.shape[0], q.shape[1], hq)}
         if not (row["rel_err"] <= FLASH_REL_TOL and row["lse_err"] <= FLASH_LSE_TOL):
-            fail(f"flash_fwd {what}: {row} (tol {FLASH_REL_TOL}, lse {FLASH_LSE_TOL})")
+            # still a failure; say where it erred and whether the same
+            # call errs again, so that a rare fault can be told apart
+            again, again_lse = attn.flash_fwd(q, k, v, causal, scale, with_lse=True)
+            torch.cuda.synchronize()
+            fail(f"flash_fwd {what}: {row} (tol {FLASH_REL_TOL}, lse {FLASH_LSE_TOL}); "
+                 f"rows off: {rows_off(out, ref)}; the same call again: "
+                 f"rel_err {row_rel_err(again, ref)}, "
+                 f"lse_err {(again_lse - ref_lse).abs().max().item()}, "
+                 f"bit-equal to the first {torch.equal(again, out)}")
         return row, ref, ref_lse
 
     def timed(row, b, s, q, k, v, plain=False):
@@ -1411,27 +1451,41 @@ def _oracle_grads(torch, attn, model, ids):
     return loss.detach(), dict(zip(names, grads))
 
 
+def median_phases(events):
+    """Median of each phase's ms over ``step_phases`` events."""
+    keys = sorted({k for e in events for k in e["phases_ms"]})
+    return {k: statistics.median(e["phases_ms"].get(k, 0.0) for e in events)
+            for k in keys}
+
+
 def phase_train(torch, attn, card):
-    """The training path: programs.llama_train.main at Llama-3-8B width,
-    8 layers, seq 2048, batch 8, flash remat, fused CE, lr 3e-4,
+    """The training path through the launcher's API, in process: a
+    ``Rendezvous`` of a dict env naming ``programs.llama_train:main``
+    and ``run_program``, as ``spmd_launcher.main`` runs it (the device
+    comes from the rendezvous; the tracer is on, its default). Llama-3-8B
+    width, 8 layers, seq 2048, batch 8, flash remat, fused CE, lr 3e-4,
     learnable data, 10 steps; then a gradient oracle and one profiled
     step."""
     from k8s_tpu_torch.data import learnable_token_batches
+    from k8s_tpu_torch.launcher.spmd_launcher import Rendezvous, run_program
     from k8s_tpu_torch.models import LlamaConfig, LlamaForCausalLM, init_params
     from k8s_tpu_torch.programs import llama_train
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     layers, steps = TRAIN_LAYERS, TRAIN_STEPS
-    rdzv = types.SimpleNamespace(process_id=0, program_args=(
-        f"--model=llama3-8b --layers={layers} --seq_len={TRAIN_SEQ} "
-        f"--batch_size={TRAIN_BATCH} --steps={steps} --log_every=1 "
-        "--remat_policy=flash --fused_ce=1 --lr=3e-4 --data=learnable "
-        "--device=cuda"))
+    rdzv = Rendezvous({
+        "KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
+        "KTPU_PROGRAM_ARGS": (
+            f"--model=llama3-8b --layers={layers} --seq_len={TRAIN_SEQ} "
+            f"--batch_size={TRAIN_BATCH} --steps={steps} --log_every=1 "
+            "--remat_policy=flash --fused_ce=1 --lr=3e-4 --data=learnable")})
+    if rdzv.device != "cuda":
+        fail(f"train: the rendezvous chose device {rdzv.device!r}")
     attn.flash_fwd.launches = 0
     attn.flash_bwd.launches_dq = attn.flash_bwd.launches_dkv = 0
     t0 = time.perf_counter()
-    run = llama_train.main(rdzv)
+    run = run_program(rdzv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_fwd": attn.flash_fwd.launches,
@@ -1450,10 +1504,16 @@ def phase_train(torch, attn, card):
     n_params = sum(p.numel() for p in state.model.parameters())
     step_ms = 1e3 * statistics.median(run["step_s"][2:])
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    phases = run["step_phases"]
+    if [e["step"] for e in phases] != list(range(1, steps + 1)) \
+            or "compile" not in phases[0]["phases_ms"]:
+        fail(f"train: step_phases {phases}")
+    tracer_ms = 1e3 * run["tracer"].overhead_s / steps
     profile = _profile_train_step(torch, run)
     emit({"phase": "train", "model": "llama3_8b", "layers": layers,
           "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "steps": steps,
           "remat_policy": "flash", "fused_ce": True, "lr": 3e-4,
+          "path": "Rendezvous + run_program (in process), tracer on",
           "n_params": n_params, "first_loss": run["first_loss"],
           "final_loss": run["final_loss"], "convergence_ratio": ratio,
           "step_ms_median_3_10": step_ms,
@@ -1461,6 +1521,11 @@ def phase_train(torch, attn, card):
           "tokens_per_s": tokens_per_s,
           "mfu_6nd": 6 * n_params * tokens_per_s / PEAK_BF16_FLOPS,
           "peak_mem_gb": peak / 1e9, "wall_s": wall, "launches": launches,
+          "compile_s": run["compile_s"],
+          "tracer_overhead_ms_per_step": tracer_ms,
+          "phases_ms_median_3_10": median_phases(phases[2:]),
+          "step_phases_wall_ms_median_3_10":
+              statistics.median(e["wall_ms"] for e in phases[2:]),
           "profiled_step": profile, "card": card})
     del run, state
     torch.cuda.empty_cache()
@@ -1503,7 +1568,264 @@ def phase_train(torch, attn, card):
           "card": card})
     del model, port, ref
     torch.cuda.empty_cache()
-    return launches
+    return launches, tracer_ms
+
+
+class Child:
+    """``python -m k8s_tpu_torch.launcher.spmd_launcher`` as a child
+    process of this script, from the repository root, with a reader
+    thread collecting its stdout lines so that the script can wait for an
+    event with a deadline and act while the child runs."""
+
+    def __init__(self, env, what):
+        from k8s_tpu_torch.obs.events import parse_events
+
+        self._parse = parse_events
+        self.what = what
+        full = {k: v for k, v in os.environ.items()
+                if not k.startswith(("KTPU_", "MEGASCALE_"))}
+        full["PYTHONPATH"] = str(REPO)
+        full.update({k: str(v) for k, v in env.items()})
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_tpu_torch.launcher.spmd_launcher"],
+            cwd=REPO, env=full, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        self.lines = []
+        self._q = queue.Queue()
+        self._err = []
+        threading.Thread(target=lambda: [self._q.put(ln) for ln in self.proc.stdout],
+                         daemon=True).start()
+        threading.Thread(target=lambda: self._err.extend(self.proc.stderr),
+                         daemon=True).start()
+
+    def _drain(self, timeout):
+        try:
+            line = self._q.get(timeout=timeout)
+        except queue.Empty:
+            return None
+        self.lines.append(line)
+        return line
+
+    def wait_event(self, name, pred=lambda e: True, timeout=300.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            line = self._drain(0.2)
+            if line is None:
+                if self.proc.poll() is not None and self._q.empty():
+                    break
+                continue
+            for e in self._parse(line):
+                if e["event"] == name and pred(e):
+                    return e
+        self.kill()
+        fail(f"launcher {self.what}: no {name} event within {timeout} s "
+             f"(exit {self.proc.poll()}); stdout tail: {self.lines[-5:]}; "
+             f"stderr tail: {''.join(self._err)[-2000:]}")
+
+    def finish(self, timeout=300.0):
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            fail(f"launcher {self.what}: still running after {timeout} s")
+        while self._drain(1.0) is not None:
+            pass
+        return rc, "".join(self.lines), "".join(self._err)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def get_url(port, path, timeout=120):
+    """The body of a GET on the child's obs endpoint, whatever its status
+    (/healthz answers 503 when unhealthy, /debug/profile when its
+    capture failed: the body says why)."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.read().decode()
+
+
+def poll_heartbeat(child, port, min_step, timeout=300.0):
+    """/healthz until the heartbeat's step reaches ``min_step``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        hz = json.loads(get_url(port, "/healthz"))
+        if hz.get("obs", {}).get("step", 0) >= min_step:
+            return hz
+        if child.proc.poll() is not None:
+            break
+        time.sleep(0.1)
+    child.kill()
+    fail(f"launcher {child.what}: heartbeat never reached step {min_step}")
+
+
+def llama_params(cfg) -> int:
+    """Parameter count of a Llama config (embedding, lm_head, layers,
+    norms)."""
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    layer = e * hd + 2 * e * kvd + hd * e + 3 * e * f + 2 * e
+    return 2 * cfg.vocab_size * e + cfg.num_layers * layer + e
+
+
+def phase_launcher(torch, card, train_tracer_ms):
+    """See :func:`_phase_launcher`; its flight dirs and profiles go to a
+    temporary directory that is removed afterwards."""
+    tmp = tempfile.mkdtemp(prefix="ktpu-launcher-")
+    try:
+        _phase_launcher(torch, card, train_tracer_ms, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_launcher(torch, card, train_tracer_ms, tmp):
+    """The port's launcher as the operator runs it: ``python -m
+    k8s_tpu_torch.launcher.spmd_launcher`` as a child process on the
+    card, three times — (a) no program: the mesh smoke check; (b)
+    llama_train at Llama-3-8B width, 2 layers, with an obs endpoint that
+    this script polls mid-run (/healthz and its hbm block, /metrics,
+    /debug/profile, /debug/flightrecorder); (c) the same run, SIGTERM
+    after the heartbeat reaches step 2: exit 143 and the flight
+    recorder's dump on disk."""
+    from k8s_tpu_torch.models import LlamaConfig
+    from k8s_tpu_torch.obs.events import events_of
+    from k8s_tpu_torch.obs.health import trace_event_counts
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    cfg = LlamaConfig.llama3_8b(num_layers=LAUNCHER_LAYERS)
+    n_params = llama_params(cfg)
+    # f32 weight, grad, two AdamW moments and the health block's copy of
+    # the weights (20 B per parameter), plus activations and the fused
+    # CE's chunks (the 8-layer run peaks ~6 GB above its 20 B/param)
+    need = 20 * n_params + 8e9
+    print(f"chip_smoke: launcher phase: {free / 1e9:.2f} GB free of "
+          f"{total / 1e9:.2f}, the training child needs ~{need / 1e9:.1f}",
+          flush=True)
+    if free < need:
+        fail(f"launcher: {free / 1e9:.2f} GB free, the child needs {need / 1e9:.1f}")
+    codes = {}
+
+    # (a) the mesh smoke check
+    t0 = time.perf_counter()
+    child = Child({}, "mesh check")
+    rc, out, err = child.finish(timeout=180)
+    smoke = events_of(out, "smoke_ok")
+    if rc != 0 or len(smoke) != 1 or smoke[0]["devices"] != 1 \
+            or not events_of(out, "done"):
+        fail(f"launcher mesh check: exit {rc}, stdout {out!r}, stderr {err[-2000:]}")
+    codes["mesh"] = rc
+    mesh_s = time.perf_counter() - t0
+
+    args = (f"--model=llama3-8b --layers={LAUNCHER_LAYERS} --seq_len={TRAIN_SEQ} "
+            f"--batch_size={TRAIN_BATCH} --log_every=1 --step_sleep=0.5 "
+            "--remat_policy=flash --fused_ce=1 --lr=3e-4 --data=learnable")
+
+    # (b) training with the obs endpoint, polled mid-run
+    t0 = time.perf_counter()
+    flight_b = os.path.join(tmp, "train")
+    child = Child({"KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
+                   "KTPU_PROGRAM_ARGS": f"{args} --steps={LAUNCHER_STEPS}",
+                   "KTPU_OBS_ADVERTISE": "127.0.0.1:0",
+                   "KTPU_FLIGHT_DIR": flight_b,
+                   "KTPU_TRACE_ID": "chip-smoke-launcher"}, "train")
+    try:
+        port = child.wait_event("obs_ready")["port"]
+        hz = poll_heartbeat(child, port, 2)
+        hbm = hz["obs"].get("hbm")
+        limit = torch.cuda.get_device_properties(0).total_memory
+        if not hbm or hbm["bytes_in_use"] <= 0 or hbm["bytes_limit"] != limit:
+            fail(f"launcher train: /healthz hbm block {hbm}, card memory {limit}")
+        if hz["obs"]["trace_id"] != "chip-smoke-launcher" or "health" not in hz["obs"]:
+            fail(f"launcher train: /healthz heartbeat {hz['obs']}")
+        metrics_text = get_url(port, "/metrics")
+        hbm_lines = [ln for ln in metrics_text.splitlines()
+                     if ln.startswith("ktpu_obs_hbm_bytes_in_use{")]
+        if not hbm_lines or float(hbm_lines[0].rsplit(" ", 1)[1]) <= 0:
+            fail(f"launcher train: /metrics has no HBM series: {metrics_text[:2000]}")
+        prof = json.loads(get_url(port, "/debug/profile?seconds=1"))
+        counts = trace_event_counts(prof["trace"]) if prof.get("trace") else {}
+        if not prof.get("ok") or counts.get("kernel", 0) < 1:
+            fail(f"launcher train: /debug/profile {prof}, events {counts}")
+        with open(prof["trace"]) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        flash_in_profile = {k: sum(k in n for n in names) for k in
+                            ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                             "flash_bwd_dkv_kernel")}
+        ring = json.loads(get_url(port, "/debug/flightrecorder"))["entries"]
+        ring_steps = [e for e in ring if e.get("kind") == "step"]
+        if not ring_steps or {e["trace_id"] for e in ring_steps} != {"chip-smoke-launcher"}:
+            fail(f"launcher train: /debug/flightrecorder {ring[:4]}")
+        rc, out, err = child.finish(timeout=300)
+    finally:
+        child.kill()
+    phases = events_of(out, "step_phases")
+    if rc != 0 or [e["step"] for e in phases] != list(range(1, LAUNCHER_STEPS + 1)) \
+            or not all(events_of(out, n) for n in
+                       ("compile_phase", "step_health", "convergence", "done")):
+        fail(f"launcher train: exit {rc}; stdout tail {out[-3000:]}; stderr {err[-3000:]}")
+    codes["train"] = rc
+    train_s = time.perf_counter() - t0
+    compile_s = events_of(out, "compile_phase")[0]["seconds"]
+    walls = [e["wall_ms"] for e in phases[1:]]
+    steady = median_phases(phases[1:])
+    unphased = statistics.median(
+        e["wall_ms"] - sum(e["phases_ms"].values()) for e in phases[1:])
+
+    # (c) SIGTERM after the heartbeat reaches step 2
+    t0 = time.perf_counter()
+    flight_c = os.path.join(tmp, "sigterm")
+    child = Child({"KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
+                   "KTPU_PROGRAM_ARGS": f"{args} --steps=50",
+                   "KTPU_OBS_ADVERTISE": "127.0.0.1:0",
+                   "KTPU_FLIGHT_DIR": flight_c,
+                   "KTPU_TRACE_ID": "chip-smoke-sigterm"}, "sigterm")
+    try:
+        port = child.wait_event("obs_ready")["port"]
+        poll_heartbeat(child, port, 2)
+        child.proc.send_signal(signal.SIGTERM)
+        rc, out, err = child.finish(timeout=120)
+    finally:
+        child.kill()
+    dump_path = pathlib.Path(flight_c) / "flight-host0.json"
+    dump = json.loads(dump_path.read_text()) if dump_path.exists() else {}
+    dumped = [e["step"] for e in dump.get("entries", []) if e.get("kind") == "step"]
+    if rc != 143 or not events_of(out, "preempt_requested") or dumped[:2] != [1, 2]:
+        fail(f"launcher sigterm: exit {rc}, dump steps {dumped}, "
+             f"stdout tail {out[-2000:]}, stderr {err[-2000:]}")
+    codes["sigterm"] = rc
+    sigterm_s = time.perf_counter() - t0
+    emit({"phase": "launcher", "exit_codes": codes,
+          "mesh_check": smoke[0], "train_model": "llama3_8b",
+          "train_layers": LAUNCHER_LAYERS, "train_steps": LAUNCHER_STEPS,
+          "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "step_sleep_s": 0.5,
+          "n_params": n_params, "free_gb_before": free / 1e9,
+          "need_gb": need / 1e9,
+          "compile_s": compile_s,
+          "step_wall_ms_median_2_6": statistics.median(walls),
+          "step_wall_ms": [e["wall_ms"] for e in phases],
+          "phases_ms_median_2_6": steady,
+          "unphased_ms_median_2_6": unphased,
+          "hbm": {k: hbm[k] for k in ("bytes_in_use", "peak_bytes_in_use",
+                                      "bytes_limit", "peak_fraction")},
+          "hbm_at_step": hz["obs"]["step"],
+          "profile": {"seconds": prof["seconds"], "kernel_events": counts.get("kernel", 0),
+                      "device_events": prof["events"], "flash_kernels": flash_in_profile},
+          "flightrecorder_live_steps": [e["step"] for e in ring_steps],
+          "sigterm_dump": {"reason": dump.get("reason"), "steps": dumped},
+          "k1_k3_launches_in_child_computed": LAUNCHER_LAYERS * LAUNCHER_STEPS,
+          "tracer_overhead_ms_per_step_in_process": train_tracer_ms,
+          "seconds": {"mesh": mesh_s, "train": train_s, "sigterm": sigterm_s,
+                      "phase": time.perf_counter() - t_phase},
+          "card": card})
 
 
 def _profile_train_step(torch, run):
@@ -1652,7 +1974,8 @@ def main() -> None:
     k4 = phase_decode(torch, attn, _kernels, gen)
     k5 = phase_decode_q8(torch, attn, _kernels, gen)
     serving = phase_serving(torch, attn, card)
-    train = phase_train(torch, attn, card)
+    train, tracer_ms = phase_train(torch, attn, card)
+    phase_launcher(torch, card, tracer_ms)
     serving_int8 = phase_serving_int8(torch, attn, card)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
                 + serving_int8["flash_fwd"],

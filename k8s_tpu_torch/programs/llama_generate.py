@@ -10,7 +10,9 @@ Run config (``KTPU_PROGRAM_ARGS``):
   --temperature=F          0 = greedy (default)
   --steps=N                generation rounds (default 3)
   --seed=N                 weight-init seed (default 0)
-  --device=cuda|cpu        default cuda; raises without a card
+  --device=cuda|cpu        default: the rendezvous' ``device`` (cuda
+                           unless KTPU_FORCE_PLATFORM=cpu); raises
+                           without a card
   --quant=int8_serving     weight-only int8 (projections, MLP, lm_head)
   --kv_quant=int8          int8 KV cache with per-row scales
 
@@ -89,7 +91,7 @@ def load_decode_params(lcfg: LlamaConfig, checkpoint_dir: str = "",
 def main(rdzv) -> None:
     cfg = parse_run_config(rdzv, {"steps": 3, "batch_size": 8})
     extra = cfg.extra or {}
-    device = extra.get("device", "cuda")
+    device = extra.get("device", getattr(rdzv, "device", "cuda"))
     model_name = extra.get("model", default_model(device))
     prompt_len = int(extra.get("prompt_len", "32"))
     new_tokens = int(extra.get("new_tokens", "64"))

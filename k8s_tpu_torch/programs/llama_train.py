@@ -25,18 +25,36 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
                             flash_qkv); without it the config's default:
                             nothing_saveable for llama3-8b, off for tiny
   --require_convergence=R   fail unless final loss < R x first loss
-  --device=cuda|cpu         default cuda; raises without a card
+  --step_sleep=S            sleep S seconds inside every step's span
+                            (widens the window a fault or a poller
+                            lands in)
+  --device=cuda|cpu         default: the rendezvous' ``device`` (cuda
+                            unless KTPU_FORCE_PLATFORM=cpu); raises
+                            without a card
 
 Weights are random from seed 0 (f32 masters, bf16 compute).
 Options of later slices raise: a ``--strategy`` other than ``dp``,
 ``--zero_stage``/``--zero1``, ``--checkpoint_dir``, ``--latency_hiding``,
 ``--num_experts``, ``--quant``.
 
-Events (JSON lines): ``mesh`` (dp 1), the step/loss lines of
-:class:`~k8s_tpu_torch.programs.common.MetricLogger`, ``step_health`` at
-each log point, and ``convergence`` at the end. :func:`main` returns a
-summary (first and final loss, per-step wall times, and the state, step
-function and a batch source for a caller that goes on measuring).
+The loop runs the JAX program's runtime: every step inside a
+:meth:`~k8s_tpu_torch.obs.trace.Tracer.step` span with phases
+``data_wait``, ``compile`` (the first step, kernel builds included, up
+to ``torch.cuda.synchronize()``: the ``block_until_ready``
+counterpart), ``step_compute`` and ``host_sync`` (the log points'
+readback); the health block on the heartbeat (``tracer.note_health``,
+gated on the tracer being on); the per-host obs endpoint under
+``KTPU_OBS_ADVERTISE``; the ``nan-grad`` chaos arm
+(``KTPU_CHAOS_NAN_GRAD``); ``KTPU_PROFILE_DIR``'s loop profile.
+
+Events (JSON lines): ``mesh`` (dp 1), ``obs_ready`` (with an obs
+endpoint), ``compile_phase``, the step/loss lines of
+:class:`~k8s_tpu_torch.programs.common.MetricLogger`, ``step_health``
+and ``step_phases`` at each log point, ``chaos_nan_grad`` at a poisoned
+step, and ``convergence`` at the end. :func:`main` returns a summary
+(first and final loss, per-step wall times, the ``step_phases`` events,
+the compile seconds, the tracer, and the state, step function and a
+batch source for a caller that goes on measuring).
 """
 
 from __future__ import annotations
@@ -49,10 +67,18 @@ import time
 import torch
 
 from k8s_tpu_torch import resolve_device
+from k8s_tpu_torch.controller.metrics import CKPT_RESTORE_SECONDS
 from k8s_tpu_torch.data import learnable_token_batches, synthetic_token_batches
 from k8s_tpu_torch.models import LlamaConfig, LlamaForCausalLM, init_params
+from k8s_tpu_torch.obs.health import consume_nan_grad, nan_grad_armed
 from k8s_tpu_torch.ops.fused_ce import fused_lm_head_cross_entropy
-from k8s_tpu_torch.programs.common import MetricLogger, parse_run_config
+from k8s_tpu_torch.programs.common import (
+    MetricLogger,
+    build_tracer,
+    maybe_profile,
+    parse_run_config,
+    start_obs_server,
+)
 from k8s_tpu_torch.programs.llama_generate import default_model
 from k8s_tpu_torch.train import (
     create_train_state,
@@ -107,6 +133,15 @@ def model_config(model_name: str, extra: dict) -> LlamaConfig:
     return lcfg
 
 
+def _chaos_scaled(loss, batch):
+    """Apply the ``nan-grad`` chaos poison when it rides the batch (a
+    ``chaos_scale`` scalar, 1.0 normally and 0.0 at the poisoned step):
+    ``scale / scale`` is 1 or 0/0 = NaN on the device, making every
+    gradient of that step NaN. A no-op when the fault is not armed."""
+    scale = batch.get("chaos_scale") if isinstance(batch, dict) else None
+    return loss if scale is None else loss * (scale / scale)
+
+
 def lm_loss(model: LlamaForCausalLM, ids: torch.Tensor,
             fused_ce: bool = True) -> torch.Tensor:
     """Next-token cross-entropy with z-loss 1e-4 of a batch ``ids`` [B,
@@ -125,7 +160,7 @@ def main(rdzv) -> dict:
     cfg = parse_run_config(rdzv, {"steps": 30, "batch_size": 16})
     extra = cfg.extra or {}
     _check_unported(cfg, extra)
-    device = resolve_device(extra.get("device", "cuda"))
+    device = resolve_device(extra.get("device", getattr(rdzv, "device", "cuda")))
     model_name = extra.get("model", default_model(device))
     seq_len = int(extra.get("seq_len", "128" if model_name == "tiny" else "8192"))
     lead = getattr(rdzv, "process_id", 0) <= 0
@@ -142,41 +177,116 @@ def main(rdzv) -> dict:
                else synthetic_token_batches)
     data = data_fn(cfg.batch_size, seq_len, lcfg.vocab_size)
     fused_ce = extra.get("fused_ce", "1") not in ("0", "false")
-    health = extra.get("health", "1") not in ("0", "false")
+    # tracing + per-host obs endpoint: the tracer wraps every step in
+    # phase spans (flight recorder + the heartbeat the reconciler's
+    # straggler detection reads); the obs server publishes them
+    tracer = build_tracer(rdzv)
+    obs_server = start_obs_server(rdzv, tracer)
+    # the in-step health block rides the trace gate, as in the JAX
+    # program: spec observability.trace=false turns both off
+    health = tracer.enabled and extra.get("health", "1") not in ("0", "false")
 
     def loss_fn(state, b):
-        return lm_loss(state.model, b["input_ids"], fused_ce), {}
+        return _chaos_scaled(lm_loss(state.model, b["input_ids"], fused_ce), b), {}
 
     step_fn = make_train_step(loss_fn, accum_steps=cfg.accum_steps,
                               health=health)
     logger = MetricLogger(rdzv, f"llama-{model_name}-dp")
+    step_sleep = float(extra.get("step_sleep", "0"))
 
     def device_batch():
         return {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
 
+    # chaos nan-grad (KTPU_CHAOS_NAN_GRAD="<step>" or arm_nan_grad):
+    # once armed, a chaos_scale scalar rides every step's batch, NaN
+    # only at the armed step
+    chaos_nan_live = nan_grad_armed() is not None
     # losses stay device tensors in the loop: the host syncs only at log
     # points (and per step when --log_every=1)
     first_loss = final_loss = None
-    step_s = []
-    for step in range(1, cfg.steps + 1):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, device_batch())
-        final_loss = metrics["loss"]
-        if first_loss is None:
-            first_loss = final_loss
-        if step % cfg.log_every == 0 or step == cfg.steps:
-            loss_f = float(final_loss)
-            logger.log(step, {"loss": loss_f})
-            if health and lead:
-                print(json.dumps({
-                    "event": "step_health", "step": step,
-                    "loss": round(loss_f, 6),
-                    **{k: round(float(metrics[k]), 6) for k in
-                       ("grad_norm", "nonfinite_grads", "update_ratio")},
-                }), flush=True)
-        step_s.append(time.perf_counter() - t0)
+    step_s, phases, compile_s = [], [], None
+    with maybe_profile(rdzv, device):
+        for step in range(1, cfg.steps + 1):
+            t0 = time.perf_counter()
+            log_point = step % cfg.log_every == 0 or step == cfg.steps
+            with tracer.step(step) as st:
+                if step_sleep:
+                    time.sleep(step_sleep)
+                with st.phase("data_wait"):
+                    batch = device_batch()
+                chaos_nan_live = chaos_nan_live or nan_grad_armed() is not None
+                if chaos_nan_live:
+                    poison = consume_nan_grad(step)
+                    batch["chaos_scale"] = torch.tensor(
+                        0.0 if poison else 1.0, device=device)
+                    if poison and lead:
+                        print(json.dumps({"event": "chaos_nan_grad",
+                                          "step": step}), flush=True)
+                if step == 1:
+                    # the first step: kernel builds and first-call setup
+                    # dominate its wall, so it is its own `compile` phase,
+                    # ended by a device sync (the block_until_ready of the
+                    # JAX program); timed outside the tracer so the gauge
+                    # and the event are real with tracing off too
+                    c0 = time.perf_counter()
+                    with st.phase("compile"):
+                        state, metrics = step_fn(state, batch)
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                    compile_s = time.perf_counter() - c0
+                    CKPT_RESTORE_SECONDS.set(compile_s, {"phase": "compile"})
+                    tracer.note_span("compile", compile_s, step=step)
+                    if lead:
+                        print(json.dumps({
+                            "event": "compile_phase", "step": step,
+                            "seconds": round(compile_s, 6),
+                            "cache": bool(getattr(rdzv, "compile_cache_dir", "")),
+                        }), flush=True)
+                else:
+                    with st.phase("step_compute"):
+                        state, metrics = step_fn(state, batch)
+                final_loss = metrics["loss"]
+                if first_loss is None:
+                    first_loss = final_loss
+                if log_point:
+                    with st.phase("host_sync"):
+                        # the only per-step host sync, measured
+                        loss_f = float(final_loss)
+                        health_block = None
+                        if health:
+                            health_block = {
+                                "loss": loss_f,
+                                **{k: float(metrics[k]) for k in
+                                   ("grad_norm", "nonfinite_grads",
+                                    "update_ratio")},
+                            }
+                    logger.log(step, {"loss": loss_f})
+                    if health_block is not None:
+                        # heartbeat + flight-recorder ring on every host
+                        tracer.note_health(step, health_block)
+                        if lead:
+                            print(json.dumps({
+                                "event": "step_health", "step": step,
+                                **{k: round(v, 6) for k, v in
+                                   health_block.items()},
+                            }), flush=True)
+            if log_point and lead and tracer.enabled:
+                # where this step's wall time went, next to the loss line
+                last = tracer.last_step()
+                ev = {"event": "step_phases", "step": step,
+                      "wall_ms": round(1e3 * last.get("step_time_s", 0.0), 3),
+                      "phases_ms": {
+                          k: round(1e3 * v, 3)
+                          for k, v in (last.get("phases_s") or {}).items()}}
+                phases.append(ev)
+                print(json.dumps(ev), flush=True)
+            step_s.append(time.perf_counter() - t0)
+    tracer.flush("done")
+    if obs_server is not None:
+        obs_server.stop()
 
-    summary = {"config": lcfg, "step_s": step_s, "state": state,
+    summary = {"config": lcfg, "step_s": step_s, "step_phases": phases,
+               "compile_s": compile_s, "tracer": tracer, "state": state,
                "step_fn": step_fn, "next_batch": device_batch}
     req = float(extra.get("require_convergence", "0"))
     if first_loss is None:

@@ -25,7 +25,9 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
   --max_queue_depth=N       backpressure threshold for HTTP 429
                             (default KTPU_SERVING_MAX_QUEUE or 0 = off)
   --seed=N                  weight-init seed (default 0)
-  --device=cuda|cpu         default cuda; raises without a card
+  --device=cuda|cpu         default: the rendezvous' ``device`` (cuda
+                            unless KTPU_FORCE_PLATFORM=cpu); raises
+                            without a card
   --quant=int8_serving      weight-only int8
   --kv_quant=int8           int8 KV cache
 On a card the engine replays its decode chunk as a CUDA graph after
@@ -71,7 +73,7 @@ def main(rdzv) -> None:
         if val != off:
             raise NotImplementedError(
                 f"{key}={val!r} is not ported to k8s_tpu_torch yet")
-    device = extra.get("device", "cuda")
+    device = extra.get("device", getattr(rdzv, "device", "cuda"))
     model_name = extra.get("model", default_model(device))
     max_seq = int(extra.get("max_seq_len", "256"))
     max_slots = int(extra.get("max_slots", "8"))

@@ -181,6 +181,14 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", Guard)
     monkeypatch.setattr(torch.cuda, "current_stream", Stream)
     monkeypatch.setattr(_kernels, "lib", lambda name: Lib())
+    # the stubbed calls tick the wrappers' launch counters: put them back
+    # afterwards, as other tests in the process read them
+    for wrapper, counters in ((tattn.flash_fwd, ("launches",)),
+                              (tattn.flash_bwd, ("launches_dq", "launches_dkv")),
+                              (tattn.decode_attention_update, ("launches",)),
+                              (tattn.decode_attention_update_q8, ("launches",))):
+        for counter in counters:
+            monkeypatch.setattr(wrapper, counter, getattr(wrapper, counter))
     gen = torch.Generator().manual_seed(0)
 
     def card(*shape, dtype=torch.bfloat16):
