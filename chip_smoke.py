@@ -28,13 +28,21 @@ roofline bound), then drives the port's three main paths, in this order:
   peak memory, the compile phase, the tracer's overhead, the median
   step phases and one profiled step's device-time split;
 - the launcher: ``python -m k8s_tpu_torch.launcher.spmd_launcher`` as a
-  child process, three times: the mesh smoke check (exit 0); training
-  at Llama-3-8B width, 2 layers, 6 steps, with the per-host obs
-  endpoint polled mid-run (the ``/healthz`` heartbeat and its ``hbm``
-  block against the card's memory, the ``/metrics`` HBM series, a
-  one-second ``/debug/profile`` holding CUDA kernels, the live flight
-  recorder; exit 0); the same run sent SIGTERM after step 2 (exit 143,
-  the flight recorder's dump on disk);
+  child process: the mesh smoke check (exit 0); training at Llama-3-8B
+  width, 2 layers, 6 steps, with the per-host obs endpoint polled
+  mid-run (the ``/healthz`` heartbeat and its ``hbm`` block against the
+  card's memory, the ``/metrics`` HBM series, a one-second
+  ``/debug/profile`` holding CUDA kernels, the live flight recorder;
+  exit 0); the same run with the local checkpoint tier sent SIGTERM
+  after step 2 (the flush at the current step, exit 143, the flight
+  recorder's dump on disk); a restart that restores the flushed step
+  from the local tier bit-equal (every leaf's crc read back from the
+  card against the manifest's), writes the persistent tier (DCP) and
+  exits 0; one more restore timed to its first step (MTTR); then, in
+  this process, the restored model served from the DCP step (K1 and K4
+  counted, the teacher-forced oracle, its weights against the local
+  tier's copy) and a ``checkpoint`` line of save, flush, restore and
+  MTTR seconds beside the measured rates;
 - int8 serving, once the bf16 model and the training state are freed:
   the same Llama-3-8B with int8 weights and an int8 KV cache
   (``--quant=int8_serving --kv_quant=int8``), 16 slots of 8192 rows, 16
@@ -138,6 +146,18 @@ ORACLE_Q8_LOGIT_TOL = 1.0
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 8, 10, 2048, 8
 # the launcher phase's training child: Llama-3-8B width, 2 layers
 LAUNCHER_LAYERS, LAUNCHER_STEPS = 2, 6
+# its checkpoints. A full-state save is 17.85 GB and a run of this script
+# must stay under 45 GiB of disk writes (deleted files count), so the
+# phase writes two saves: (c)'s SIGTERM flush to the local tier and (d)'s
+# persistent (DCP) save. (b) runs without checkpoints, the local tier's
+# routed interval lies past every run's steps (the flush is (c)'s only
+# local save), and (d) takes no step past its restore (its final save
+# finds the local step committed and writes DCP alone); (d') restores
+# once more and takes one step, for MTTR, and is killed. The staging cap
+# lies above the whole state (the snapshot is one device-to-host stage,
+# never throttled by the writer); the grace period a flush must fit is
+# Kubernetes' default terminationGracePeriodSeconds.
+CKPT_LOCAL_EVERY, CKPT_SAVE_BUFFER_BYTES, CKPT_GRACE_S = 1000, 24 << 30, 30
 REPO = pathlib.Path(__file__).resolve().parent
 # K1's tile config -> its kernel instance (csrc/flash_fwd.cu, templated on
 # the number of consumer warpgroups), as torch.profiler names it
@@ -1590,20 +1610,25 @@ class Child:
             [sys.executable, "-m", "k8s_tpu_torch.launcher.spmd_launcher"],
             cwd=REPO, env=full, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
+        self.started = time.monotonic()
         self.lines = []
+        self.times = {}  # event name -> arrival time (monotonic) of its first line
         self._q = queue.Queue()
         self._err = []
-        threading.Thread(target=lambda: [self._q.put(ln) for ln in self.proc.stdout],
+        threading.Thread(target=lambda: [self._q.put((time.monotonic(), ln))
+                                         for ln in self.proc.stdout],
                          daemon=True).start()
         threading.Thread(target=lambda: self._err.extend(self.proc.stderr),
                          daemon=True).start()
 
     def _drain(self, timeout):
         try:
-            line = self._q.get(timeout=timeout)
+            t, line = self._q.get(timeout=timeout)
         except queue.Empty:
             return None
         self.lines.append(line)
+        for e in self._parse(line):
+            self.times.setdefault(e["event"], t)
         return line
 
     def wait_event(self, name, pred=lambda e: True, timeout=300.0):
@@ -1673,25 +1698,209 @@ def llama_params(cfg) -> int:
     return 2 * cfg.vocab_size * e + cfg.num_layers * layer + e
 
 
-def phase_launcher(torch, card, train_tracer_ms):
-    """See :func:`_phase_launcher`; its flight dirs and profiles go to a
-    temporary directory that is removed afterwards."""
+def host_ram_available() -> float:
+    """Bytes of host memory available (``MemAvailable``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return float(line.split()[1]) * 1024
+    return 0.0
+
+
+def measure_io(torch, dirpath) -> dict:
+    """The rates the checkpoint tiers are held to: the card's
+    device-to-host copy into page-locked memory (2 GiB, CUDA events,
+    best of 3); the local tier's first-save cost, page-locking a fresh
+    2 GiB host buffer (``HostBuffers.take``: allocation and
+    ``cudaHostRegister``), and its snapshot into it once locked
+    (``host_copy``, host clock); and a sequential write of 1 GiB to
+    ``dirpath`` in 64 MiB chunks, fsynced (the local tier's disk)."""
+    from k8s_tpu_torch.ckpt.pipeline import HostBuffers, host_copy
+
+    n = 2 << 30
+    src = torch.empty(n, dtype=torch.uint8, device="cuda")
+    dst = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    rates = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        rates.append(n / (a.elapsed_time(b) / 1e3) / 1e9)
+    del dst
+    buffers = HostBuffers()
+    try:
+        t0 = time.perf_counter()
+        buffers.give(buffers.take(n))
+        register_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host_copy(src, buffers)
+        copy_s = time.perf_counter() - t0
+    finally:
+        buffers.close()
+    del src
+    torch.cuda.empty_cache()
+    chunk = np.full(64 << 20, 7, dtype=np.uint8)
+    path = os.path.join(dirpath, "write-rate.bin")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(16):
+            f.write(chunk)
+        f.flush()
+        os.fsync(f.fileno())
+    write_s = time.perf_counter() - t0
+    os.remove(path)
+    return {"pinned_d2h_gb_per_s": max(rates),
+            "host_register_gb_per_s": n / register_s / 1e9,
+            "host_copy_registered_gb_per_s": n / copy_s / 1e9,
+            "seq_write_gb_per_s": 16 * chunk.nbytes / write_s / 1e9}
+
+
+def phase_restored_serving(torch, attn, card, persist_dir, local_step_dir, tmp):
+    """(e) of the launcher phase: the model the training child (d) saved,
+    restored from its persistent (DCP) dir by
+    ``programs.llama_generate.load_decode_params`` (2 layers at
+    Llama-3-8B width, bf16, no random init) and served through the
+    engine behind the HTTP front-end, the launch counts set to 0 just
+    before the requests and read just after (K1 prefill and K4 decode
+    must launch). Every weight must equal the bf16 cast of the same
+    step's local-tier copy (the two tiers hold one state), every served
+    token must pass the teacher-forced oracle (0.25), and a restore from
+    an empty directory must raise. Returns the launches and the load
+    seconds."""
+    from k8s_tpu_torch.ckpt import LocalTier
+    from k8s_tpu_torch.ckpt.pipeline import from_numpy
+    from k8s_tpu_torch.programs.llama_generate import (
+        decode_model_config, load_decode_params)
+    from k8s_tpu_torch.serving import ContinuousBatchingEngine, ServingFrontend
+
+    t_phase = time.perf_counter()
+    max_seq, new_tokens = 2048, 32
+    cfg = decode_model_config("llama3-8b", max_seq, {"layers": str(LAUNCHER_LAYERS)},
+                              ragged=True)
+    empty = os.path.join(tmp, "empty-checkpoint")
+    os.makedirs(empty)
+    try:
+        load_decode_params(cfg, empty, device="cuda")
+        fail("restored serving: a restore from an empty dir did not raise")
+    except FileNotFoundError:
+        pass
+    t0 = time.perf_counter()
+    model = load_decode_params(cfg, persist_dir, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params_bytes = 4 * sum(p.numel() for p in model.parameters())  # f32 on disk
+    # the served weights are the bf16 cast of the local tier's copy of
+    # the same step (the lm_head is held in f32 after that cast)
+    step = int(os.path.basename(local_step_dir).split("-")[1])
+    tier = LocalTier(os.path.dirname(os.path.dirname(local_step_dir)), host_id=0)
+    off = []
+    for name, p in model.named_parameters():
+        path = f"params/{name}"
+        entry = tier.manifest(step)["leaves"][path]
+        arr = tier.read_shard(step, path, next(iter(entry["shards"])))
+        ref = from_numpy(arr, torch.float32).to("cuda").to(torch.bfloat16).to(p.dtype)
+        if not torch.equal(ref, p.detach()):
+            off.append(name)
+    if off:
+        fail(f"restored serving: weights differ from the local tier's step {step}: {off[:6]}")
+    buckets = [b for b in (16, 32, 64, 128, 256, 512, 1024) if b < max_seq]
+    engine = ContinuousBatchingEngine(model, max_slots=8, decode_chunk=32,
+                                      prompt_buckets=buckets, prefill_chunk=256,
+                                      pipeline_depth=2)
+    frontend = ServingFrontend(engine, port=0)
+    stop = threading.Event()
+    pump = threading.Thread(target=frontend.serve, args=(stop.is_set,))
+    pump.start()
+    rng = np.random.RandomState(5)
+    lens = [12, 97, 256, 300, 700, 1000]
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    try:
+        post(frontend.port, {"prompt": prompts[0][:20], "max_new_tokens": 4})  # warm-up
+        stats0 = dict(engine.stats)
+        attn.flash_fwd.launches = 0
+        attn.decode_attention_update.launches = 0
+        results, _, wall = burst(frontend.port, prompts, new_tokens)
+        counted = {"flash_fwd": attn.flash_fwd.launches,
+                   "decode_attn": attn.decode_attention_update.launches}
+        stats = {k: v - stats0.get(k, 0) for k, v in engine.stats.items()
+                 if k != "queue_depth"}
+    finally:
+        stop.set()
+        pump.join(timeout=300)
+    if pump.is_alive() or any(r is None for r in results):
+        fail("restored serving: a request or the pump did not finish")
+    launches = path_launches(counted, stats, engine)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"restored serving: kernel {name} never launched on the main path")
+    gaps = []
+    for p, r in zip(prompts, results):
+        toks = r["tokens"]
+        if len(toks) != new_tokens:
+            fail(f"restored serving: {len(toks)} tokens for a {new_tokens}-token request")
+        ids = torch.tensor([p + toks], dtype=torch.long, device="cuda")
+        cache = model.new_cache(1)
+        cache.fresh = False
+        hidden, _ = model(ids, positions=torch.arange(ids.shape[1], device="cuda")[None],
+                          cache=cache, return_hidden=True)
+        del cache
+        logits = model.lm_head_logits(hidden[0, len(p) - 1:len(p) - 1 + len(toks)])
+        if not torch.isfinite(logits).all():
+            fail("restored serving: non-finite logits in the oracle forward")
+        tok_t = torch.tensor(toks, device="cuda")
+        gaps.append((logits.max(-1).values
+                     - logits.gather(1, tok_t[:, None])[:, 0]).max().item())
+    if max(gaps) > ORACLE_LOGIT_TOL:
+        fail(f"restored serving oracle: emitted-token logit {max(gaps)} below the row "
+             f"max (tol {ORACLE_LOGIT_TOL})")
+    emit({"phase": "serving_restored", "model": "llama3_8b", "layers": cfg.num_layers,
+          "dtype": "bfloat16", "checkpoint_step": step, "load_s": load_s,
+          "params_bytes_read": params_bytes, "weights_equal_local_tier": True,
+          "empty_dir_raises": True, "requests": len(prompts), "prompt_lens": lens,
+          "new_tokens": new_tokens, "wall_s": wall,
+          "graph_replays": stats["graph_replays"], "launches": launches,
+          "launches_counted": counted, "oracle_max_gap": max(gaps),
+          "oracle_tol": ORACLE_LOGIT_TOL, "card": card})
+    del engine, frontend, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "load_s": load_s, "params_bytes": params_bytes,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def phase_launcher(torch, attn, card, train_tracer_ms):
+    """See :func:`_phase_launcher`; its flight dirs, profiles and
+    checkpoints go to a temporary directory that is removed afterwards.
+    Returns the kernel launches of the restored serving run (e)."""
     tmp = tempfile.mkdtemp(prefix="ktpu-launcher-")
     try:
-        _phase_launcher(torch, card, train_tracer_ms, tmp)
+        return _phase_launcher(torch, attn, card, train_tracer_ms, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _phase_launcher(torch, card, train_tracer_ms, tmp):
+def _phase_launcher(torch, attn, card, train_tracer_ms, tmp):
     """The port's launcher as the operator runs it: ``python -m
     k8s_tpu_torch.launcher.spmd_launcher`` as a child process on the
-    card, three times — (a) no program: the mesh smoke check; (b)
-    llama_train at Llama-3-8B width, 2 layers, with an obs endpoint that
-    this script polls mid-run (/healthz and its hbm block, /metrics,
-    /debug/profile, /debug/flightrecorder); (c) the same run, SIGTERM
-    after the heartbeat reaches step 2: exit 143 and the flight
-    recorder's dump on disk."""
+    card — (a) no program: the mesh smoke check; (b) llama_train at
+    Llama-3-8B width, 2 layers, with an obs endpoint that this script
+    polls mid-run (/healthz and its hbm block, /metrics, /debug/profile,
+    /debug/flightrecorder); (c) the same run with the local checkpoint
+    tier, SIGTERM after the heartbeat reaches step 2: the flush at the
+    current step (``preempt_checkpoint``), exit 143 and the flight
+    recorder's dump on disk (with the flush's save spans); (d) a fresh
+    child on (c)'s dirs: the restore from the local tier at the flushed
+    step with 0 lost steps, every leaf's crc read back from the card
+    equal to the manifest's, exit 0 after its final save (the persistent
+    tier, DCP); (d') one more restore, timed to its first step (MTTR),
+    then killed; then (e), in this process, the model (d) saved served
+    from its persistent dir (:func:`phase_restored_serving`). See
+    ``CKPT_LOCAL_EVERY`` for why only (c) and (d) write. The
+    ``checkpoint`` line holds the save, flush and restore seconds, MTTR
+    and their rates beside the card's pinned device-to-host rate and the
+    disk's sequential write rate, measured here."""
     from k8s_tpu_torch.models import LlamaConfig
     from k8s_tpu_torch.obs.events import events_of
     from k8s_tpu_torch.obs.health import trace_event_counts
@@ -1727,6 +1936,30 @@ def _phase_launcher(torch, card, train_tracer_ms, tmp):
     args = (f"--model=llama3-8b --layers={LAUNCHER_LAYERS} --seq_len={TRAIN_SEQ} "
             f"--batch_size={TRAIN_BATCH} --log_every=1 --step_sleep=0.5 "
             "--remat_policy=flash --fused_ce=1 --lr=3e-4 --data=learnable")
+
+    # the checkpoint tiers' disk, host memory and rates
+    save_bytes = 12 * n_params  # f32 weights and the two AdamW moments
+    disk_free = shutil.disk_usage(tmp).free
+    ram_free = host_ram_available()
+    print(f"chip_smoke: launcher phase: {disk_free / 1e9:.2f} GB free on the "
+          f"checkpoint disk ({tmp}), {ram_free / 1e9:.2f} GB of host RAM "
+          f"available; a save is {save_bytes / 1e9:.2f} GB, the phase writes "
+          f"two (~{2 * save_bytes / 1e9:.1f} GB of disk) and needs "
+          f"~{(save_bytes + 8e9) / 1e9:.1f} GB of RAM", flush=True)
+    if disk_free < 2.2 * save_bytes or ram_free < save_bytes + 8e9:
+        fail(f"launcher: {disk_free / 1e9:.2f} GB of disk and {ram_free / 1e9:.2f} GB "
+             f"of RAM free; the checkpoint runs need {2.2 * save_bytes / 1e9:.1f} "
+             f"and {(save_bytes + 8e9) / 1e9:.1f}")
+    io_rates = measure_io(torch, tmp)
+
+    def ckpt_env(name, persistent: bool):
+        env = {"KTPU_CKPT_LOCAL_DIR": os.path.join(tmp, name, "local"),
+               "KTPU_CKPT_LOCAL_EVERY": str(CKPT_LOCAL_EVERY),
+               "KTPU_CKPT_LOCAL_KEEP": "1",
+               "KTPU_CKPT_SAVE_BUFFER_BYTES": str(CKPT_SAVE_BUFFER_BYTES)}
+        if persistent:
+            env["KTPU_CKPT_DIR"] = os.path.join(tmp, name, "persist")
+        return env
 
     # (b) training with the obs endpoint, polled mid-run
     t0 = time.perf_counter()
@@ -1780,29 +2013,143 @@ def _phase_launcher(torch, card, train_tracer_ms, tmp):
     unphased = statistics.median(
         e["wall_ms"] - sum(e["phases_ms"].values()) for e in phases[1:])
 
-    # (c) SIGTERM after the heartbeat reaches step 2
+    # (c) SIGTERM after the heartbeat reaches step 2: the flush at the
+    # current step to the local tier, then 143
     t0 = time.perf_counter()
     flight_c = os.path.join(tmp, "sigterm")
     child = Child({"KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
                    "KTPU_PROGRAM_ARGS": f"{args} --steps=50",
                    "KTPU_OBS_ADVERTISE": "127.0.0.1:0",
                    "KTPU_FLIGHT_DIR": flight_c,
-                   "KTPU_TRACE_ID": "chip-smoke-sigterm"}, "sigterm")
+                   "KTPU_TRACE_ID": "chip-smoke-sigterm",
+                   **ckpt_env("cd", persistent=False)}, "sigterm")
     try:
         port = child.wait_event("obs_ready")["port"]
         poll_heartbeat(child, port, 2)
+        t_term = time.monotonic()
         child.proc.send_signal(signal.SIGTERM)
-        rc, out, err = child.finish(timeout=120)
+        rc, out, err = child.finish(timeout=600)
+        t_exit = time.monotonic()
     finally:
         child.kill()
     dump_path = pathlib.Path(flight_c) / "flight-host0.json"
     dump = json.loads(dump_path.read_text()) if dump_path.exists() else {}
     dumped = [e["step"] for e in dump.get("entries", []) if e.get("kind") == "step"]
-    if rc != 143 or not events_of(out, "preempt_requested") or dumped[:2] != [1, 2]:
-        fail(f"launcher sigterm: exit {rc}, dump steps {dumped}, "
+    flushed = events_of(out, "preempt_checkpoint")
+    if rc != 143 or not events_of(out, "preempt_requested") or dumped[:2] != [1, 2] \
+            or len(flushed) != 1 or flushed[0]["step"] < 3:
+        fail(f"launcher sigterm: exit {rc}, dump steps {dumped}, flush {flushed}, "
              f"stdout tail {out[-2000:]}, stderr {err[-2000:]}")
     codes["sigterm"] = rc
     sigterm_s = time.perf_counter() - t0
+    flush_step = flushed[0]["step"]
+    # the flush's phases, as the manager noted them on the tracer (the
+    # flight recorder's dump)
+    flush_phases = {e["name"][len("save_"):]: e["wall_s"] for e in dump.get("entries", [])
+                    if e.get("kind") == "span" and e.get("step") == flush_step
+                    and e.get("name", "").startswith("save_")}
+    if set(flush_phases) != {"snapshot", "serialize", "commit"}:
+        fail(f"launcher sigterm: the flush's save spans {flush_phases}")
+    local_cd = os.path.join(tmp, "cd", "local")
+    with open(os.path.join(local_cd, "host-0", f"step-{flush_step}", "manifest.json")) as f:
+        manifest = json.load(f)
+    man_crc = {p: next(iter(e["shards"].values()))["crc"]
+               for p, e in manifest["leaves"].items()}
+    man_bytes = sum(int(np.prod(e["shape"], dtype=np.int64))
+                    * (2 if e["dtype"] == "bfloat16" else np.dtype(e["dtype"]).itemsize)
+                    for e in manifest["leaves"].values())
+    sigterm = {"flush_step": flush_step, "dump_reason": dump.get("reason"),
+               "requested_to_checkpoint_s":
+                   child.times["preempt_checkpoint"] - child.times["preempt_requested"],
+               "sigterm_to_exit_s": t_exit - t_term, "flush_phases_s": flush_phases}
+    sigterm["fits_grace_period"] = sigterm["sigterm_to_exit_s"] <= CKPT_GRACE_S
+
+    # (d) a fresh child on the same dirs: restore from the local tier at
+    # (c)'s flushed step, every leaf's crc as read back from the card
+    # against the manifest's; no step past it, so its final save finds
+    # the local step committed and writes the persistent tier (DCP) alone
+    t0 = time.perf_counter()
+    child = Child({"KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
+                   "KTPU_PROGRAM_ARGS": f"{args} --steps={flush_step} --restore_crc=1",
+                   "KTPU_TRACE_ID": "chip-smoke-restore",
+                   **ckpt_env("cd", persistent=True)}, "restore")
+    try:
+        rc, out, err = child.finish(timeout=600)
+    finally:
+        child.kill()
+    restore = events_of(out, "ckpt_restore")
+    crc = events_of(out, "restore_crc")
+    if rc != 0 or len(restore) != 1 or not crc or events_of(out, "step_phases") \
+            or events_of(out, "restored") != [{"event": "restored", "step": flush_step}] \
+            or not events_of(out, "ckpt_persistent_save"):
+        fail(f"launcher restore: exit {rc}; stdout tail {out[-3000:]}; stderr {err[-3000:]}")
+    restore, crc = restore[0], crc[0]
+    if (restore["source"], restore["step"], restore["lost_steps"]) != ("local", flush_step, 0):
+        fail(f"launcher restore: {restore}, expected local at step {flush_step}, 0 lost")
+    bad = sorted(p for p in man_crc if crc["crc"].get(p) != man_crc[p])
+    if bad or set(crc["crc"]) != set(man_crc):
+        fail(f"launcher restore: the card's state differs from the flushed step in "
+             f"{len(bad)} leaves ({bad[:6]}), leaves {len(crc['crc'])} vs {len(man_crc)}")
+    good_d = events_of(out, "ckpt_goodput")[0]
+    if good_d["persistent_saves"] != 1 or good_d["local_saves"] != 0:
+        fail(f"launcher restore: final save goodput {good_d}")
+    codes["restore"] = rc
+    restore_run_s = time.perf_counter() - t0
+    dcp_d = events_of(out, "ckpt_persistent_save")[0]
+
+    # (d') MTTR: restore once more (the local tier alone) and take the
+    # first step past it; the pod is then killed (no flush, nothing written)
+    child = Child({"KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
+                   "KTPU_PROGRAM_ARGS": f"{args} --steps=50",
+                   "KTPU_TRACE_ID": "chip-smoke-mttr",
+                   **ckpt_env("cd", persistent=False)}, "mttr")
+    try:
+        child.wait_event("compile_phase", timeout=600)
+        mttr = child.times["compile_phase"] - child.started
+    finally:
+        child.kill()
+    mttr_restore = events_of("".join(child.lines), "ckpt_restore")[0]
+    if (mttr_restore["source"], mttr_restore["step"]) != ("local", flush_step):
+        fail(f"launcher mttr: restored {mttr_restore}")
+    mttr_parts = {"to_ckpt_restore_s": child.times["ckpt_restore"] - child.started,
+                  "restore_s": mttr_restore["seconds"],
+                  "first_step_s": child.times["compile_phase"] - child.times["restored"]}
+
+    # (e) the restored model served: 2 layers at full width, bf16
+    persist_cd = os.path.join(tmp, "cd", "persist")
+    served = phase_restored_serving(
+        torch, attn, card, persist_cd,
+        os.path.join(local_cd, "host-0", f"step-{flush_step}"), tmp)
+
+    def rate(sec):
+        return None if not sec else man_bytes / sec / 1e9
+
+    background = flush_phases["serialize"] + flush_phases["commit"]
+
+    emit({"phase": "checkpoint", "model": "llama3_8b", "layers": LAUNCHER_LAYERS,
+          "n_params": n_params, "bytes_per_save": man_bytes,
+          "leaves": len(manifest["leaves"]),
+          "disk_free_gb_before": disk_free / 1e9,
+          "host_ram_available_gb": ram_free / 1e9, **io_rates,
+          "save_buffer_bytes": CKPT_SAVE_BUFFER_BYTES,
+          "local_interval_steps": CKPT_LOCAL_EVERY,
+          "snapshot_s": flush_phases["snapshot"],
+          "snapshot_gb_per_s": rate(flush_phases["snapshot"]),
+          "serialize_commit_s": background,
+          "serialize_commit_gb_per_s": rate(background),
+          "sigterm": sigterm, "grace_period_s": CKPT_GRACE_S,
+          "restore": {"source": restore["source"], "step": restore["step"],
+                      "lost_steps": restore["lost_steps"], "seconds": restore["seconds"],
+                      "phases_s": restore["phases_s"],
+                      "gb_per_s": rate(restore["seconds"])},
+          "mttr_s": mttr, "mttr_parts": mttr_parts,
+          "restore_crc_readback_s": crc["seconds"],
+          "crc": {"leaves": len(man_crc), "equal": len(man_crc) - len(bad)},
+          "dcp": {"save_s": dcp_d["seconds"], "save_gb_per_s": rate(dcp_d["seconds"]),
+                  "load_params_s": served["load_s"],
+                  "load_params_gb_per_s": served["params_bytes"] / served["load_s"] / 1e9},
+          "seconds": {"c": sigterm_s, "d": restore_run_s, "e": served["seconds"]},
+          "card": card})
     emit({"phase": "launcher", "exit_codes": codes,
           "mesh_check": smoke[0], "train_model": "llama3_8b",
           "train_layers": LAUNCHER_LAYERS, "train_steps": LAUNCHER_STEPS,
@@ -1824,8 +2171,10 @@ def _phase_launcher(torch, card, train_tracer_ms, tmp):
           "k1_k3_launches_in_child_computed": LAUNCHER_LAYERS * LAUNCHER_STEPS,
           "tracer_overhead_ms_per_step_in_process": train_tracer_ms,
           "seconds": {"mesh": mesh_s, "train": train_s, "sigterm": sigterm_s,
+                      "restore": restore_run_s,
                       "phase": time.perf_counter() - t_phase},
           "card": card})
+    return served["launches"]
 
 
 def _profile_train_step(torch, run):
@@ -1935,6 +2284,10 @@ def _profile_train_step(torch, run):
 def main() -> None:
     import torch
 
+    # ``--only=launcher``: the build and the launcher phase alone (a
+    # debugging aid; it ends with a ``partial`` line, not the ``ok`` one)
+    only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
+
     if not torch.cuda.is_available():
         fail("no CUDA device visible to torch")
     try:
@@ -1967,6 +2320,10 @@ def main() -> None:
                     "libs": [str(p.name) for p in paths.values()],
                     "ptxas": ptxas}})
 
+    if only == ["launcher"]:
+        restored = phase_launcher(torch, attn, card, None)
+        emit({"partial": only, "launches_restored_serving": restored})
+        return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1 = phase_flash(torch, attn, _kernels, gen)
@@ -1975,11 +2332,11 @@ def main() -> None:
     k5 = phase_decode_q8(torch, attn, _kernels, gen)
     serving = phase_serving(torch, attn, card)
     train, tracer_ms = phase_train(torch, attn, card)
-    phase_launcher(torch, card, tracer_ms)
+    restored = phase_launcher(torch, attn, card, tracer_ms)
     serving_int8 = phase_serving_int8(torch, attn, card)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
-                + serving_int8["flash_fwd"],
-                "decode_attn": serving["decode_attn"],
+                + serving_int8["flash_fwd"] + restored["flash_fwd"],
+                "decode_attn": serving["decode_attn"] + restored["decode_attn"],
                 "decode_attn_q8": serving_int8["decode_attn_q8"],
                 "flash_bwd_dq": train["flash_bwd_dq"],
                 "flash_bwd_dkv": train["flash_bwd_dkv"]}
@@ -1990,6 +2347,7 @@ def main() -> None:
                 "launches_serving": serving.get(name, 0),
                 "launches_train": train.get(name, 0),
                 "launches_serving_int8": serving_int8.get(name, 0),
+                "launches_restored_serving": restored.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

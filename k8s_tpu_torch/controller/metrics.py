@@ -1,10 +1,12 @@
 """Prometheus-style counters, gauges and histograms with the text
 exposition (the port's copy of ``k8s_tpu/controller/metrics.py``: the
 registry classes, and of the JAX package's series only those the
-program side sets — the checkpoint-restore gauge the training program's
-``compile`` phase reports, and the device-memory gauges of the obs
-endpoint). Same names, help text and exposition format, so the series
-catalogue of ``docs/OBSERVABILITY.md`` covers them. The operator's own
+program side sets — the ``ktpu_ckpt_*`` checkpoint series (goodput,
+restore and save seconds by phase, lost steps, skipped saves; the
+training program's ``compile`` phase reports into the restore gauge),
+and the device-memory gauges of the obs endpoint). Same names, help
+text and exposition format, so the series catalogue of
+``docs/OBSERVABILITY.md`` covers them. The operator's own
 series stay with the operator.
 """
 
@@ -210,11 +212,47 @@ class Registry:
 
 # process-global registry, served at /metrics by the obs endpoint
 REGISTRY = Registry()
+# Multi-tier checkpoint goodput (k8s_tpu_torch/ckpt): the JAX
+# package's series, same names and help text.
+CKPT_RESTORES = REGISTRY.counter(
+    "ktpu_ckpt_restores_total",
+    "Checkpoint restores, by source tier (local / local+peer / persistent)",
+)
+CKPT_LOST_STEPS = REGISTRY.counter(
+    "ktpu_ckpt_lost_steps_total",
+    "Train steps lost to restarts (progress past the restored step)",
+)
+CKPT_LOST_STEPS_PER_RESTART = REGISTRY.gauge(
+    "ktpu_ckpt_lost_steps_per_restart",
+    "Mean steps lost per restart since process start",
+)
+CKPT_LOCAL_SAVES = REGISTRY.counter(
+    "ktpu_ckpt_local_saves_total",
+    "Local-tier snapshot commits",
+)
+CKPT_OVERHEAD_FRACTION = REGISTRY.gauge(
+    "ktpu_ckpt_overhead_fraction",
+    "Fraction of loop wall-clock spent in checkpoint saves",
+)
 CKPT_RESTORE_SECONDS = REGISTRY.gauge(
     "ktpu_ckpt_restore_seconds",
     "Wall seconds of the last restore, by phase (plan / fetch / device "
     "/ total; compile = the first post-restore step incl. XLA compile) "
     "— the MTTR breakdown, docs/CHECKPOINT.md 'Restore critical path'",
+)
+CKPT_SAVE_SECONDS = REGISTRY.gauge(
+    "ktpu_ckpt_save_seconds",
+    "Wall seconds of the last save, by phase (snapshot = the step-"
+    "critical-path parallel device-to-host staging; serialize / commit "
+    "= the background writer/committer legs, which overlap training) — "
+    "docs/CHECKPOINT.md 'Save critical path'",
+)
+CKPT_SAVE_SKIPPED = REGISTRY.counter(
+    "ktpu_ckpt_save_skipped_total",
+    "Routed checkpoint saves skipped because the previous save was "
+    "still committing in the background, by reason (writer_busy = "
+    "local tier, committer_busy = persistent tier) — the visible cost "
+    "of a save interval tighter than the disk/store can drain",
 )
 # Device HBM gauges, exported by every process that serves an
 # obs/metrics endpoint. Empty on backends that don't report (CPU).

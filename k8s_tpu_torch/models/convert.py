@@ -88,6 +88,29 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
+    """``{name: shape}`` of a (training-layout, unquantized) Llama's
+    weights, keyed like ``named_parameters()``, in the order
+    :func:`init_params` draws them."""
+    e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    out = {"embed_tokens": (v, e)}
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        out[p + "input_norm.weight"] = (e,)
+        out[p + "attn.q_proj"] = (e, hd)
+        out[p + "attn.k_proj"] = (e, kvd)
+        out[p + "attn.v_proj"] = (e, kvd)
+        out[p + "attn.o_proj"] = (hd, e)
+        out[p + "post_attn_norm.weight"] = (e,)
+        out[p + "mlp.gate_proj"] = (e, f)
+        out[p + "mlp.up_proj"] = (e, f)
+        out[p + "mlp.down_proj"] = (f, e)
+    out["final_norm.weight"] = (e,)
+    out["lm_head"] = (e, v)
+    return out
+
+
 def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
                 dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """Random weights on ``device`` from a ``torch.Generator`` seeded with
@@ -95,38 +118,23 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
     standard deviations, scaled by sqrt(1 / fan_in) / 0.8796 — for the
     projections and lm_head, normal(0.02) for the embedding, ones for
     the norms), not flax's bits. Each tensor is drawn in f32 and stored
-    in ``dtype``, one at a time, so an 8B init peaks at one f32 tensor
-    above the ``dtype`` weights."""
+    in ``dtype``, one at a time, in :func:`param_shapes`' order, so an
+    8B init peaks at one f32 tensor above the ``dtype`` weights."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-
-    def lecun(fan_in: int, *shape):
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    out = {}
+    for name, shape in param_shapes(cfg).items():
+        if name.endswith("norm.weight"):
+            out[name] = torch.ones(shape, dtype=dtype, device=dev)
+            continue
         w = torch.empty(shape, dtype=torch.float32, device=dev)
-        torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                    generator=gen)
-        return w.to(dtype)
-
-    def ones(n: int):
-        return torch.ones(n, dtype=dtype, device=dev)
-
-    emb = torch.empty((v, e), dtype=torch.float32, device=dev)
-    out = {"embed_tokens": emb.normal_(0.0, 0.02, generator=gen).to(dtype)}
-    del emb
-    for i in range(cfg.num_layers):
-        p = f"layers.{i}."
-        out[p + "input_norm.weight"] = ones(e)
-        out[p + "attn.q_proj"] = lecun(e, e, hd)
-        out[p + "attn.k_proj"] = lecun(e, e, kvd)
-        out[p + "attn.v_proj"] = lecun(e, e, kvd)
-        out[p + "attn.o_proj"] = lecun(hd, hd, e)
-        out[p + "post_attn_norm.weight"] = ones(e)
-        out[p + "mlp.gate_proj"] = lecun(e, e, f)
-        out[p + "mlp.up_proj"] = lecun(e, e, f)
-        out[p + "mlp.down_proj"] = lecun(f, f, e)
-    out["final_norm.weight"] = ones(e)
-    out["lm_head"] = lecun(e, e, v)
+        if name == "embed_tokens":
+            w.normal_(0.0, 0.02, generator=gen)
+        else:  # lecun-normal over the input axis
+            std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                        generator=gen)
+        out[name] = w.to(dtype)
+        del w
     return out

@@ -1,13 +1,10 @@
 """Program scaffolding of the port: run-config parsing, the preemption
-flags, the tracer and the per-host obs endpoint every training program
+contract (the launcher's flags and :func:`maybe_preempt_exit`, the
+checkpoint flush on SIGTERM), the one checkpoint-manager construction
+path, the tracer and the per-host obs endpoint every training program
 shares, the env-gated loop profiler, and the step-metrics logger (own
-copies of the JAX-free helpers in ``k8s_tpu/programs/common.py``, so the
-port imports nothing of it).
-
-``maybe_preempt_exit`` (a checkpoint flush on SIGTERM) comes with the
-port's checkpoint manager; until then SIGTERM ends a program through
-the launcher's handler, as it does for a JAX program that is not
-preempt-aware."""
+copies of ``k8s_tpu/programs/common.py``'s helpers, so the port imports
+nothing of it)."""
 
 from __future__ import annotations
 
@@ -38,8 +35,48 @@ def preempt_requested() -> bool:
 
 def mark_preempt_aware() -> None:
     """Tell the launcher's SIGTERM handler this program will USE the
-    grace period (drain, then exit) instead of exiting immediately."""
+    grace period (flush or drain, then exit) instead of exiting
+    immediately. Call once, before the loop, iff the program can."""
     os.environ["KTPU_PREEMPT_AWARE"] = "1"
+
+
+def maybe_preempt_exit(mgr, rdzv, step: int, state, unhealthy=None) -> None:
+    """The per-step preemption contract of every training program: on a
+    gang-wide preemption verdict — ``mgr.reached_preemption(step)`` (an
+    ``all_reduce(MAX)`` of the flag over the process group) when
+    distributed, the launcher's SIGTERM flag in one process — flush a
+    checkpoint of ``state`` (the flat tree) at the CURRENT step, print
+    ``preempt_checkpoint``, dump the flight recorder and exit 143
+    (retryable), so the gang restart resumes here instead of at the last
+    periodic save. A no-op when ``mgr`` is None.
+
+    ``unhealthy`` (optional callable, evaluated ONLY on a positive
+    verdict — it syncs the device) gates the flush: a diverged gang
+    being preempted must not write its NaN state as the newest
+    checkpoint (``preempt_skip_unhealthy``); the exit still happens."""
+    if mgr is None:
+        return
+    preempted = (mgr.reached_preemption(step)
+                 if getattr(rdzv, "num_processes", 1) > 1
+                 else preempt_requested())
+    if not preempted:
+        return
+    if unhealthy is not None and unhealthy():
+        print(json.dumps({"event": "preempt_skip_unhealthy",
+                          "step": step}), flush=True)
+        mgr.wait()
+        mgr.close()
+    else:
+        mgr.save(step, state, force=True)
+        mgr.wait()
+        mgr.close()
+        print(json.dumps({"event": "preempt_checkpoint", "step": step}),
+              flush=True)
+    # the flight recorder's final spans land next to the flushed step
+    from k8s_tpu_torch.obs.trace import dump_default
+
+    dump_default("preempt")
+    raise SystemExit(143)
 
 
 def parse_run_config(rdzv, defaults: Optional[dict] = None) -> RunConfig:
@@ -72,6 +109,93 @@ def parse_run_config(rdzv, defaults: Optional[dict] = None) -> RunConfig:
             except ValueError:
                 pass
     return cfg
+
+
+def _gang_hooks(rdzv):
+    """``(barrier, consensus)`` of a multi-process run, over the process
+    group: ``barrier(step)`` meets the gang before a local commit (on a
+    gloo group of its own, since the local tier's writer thread calls it
+    beside the training thread's collectives), ``consensus(step)`` is
+    the ``all_reduce(MIN)`` of the planned restore step. ``(None,
+    None)`` in one process."""
+    import torch.distributed as dist
+
+    if getattr(rdzv, "num_processes", 1) <= 1 or not (
+            dist.is_available() and dist.is_initialized()):
+        return None, None
+    from k8s_tpu_torch.train.checkpoint import gang_reduce
+
+    group = dist.new_group(backend="gloo")
+
+    def barrier(step: int) -> None:
+        dist.barrier(group=group)
+
+    return barrier, lambda step: gang_reduce(step, "min")
+
+
+def build_checkpoint_manager(cfg: RunConfig, rdzv):
+    """The one checkpoint-construction path every training program
+    shares: a :class:`k8s_tpu_torch.ckpt.MultiTierCheckpointManager`
+    when the job's checkpointPolicy enables the local tier
+    (``KTPU_CKPT_LOCAL_DIR``), else the plain persistent manager on
+    ``cfg.checkpoint_dir``, else None. Returns ``(mgr, server)``.
+
+    Host identity is the process id; the control replica (process_id <
+    0) never checkpoints. With ``KTPU_CKPT_PEER_PORT`` the host also
+    serves its local tier on the REST shard wire (``server``, else
+    None). ``KTPU_CKPT_RESTORE_MAX_STEP`` is the restore ceiling of both
+    kinds. In a multi-process run the gang's local commits meet at a
+    barrier and the restore step is agreed by an ``all_reduce(MIN)``;
+    process 0 alone writes the persistent tier."""
+    if getattr(rdzv, "process_id", 0) < 0:
+        return None, None
+    host_id = max(0, getattr(rdzv, "process_id", 0))
+    if os.environ.get("KTPU_CKPT_LOCAL_DIR"):
+        from k8s_tpu_torch.ckpt import MultiTierCheckpointManager, PeerShardServer
+        from k8s_tpu_torch.ckpt.manager import CheckpointPolicy
+
+        policy = CheckpointPolicy.from_env()
+        env_dir = os.environ.get("KTPU_CKPT_DIR", "")
+        if cfg.checkpoint_dir and cfg.checkpoint_dir != env_dir:
+            # an EXPLICIT --checkpoint_dir (it differs from the policy
+            # env, so it is not parse_run_config's fallback) overrides
+            # the spec's persistent tier — program args win
+            policy.persistent_dir = cfg.checkpoint_dir
+            policy.persistent_interval_steps = (
+                cfg.checkpoint_every or policy.persistent_interval_steps)
+        elif not policy.persistent_dir and cfg.checkpoint_dir:
+            policy.persistent_dir = cfg.checkpoint_dir
+            policy.persistent_interval_steps = cfg.checkpoint_every
+        barrier, consensus = _gang_hooks(rdzv)
+        mgr = MultiTierCheckpointManager(
+            policy, host_id=host_id, barrier=barrier, consensus=consensus,
+            gang_consistent=getattr(rdzv, "num_processes", 1) > 1,
+        )
+        server = None
+        try:
+            peer_port = int(os.environ.get("KTPU_CKPT_PEER_PORT", "0") or 0)
+        except ValueError:
+            peer_port = 0
+        if peer_port and mgr.local is not None:
+            server = PeerShardServer(mgr.local, port=peer_port).start()
+            print(json.dumps({"event": "ckpt_peer_server",
+                              "host": host_id, "port": server.port}),
+                  flush=True)
+        return mgr, server
+    if cfg.checkpoint_dir:
+        from k8s_tpu_torch.train.checkpoint import CheckpointManager
+
+        try:
+            max_restore = int(
+                os.environ.get("KTPU_CKPT_RESTORE_MAX_STEP", "") or -1)
+        except ValueError:
+            max_restore = -1
+        return CheckpointManager(
+            cfg.checkpoint_dir,
+            max_restore_step=max_restore if max_restore >= 0 else None,
+            writer=host_id == 0,
+        ), None
+    return None, None
 
 
 def build_tracer(rdzv):

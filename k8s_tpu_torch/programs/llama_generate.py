@@ -10,15 +10,19 @@ Run config (``KTPU_PROGRAM_ARGS``):
   --temperature=F          0 = greedy (default)
   --steps=N                generation rounds (default 3)
   --seed=N                 weight-init seed (default 0)
+  --layers=N               layer count (default: the model's)
   --device=cuda|cpu        default: the rendezvous' ``device`` (cuda
                            unless KTPU_FORCE_PLATFORM=cpu); raises
                            without a card
   --quant=int8_serving     weight-only int8 (projections, MLP, lm_head)
   --kv_quant=int8          int8 KV cache with per-row scales
+  --checkpoint_dir=DIR     serve the trained weights of the newest step
+                           of a persistent-tier (DCP) directory written
+                           by ``llama_train`` (same model and layers);
+                           an empty or missing directory raises
 
-Weights are random from ``--seed`` and cast to bf16 (then quantized with
-``--quant=int8_serving``); restoring a checkpoint comes in a later
-slice, so a non-empty ``checkpoint_dir`` raises. Prints one JSON line
+Weights are the checkpoint's, or random from ``--seed``, cast to bf16
+(then quantized with ``--quant=int8_serving``). Prints one JSON line
 per round with tokens/sec.
 """
 
@@ -32,7 +36,7 @@ import torch
 
 from k8s_tpu_torch import resolve_device
 from k8s_tpu_torch.models import LlamaConfig, LlamaForCausalLM, generate
-from k8s_tpu_torch.models.convert import init_params
+from k8s_tpu_torch.models.convert import init_params, param_shapes
 from k8s_tpu_torch.ops.quant import quantize_params_for_serving
 from k8s_tpu_torch.programs.common import parse_run_config
 
@@ -51,9 +55,13 @@ def decode_model_config(model_name: str, max_seq: int, extra: dict,
     continuous-batching server.
     ``ragged=True`` enables per-row cache depths (the engine's slot
     contract); ``--kv_quant`` picks the cache (``none`` bf16, ``int8``).
-    The port serves the unrolled layout."""
+    The port serves the unrolled layout. ``--layers`` cuts the depth
+    (default: the model's; a checkpoint of ``llama_train --layers=N``
+    needs the same N)."""
     common = dict(ragged_decode=ragged, decode=True,
                   kv_quant=extra.get("kv_quant", "none"))
+    if "layers" in extra:
+        common["num_layers"] = int(extra["layers"])
     if model_name == "llama3-8b":
         return LlamaConfig.llama3_8b(max_seq_len=max_seq, **common)
     # the JAX package's tiny serving layout (llama_train's head layout)
@@ -61,24 +69,45 @@ def decode_model_config(model_name: str, max_seq: int, extra: dict,
                             num_kv_heads=4, head_dim=16, **common)
 
 
+def restore_decode_params(lcfg: LlamaConfig, checkpoint_dir: str,
+                          device) -> dict:
+    """The ``params/<name>`` leaves of the newest step of a persistent
+    (DCP) checkpoint, restored straight into bf16 tensors on ``device``
+    (each f32 weight rounded by the copy; the optimizer moments are not
+    read). Raises ``FileNotFoundError`` when the directory holds no
+    step: an inference job pointed at an empty checkpoint must fail,
+    not serve random weights."""
+    from k8s_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(checkpoint_dir)
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint found under {checkpoint_dir}")
+    params = {name: torch.empty(shape, dtype=torch.bfloat16, device=device)
+              for name, shape in param_shapes(lcfg).items()}
+    mgr.restore_params(params, step=step)
+    return params
+
+
 def load_decode_params(lcfg: LlamaConfig, checkpoint_dir: str = "",
                        seed: int = 0, device="cuda",
                        quant: str = "") -> LlamaForCausalLM:
-    """A decode model on ONE device with random weights from ``seed``,
-    every f32 parameter cast to bf16 (decode re-reads every weight each
-    step, so f32 masters would double its bandwidth-bound time). With
-    ``quant="int8_serving"`` the model is built in that layout and each
-    projection is quantized where it lies, one tensor at a time, so an
-    8B load peaks near the bf16 weights plus one f32 tensor."""
-    if checkpoint_dir:
-        raise NotImplementedError(
-            f"checkpoint_dir={checkpoint_dir!r}: checkpoint restore is not "
-            "ported yet; serve random weights with an empty checkpoint_dir")
+    """A decode model on ONE device: the weights of the persistent
+    checkpoint under ``checkpoint_dir`` (no random init runs), or random
+    from ``seed``; every f32 parameter as bf16 (decode re-reads every
+    weight each step, so f32 masters would double its bandwidth-bound
+    time). With ``quant="int8_serving"`` the model is built in that
+    layout and each projection is quantized where it lies, one tensor at
+    a time, so an 8B load peaks near the bf16 weights plus one f32
+    tensor."""
     if quant not in ("", "none", "int8_serving"):
         raise ValueError(f"unknown quant {quant!r}; expected "
                          "'int8_serving' or none")
     dev = resolve_device(device)
-    params = init_params(lcfg, seed, dev, dtype=torch.bfloat16)
+    if checkpoint_dir:
+        params = restore_decode_params(lcfg, checkpoint_dir, dev)
+    else:
+        params = init_params(lcfg, seed, dev, dtype=torch.bfloat16)
     if quant == "int8_serving":
         lcfg = dataclasses.replace(lcfg, quant="int8_serving")
         for name in list(params):  # each bf16 weight freed as it goes

@@ -31,11 +31,33 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
   --device=cuda|cpu         default: the rendezvous' ``device`` (cuda
                             unless KTPU_FORCE_PLATFORM=cpu); raises
                             without a card
+  --checkpoint_dir=DIR      persistent tier (DCP) directory (or the
+                            operator's KTPU_CKPT_DIR)
+  --checkpoint_every=N      persistent save interval (plain persistent
+                            manager; KTPU_CKPT_PERSIST_EVERY)
+  --restore_crc=0|1         after a restore, read every leaf back from
+                            the device and print its crc32
+                            (``restore_crc``: the check that the state
+                            is bit-equal to what was saved)
+
+Checkpointing (the JAX program's): ``KTPU_CKPT_LOCAL_DIR`` and
+``KTPU_CKPT_LOCAL_EVERY`` turn on the multi-tier manager (local tier
+every N steps, ``KTPU_CKPT_LOCAL_KEEP`` kept, the persistent tier on
+``KTPU_CKPT_DIR``/``--checkpoint_dir`` every ``KTPU_CKPT_PERSIST_EVERY``
+steps and at the end; ``KTPU_CKPT_SAVE_BUFFER_BYTES``,
+``KTPU_CKPT_RESTORE_*``, ``KTPU_CKPT_PEER_PORT``/``KTPU_CKPT_PEERS``);
+a ``--checkpoint_dir`` alone the plain persistent manager. With either,
+the state restores before the loop (``restored``), every step ends with
+the preemption poll (SIGTERM → flush at the current step,
+``preempt_checkpoint``, exit 143), the routed saves run inside the
+``ckpt_save`` phase, and the end force-saves (``ckpt_goodput`` with the
+multi-tier manager, whose goodput block also rides the obs heartbeat as
+``ckpt``).
 
 Weights are random from seed 0 (f32 masters, bf16 compute).
 Options of later slices raise: a ``--strategy`` other than ``dp``,
-``--zero_stage``/``--zero1``, ``--checkpoint_dir``, ``--latency_hiding``,
-``--num_experts``, ``--quant``.
+``--zero_stage``/``--zero1``, ``--latency_hiding``, ``--num_experts``,
+``--quant``.
 
 The loop runs the JAX program's runtime: every step inside a
 :meth:`~k8s_tpu_torch.obs.trace.Tracer.step` span with phases
@@ -48,10 +70,13 @@ gated on the tracer being on); the per-host obs endpoint under
 (``KTPU_CHAOS_NAN_GRAD``); ``KTPU_PROFILE_DIR``'s loop profile.
 
 Events (JSON lines): ``mesh`` (dp 1), ``obs_ready`` (with an obs
-endpoint), ``compile_phase``, the step/loss lines of
+endpoint), ``ckpt_restore`` and ``restored`` (after a restore),
+``compile_phase``, the step/loss lines of
 :class:`~k8s_tpu_torch.programs.common.MetricLogger`, ``step_health``
 and ``step_phases`` at each log point, ``chaos_nan_grad`` at a poisoned
-step, and ``convergence`` at the end. :func:`main` returns a summary
+step, ``preempt_checkpoint`` on a preemption flush,
+``ckpt_persistent_save`` (the persistent tier's last save seconds),
+``ckpt_goodput`` and ``convergence`` at the end. :func:`main` returns a summary
 (first and final loss, per-step wall times, the ``step_phases`` events,
 the compile seconds, the tracer, and the state, step function and a
 batch source for a caller that goes on measuring).
@@ -61,6 +86,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 
@@ -74,7 +100,10 @@ from k8s_tpu_torch.obs.health import consume_nan_grad, nan_grad_armed
 from k8s_tpu_torch.ops.fused_ce import fused_lm_head_cross_entropy
 from k8s_tpu_torch.programs.common import (
     MetricLogger,
+    build_checkpoint_manager,
     build_tracer,
+    mark_preempt_aware,
+    maybe_preempt_exit,
     maybe_profile,
     parse_run_config,
     start_obs_server,
@@ -83,7 +112,10 @@ from k8s_tpu_torch.programs.llama_generate import default_model
 from k8s_tpu_torch.train import (
     create_train_state,
     cross_entropy_loss,
+    init_optimizer_state,
+    load_state_tree,
     make_train_step,
+    state_tree,
 )
 
 Z_LOSS = 1e-4
@@ -110,10 +142,6 @@ def _check_unported(cfg, extra) -> None:
         if val not in off:
             raise NotImplementedError(
                 f"{key}={val!r} is not ported to k8s_tpu_torch yet")
-    if cfg.checkpoint_dir:
-        raise NotImplementedError(
-            f"checkpoint_dir={cfg.checkpoint_dir!r}: checkpointing is not "
-            "ported yet")
 
 
 def model_config(model_name: str, extra: dict) -> LlamaConfig:
@@ -131,6 +159,28 @@ def model_config(model_name: str, extra: dict) -> LlamaConfig:
         lcfg = dataclasses.replace(lcfg, remat=True,
                                    remat_policy=extra["remat_policy"])
     return lcfg
+
+
+def _unhealthy_state(health_enabled: bool, metrics) -> bool:
+    """True when the LAST step's health block says the state is
+    poisoned (non-finite gradients or loss) — the checkpoint-save gate.
+    Reads two device scalars, so callers ask only on steps that would
+    write. False without the health block."""
+    if not health_enabled or not metrics:
+        return False
+    return (float(metrics["nonfinite_grads"]) > 0
+            or not math.isfinite(float(metrics["loss"])))
+
+
+def _restore_crc(tree) -> dict:
+    """crc32 of every leaf of ``tree`` as read back from its device, in
+    the local tier's byte vocabulary (the manifest's crc of the same
+    leaf when the state is bit-equal to the checkpoint)."""
+    from k8s_tpu_torch.ckpt.local import _leaf_paths
+    from k8s_tpu_torch.ckpt.pipeline import crc32_array, to_numpy
+
+    return {path: crc32_array(to_numpy(t.detach().cpu()))
+            for path, t in _leaf_paths(tree)}
 
 
 def _chaos_scaled(loss, batch):
@@ -177,11 +227,41 @@ def main(rdzv) -> dict:
                else synthetic_token_batches)
     data = data_fn(cfg.batch_size, seq_len, lcfg.vocab_size)
     fused_ce = extra.get("fused_ce", "1") not in ("0", "false")
+    # multi-tier when the job's checkpointPolicy enables the local tier
+    # (KTPU_CKPT_LOCAL_DIR), plain persistent otherwise, or None
+    mgr, peer_server = build_checkpoint_manager(cfg, rdzv)
+    multi_tier = hasattr(mgr, "note_step")
     # tracing + per-host obs endpoint: the tracer wraps every step in
     # phase spans (flight recorder + the heartbeat the reconciler's
-    # straggler detection reads); the obs server publishes them
+    # straggler detection reads); the obs server publishes them, with
+    # the checkpoint goodput block riding along under the multi-tier
+    # manager
     tracer = build_tracer(rdzv)
-    obs_server = start_obs_server(rdzv, tracer)
+    obs_server = start_obs_server(
+        rdzv, tracer,
+        extra_stats=(lambda: {"ckpt": mgr.goodput()}) if multi_tier
+        else None)
+    restore_crc = None
+    if mgr is not None:
+        # the template: AdamW's moments exist only after a step, so
+        # they are created (zeros) before a restore can fill them
+        init_optimizer_state(state)
+        restored = mgr.restore(state_tree(state))
+        if restored is not None:
+            load_state_tree(state, restored)
+            if extra.get("restore_crc", "0") not in ("0", "false"):
+                c0 = time.perf_counter()
+                crcs = _restore_crc(restored)
+                restore_crc = {"event": "restore_crc", "step": state.step,
+                               "crc": crcs,
+                               "seconds": round(time.perf_counter() - c0, 6)}
+                if lead:
+                    print(json.dumps(restore_crc), flush=True)
+            if lead:
+                # the resume marker (the multi-tier manager printed
+                # ckpt_restore with its source tier and lost steps)
+                print(json.dumps({"event": "restored", "step": state.step}),
+                      flush=True)
     # the in-step health block rides the trace gate, as in the JAX
     # program: spec observability.trace=false turns both off
     health = tracer.enabled and extra.get("health", "1") not in ("0", "false")
@@ -197,16 +277,31 @@ def main(rdzv) -> dict:
     def device_batch():
         return {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
 
-    # chaos nan-grad (KTPU_CHAOS_NAN_GRAD="<step>" or arm_nan_grad):
-    # once armed, a chaos_scale scalar rides every step's batch, NaN
-    # only at the armed step
-    chaos_nan_live = nan_grad_armed() is not None
+    # preemption contract: with checkpointing on, every step ends with
+    # the gang-wide poll; on a positive the state is flushed at the
+    # CURRENT step and the program exits 143 (maybe_preempt_exit)
+    if mgr is not None:
+        mark_preempt_aware()
+    start = state.step
+    # chaos nan-grad (KTPU_CHAOS_NAN_GRAD="<step>" or arm_nan_grad): the
+    # poison fires only on a FROM-SCRATCH run (a gang restarted from a
+    # pre-divergence checkpoint replays the poisoned step clean); once
+    # armed, a chaos_scale scalar rides every step's batch, NaN only at
+    # the armed step
+    chaos_nan_live = start == 0 and nan_grad_armed() is not None
     # losses stay device tensors in the loop: the host syncs only at log
     # points (and per step when --log_every=1)
     first_loss = final_loss = None
+    metrics = None  # the last step's (None until a step ran)
     step_s, phases, compile_s = [], [], None
+
+    def unhealthy_now() -> bool:
+        # the never-checkpoint-a-poisoned-state gate: the LAST step's
+        # health block, read only where a write would happen
+        return _unhealthy_state(health, metrics)
+
     with maybe_profile(rdzv, device):
-        for step in range(1, cfg.steps + 1):
+        for step in range(start + 1, cfg.steps + 1):
             t0 = time.perf_counter()
             log_point = step % cfg.log_every == 0 or step == cfg.steps
             with tracer.step(step) as st:
@@ -214,7 +309,8 @@ def main(rdzv) -> dict:
                     time.sleep(step_sleep)
                 with st.phase("data_wait"):
                     batch = device_batch()
-                chaos_nan_live = chaos_nan_live or nan_grad_armed() is not None
+                chaos_nan_live = chaos_nan_live or (
+                    start == 0 and nan_grad_armed() is not None)
                 if chaos_nan_live:
                     poison = consume_nan_grad(step)
                     batch["chaos_scale"] = torch.tensor(
@@ -222,7 +318,7 @@ def main(rdzv) -> dict:
                     if poison and lead:
                         print(json.dumps({"event": "chaos_nan_grad",
                                           "step": step}), flush=True)
-                if step == 1:
+                if step == start + 1:
                     # the first step: kernel builds and first-call setup
                     # dominate its wall, so it is its own `compile` phase,
                     # ended by a device sync (the block_until_ready of the
@@ -270,6 +366,24 @@ def main(rdzv) -> dict:
                                 **{k: round(v, 6) for k, v in
                                    health_block.items()},
                             }), flush=True)
+                if mgr is not None:
+                    tree = state_tree(state)
+                    maybe_preempt_exit(mgr, rdzv, step, tree,
+                                       unhealthy=unhealthy_now)
+                    if multi_tier:
+                        # the manager routes (local every
+                        # localIntervalSteps, persistent every
+                        # persistentIntervalSteps) and owns the
+                        # unhealthy gate; ckpt_save times only the
+                        # step-critical slice, the device→host
+                        # snapshot (serialize/commit run behind it)
+                        with st.phase("ckpt_save"):
+                            mgr.save(step, tree, unhealthy=unhealthy_now)
+                        mgr.note_step(step)
+                    elif cfg.checkpoint_every and \
+                            step % cfg.checkpoint_every == 0:
+                        with st.phase("ckpt_save"):
+                            mgr.save(step, tree, unhealthy=unhealthy_now)
             if log_point and lead and tracer.enabled:
                 # where this step's wall time went, next to the loss line
                 last = tracer.last_step()
@@ -281,25 +395,54 @@ def main(rdzv) -> dict:
                 phases.append(ev)
                 print(json.dumps(ev), flush=True)
             step_s.append(time.perf_counter() - t0)
+    goodput = None
+    if mgr is not None:
+        # the final force save rides the same gate: a diverged run must
+        # not overwrite the tiers with NaN state as its parting act
+        mgr.save(cfg.steps, state_tree(state), force=True,
+                 unhealthy=unhealthy_now)
+        mgr.wait()
+        persistent = mgr.persistent if multi_tier else mgr
+        if lead and persistent is not None \
+                and persistent.last_save_s is not None:
+            # the persistent tier's last write (the final one here)
+            print(json.dumps({"event": "ckpt_persistent_save",
+                              "step": max(persistent.all_steps()),
+                              "seconds": round(persistent.last_save_s, 6)}),
+                  flush=True)
+        if multi_tier:
+            goodput = mgr.goodput()
+            if lead:
+                print(json.dumps({"event": "ckpt_goodput", **goodput}),
+                      flush=True)
+        mgr.close()
+    if peer_server is not None:
+        peer_server.stop()
     tracer.flush("done")
     if obs_server is not None:
         obs_server.stop()
 
     summary = {"config": lcfg, "step_s": step_s, "step_phases": phases,
                "compile_s": compile_s, "tracer": tracer, "state": state,
-               "step_fn": step_fn, "next_batch": device_batch}
+               "step_fn": step_fn, "next_batch": device_batch,
+               "restored_step": start if mgr is not None and start else None,
+               "restore_crc": restore_crc, "ckpt_goodput": goodput}
     req = float(extra.get("require_convergence", "0"))
     if first_loss is None:
         return summary
     first_loss, final_loss = float(first_loss), float(final_loss)
     ratio = final_loss / max(first_loss, 1e-9)
     summary.update(first_loss=first_loss, final_loss=final_loss, ratio=ratio)
+    # the gate judges only runs that trained FROM SCRATCH: after a
+    # restore the first loss is the resume point's, already trained
+    gated = req and start == 0
     if lead:
         print(json.dumps({
             "event": "convergence", "first_loss": round(first_loss, 4),
             "final_loss": round(final_loss, 4), "ratio": round(ratio, 4),
+            **({"gate": "skipped_restored"} if req and not gated else {}),
         }), flush=True)
-    if req and final_loss >= req * first_loss:
+    if gated and final_loss >= req * first_loss:
         raise SystemExit(
             f"convergence gate failed: final loss {final_loss:.4f} not "
             f"< {req} x first loss {first_loss:.4f}")

@@ -4,7 +4,9 @@
 Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
   --model=tiny|llama3-8b    model size (default llama3-8b on cuda, tiny
                             on cpu: tiny's head_dim has no CUDA kernel)
-  --checkpoint_dir=...      must be empty: restore is not ported yet
+  --checkpoint_dir=...      serve the trained weights of a persistent
+                            (DCP) checkpoint of llama_train (empty or
+                            missing: FileNotFoundError)
   --max_seq_len=N           KV-cache depth per slot (default 256)
   --max_slots=N             static decode batch width (default 8)
   --decode_chunk=N          decode steps per host fetch (default 32)
@@ -25,6 +27,7 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
   --max_queue_depth=N       backpressure threshold for HTTP 429
                             (default KTPU_SERVING_MAX_QUEUE or 0 = off)
   --seed=N                  weight-init seed (default 0)
+  --layers=N                layer count (default: the model's)
   --device=cuda|cpu         default: the rendezvous' ``device`` (cuda
                             unless KTPU_FORCE_PLATFORM=cpu); raises
                             without a card
@@ -135,7 +138,7 @@ def main(rdzv) -> None:
         "max_queue_depth": max_queue_depth,
         "prefix_cache_tokens": 0, "role": "", "spec_decode_tokens": 0,
         "quant": quant or "none", "kv_quant": lcfg.kv_quant,
-        "restored": False,
+        "restored": bool(cfg.checkpoint_dir),
     }), flush=True)
     frontend.serve(should_stop=preempt_requested)
     print(json.dumps({

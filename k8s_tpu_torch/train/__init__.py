@@ -6,5 +6,8 @@ from k8s_tpu_torch.train.trainer_lib import (  # noqa: F401
     adamw,
     create_train_state,
     cross_entropy_loss,
+    init_optimizer_state,
+    load_state_tree,
     make_train_step,
+    state_tree,
 )

@@ -8,7 +8,8 @@ block. The optimizer is :func:`adamw`, ``optax.adamw(lr,
 weight_decay=0.1)``'s semantics in ``torch.optim.AdamW``.
 
 Eager PyTorch updates the state in place; ``run`` still returns it, as
-the JAX step returns the new state. Metric values stay device tensors
+the JAX step returns the new state. :func:`state_tree` is the state as
+the flat tree of tensors the checkpoint tiers save and restore. Metric values stay device tensors
 until the caller reads them (no host sync in the step). The mesh,
 ZeRO stages, latency hiding and compiler options of the JAX step are
 later slices.
@@ -57,6 +58,63 @@ def create_train_state(model: nn.Module, lr: float,
                          "(a decode config?)")
     return TrainState(step=0, model=model,
                       optimizer=adamw(params, lr, weight_decay))
+
+
+def init_optimizer_state(state: TrainState) -> None:
+    """Create AdamW's per-parameter state as its first step would — a
+    float32 ``step`` scalar on the CPU, and ``exp_avg``/``exp_avg_sq``
+    zeros like the parameter — for every parameter that has none yet.
+    The first update is the same either way; a checkpoint template needs
+    the tensors before any step has run."""
+    opt = state.optimizer
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state[p]
+            if not st:
+                st["step"] = torch.tensor(0.0, dtype=torch.float32)
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+
+def state_tree(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The state as the flat tree the checkpoint tiers save and restore:
+    ``step`` (an int64 scalar), ``params/<name>`` (the model's
+    ``named_parameters`` names) and ``opt/<name>/{exp_avg,exp_avg_sq,
+    step}``. Every tensor but ``step`` IS the live state (a detached
+    view of it), so a restore into this tree updates the model and the
+    optimizer in place. Call :func:`init_optimizer_state` first on a
+    state that has not stepped."""
+    tree = {"step": torch.tensor(int(state.step), dtype=torch.int64)}
+    names = {}
+    for name, p in state.model.named_parameters():
+        if p.requires_grad:
+            names[p] = name
+            tree[f"params/{name}"] = p.detach()
+    for p, st in state.optimizer.state.items():
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            if key in st:
+                tree[f"opt/{names[p]}/{key}"] = st[key]
+    return tree
+
+
+def load_state_tree(state: TrainState, tree: Dict[str, torch.Tensor]) -> None:
+    """Inverse of :func:`state_tree`: copy ``tree`` into the state (a
+    no-op for the tensors a restore already filled in place) and set
+    the step. The tree must name every tensor of ``state_tree(state)``
+    (initialize a fresh optimizer first)."""
+    own = state_tree(state)
+    if set(own) != set(tree):
+        raise ValueError(
+            f"state tree differs: missing {sorted(set(own) - set(tree))[:8]}, "
+            f"unexpected {sorted(set(tree) - set(own))[:8]}")
+    with torch.no_grad():
+        for key, dst in own.items():
+            src = tree[key]
+            if key != "step" and src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+    state.step = int(tree["step"])
 
 
 def cross_entropy_loss(

@@ -3,7 +3,12 @@
 their other launches on the same inputs, on one NVIDIA card.
 
 Builds the kernels once, then starts ``--children`` fresh processes,
-``--parallel`` of them at a time, on card 0. Each child draws
+``--parallel`` of them at a time, on card 0. Then ``--fresh`` more,
+one at a time, each in a copy of the package (``k8s_tpu_torch/``,
+``chip_smoke.py`` and this script) whose ``k8s_tpu_torch/build/`` is
+empty: such a child builds every kernel library in-process with
+``build_all`` and loads them before its first K1 launch, as
+``chip_smoke.py`` does in a fresh checkout. Each child draws
 chip_smoke.py's first K1 inputs (CUDA generator seeded 0; B 1, S 16,
 Hq 32, Hkv 8, D 128, causal) after loading every kernel library, as
 chip_smoke.py does, and holds the process's first K1 launch
@@ -16,6 +21,7 @@ chip_smoke's tolerance of the plain version. A disagreement is
 described by the query rows, heads and 64-row tiles it touches.
 
     python3 scripts/kernel_repeat_stress.py [--children 32] [--parallel 4] [--reps 1000]
+        [--fresh 0] [--fresh_reps 100]
 
 Prints one JSON line per child and a summary line (also written to
 ``chiprun_out/kernel_repeat_stress.json``); exits 1 if any launch
@@ -27,8 +33,10 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -50,20 +58,27 @@ def describe(got, first):
             "max_abs_diff": (got.float() - first.float()).abs().max().item()}
 
 
-def child(reps: int) -> dict:
+def child(reps: int, build: bool = False) -> dict:
     import torch
 
     import chip_smoke as cs
     from k8s_tpu_torch.ops import _kernels
     from k8s_tpu_torch.ops import attention as attn
 
+    built = None
+    if build:  # a fresh copy: nothing built yet, the build runs here
+        if _kernels.BUILD_DIR.exists() and any(_kernels.BUILD_DIR.glob("*.so")):
+            raise SystemExit(f"{_kernels.BUILD_DIR} is not empty")
+        t0 = time.perf_counter()
+        _kernels.build_all()
+        built = time.perf_counter() - t0
     for name in _kernels.KERNELS:  # every library loaded first, as chip_smoke.py does
         _kernels.lib(name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
     scale = 1.0 / D ** 0.5
-    out = {"faults": [], "first_launch": None, "launches": 0}
+    out = {"faults": [], "first_launch": None, "launches": 0, "build_s": built}
 
     def ref_err(o, lse, q, k, v):
         ref, ref_lse = attn.flash_fwd_plain(q.float(), k.float(), v.float(), True, scale)
@@ -125,10 +140,13 @@ def main() -> None:
     ap.add_argument("--children", type=int, default=32)
     ap.add_argument("--parallel", type=int, default=4)
     ap.add_argument("--reps", type=int, default=1000)
+    ap.add_argument("--fresh", type=int, default=0)
+    ap.add_argument("--fresh_reps", type=int, default=100)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.reps)), flush=True)
+        print(json.dumps(child(args.reps, args.build)), flush=True)
         return
 
     import torch
@@ -143,34 +161,61 @@ def main() -> None:
     print(card, flush=True)
     _kernels.build_all()
     t0 = time.perf_counter()
-    results, pending = [], list(range(args.children))
-    running = []
-    while pending or running:
-        while pending and len(running) < args.parallel:
-            i = pending.pop(0)
-            running.append((i, subprocess.Popen(
-                [sys.executable, __file__, "--child", "--reps", str(args.reps)],
-                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        i, proc = running.pop(0)
-        try:
-            so, se = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            so, se = proc.communicate()
-        line = so.strip().splitlines()[-1] if so.strip() else ""
-        try:
-            res = json.loads(line)
-        except json.JSONDecodeError:
-            res = {"faults": [{"where": "child crashed", "rc": proc.returncode,
-                               "stderr": se[-2000:]}], "launches": 0}
-        res["child"] = i
-        print(json.dumps(res), flush=True)
-        results.append(res)
+    results = []
+    # (index, cwd, argv extra, parallel) per child: the built checkout's
+    # children, then the fresh copies one at a time
+    jobs = [(i, ROOT, ["--reps", str(args.reps)]) for i in range(args.children)]
+    fresh_root = tempfile.mkdtemp(prefix="kernel-stress-fresh-") if args.fresh else None
+    try:
+        for j in range(args.fresh):
+            copy = pathlib.Path(fresh_root) / f"copy-{j}"
+            shutil.copytree(ROOT / "k8s_tpu_torch", copy / "k8s_tpu_torch",
+                            ignore=shutil.ignore_patterns("build", "__pycache__"))
+            (copy / "scripts").mkdir()
+            shutil.copy2(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
+            shutil.copy2(__file__, copy / "scripts" / "kernel_repeat_stress.py")
+            jobs.append((args.children + j, copy,
+                         ["--reps", str(args.fresh_reps), "--build"]))
+        running, pending = [], list(jobs)
+        while pending or running:
+            while pending and len(running) < (
+                    args.parallel if pending[0][0] < args.children else 1):
+                i, cwd, extra = pending.pop(0)
+                running.append((i, cwd, subprocess.Popen(
+                    [sys.executable, str(pathlib.Path(cwd) / "scripts" /
+                                         "kernel_repeat_stress.py"), "--child", *extra],
+                    cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            i, cwd, proc = running.pop(0)
+            try:
+                so, se = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                so, se = proc.communicate()
+            line = so.strip().splitlines()[-1] if so.strip() else ""
+            try:
+                res = json.loads(line)
+            except json.JSONDecodeError:
+                res = {"faults": [{"where": "child crashed", "rc": proc.returncode,
+                                   "stderr": se[-2000:]}], "launches": 0}
+            res["child"] = i
+            res["fresh"] = cwd != ROOT
+            print(json.dumps(res), flush=True)
+            results.append(res)
+    finally:
+        if fresh_root:
+            shutil.rmtree(fresh_root, ignore_errors=True)
     faults = sum(len(r["faults"]) for r in results)
+    fresh = [r for r in results if r["fresh"]]
     summary = {"card": card, "children": args.children, "parallel": args.parallel,
                "reps": args.reps, "launches": sum(r["launches"] for r in results),
                "faulty_children": sum(1 for r in results if r["faults"]),
-               "faults": faults, "seconds": time.perf_counter() - t0}
+               "faults": faults,
+               "fresh_children": len(fresh),
+               "fresh_faulty_children": sum(1 for r in fresh if r["faults"]),
+               "fresh_first_launch_rel_err": [
+                   (r.get("first_launch") or {}).get("rel_err") for r in fresh],
+               "fresh_build_s": [r.get("build_s") for r in fresh],
+               "seconds": time.perf_counter() - t0}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "kernel_repeat_stress.json").write_text(
         json.dumps({"summary": summary, "children": results}, indent=1))

@@ -248,7 +248,12 @@ def test_port_series_are_documented():
             if not f.is_relative_to(_kernels.BUILD_DIR)
             for name in jax_lint._REGISTER_RE.findall(f.read_text())}
     assert ours == {"ktpu_ckpt_restore_seconds", "ktpu_obs_hbm_bytes_in_use",
-                    "ktpu_obs_hbm_bytes_peak", "ktpu_obs_hbm_bytes_limit"}
+                    "ktpu_obs_hbm_bytes_peak", "ktpu_obs_hbm_bytes_limit",
+                    # the checkpoint manager's series
+                    "ktpu_ckpt_restores_total", "ktpu_ckpt_lost_steps_total",
+                    "ktpu_ckpt_lost_steps_per_restart",
+                    "ktpu_ckpt_local_saves_total", "ktpu_ckpt_overhead_fraction",
+                    "ktpu_ckpt_save_seconds", "ktpu_ckpt_save_skipped_total"}
     assert ours <= jax_lint.documented_series()
 
 

@@ -219,7 +219,8 @@ def test_frontend_backpressure_429(fixture):
         fe.drain()
 
 
-def test_program_main_cpu_emits_ready_and_drains(monkeypatch, capsys):
+def test_program_main_cpu_emits_ready_and_drains(monkeypatch, capsys,
+                                                 tmp_path):
     """programs.serving.main with --device=cpu: builds the tiny model,
     prints serving_ready, and (preemption already requested) drains."""
     from k8s_tpu_torch.programs import serving as prog
@@ -241,9 +242,11 @@ def test_program_main_cpu_emits_ready_and_drains(monkeypatch, capsys):
         assert ready["prompt_buckets"] == [16, 32]
         assert (ready["quant"], ready["kv_quant"]) == (quant, kv_quant)
         assert any(e.get("event") == "serving_drained" for e in events)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    # a checkpoint dir with no committed step: the server must fail, not
+    # serve random weights
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         prog.main(types.SimpleNamespace(
-            program_args="--device=cpu --checkpoint_dir=/nonexistent"))
+            program_args=f"--device=cpu --checkpoint_dir={tmp_path}"))
 
 
 def test_llama_generate_main_cpu(capsys):

@@ -55,6 +55,7 @@ from k8s_tpu_torch.train import (
     adamw,
     create_train_state,
     make_train_step,
+    state_tree,
 )
 
 torch.set_num_threads(2)
@@ -393,12 +394,46 @@ def test_llama_train_program_converges_on_cpu(capsys):
 @pytest.mark.parametrize("args,match", [
     ("--strategy=fsdp", "strategy"), ("--zero1=1", "zero1"),
     ("--zero_stage=2", "zero_stage"), ("--latency_hiding=1", "latency_hiding"),
-    ("--num_experts=4", "num_experts"), ("--quant=int8", "quant"),
-    ("--checkpoint_dir=/nonexistent", "checkpoint_dir")])
+    ("--num_experts=4", "num_experts"), ("--quant=int8", "quant")])
 def test_llama_train_unported_options_raise(args, match):
     with pytest.raises(NotImplementedError, match=match):
         llama_train.main(types.SimpleNamespace(
             process_id=0, program_args=f"--device=cpu --steps=1 {args}"))
+
+
+def test_llama_train_checkpoint_dir_saves_and_resumes(tmp_path, monkeypatch,
+                                                      capsys):
+    """--checkpoint_dir (the plain persistent manager, DCP): a run saves
+    every --checkpoint_every steps; a restart restores the newest step
+    bit-equal (the restored state IS the saved one: the restart asked
+    for no further step) and then trains on from it."""
+    for key in ("KTPU_CKPT_LOCAL_DIR", "KTPU_CKPT_DIR", "KTPU_PREEMPT_REQUESTED"):
+        monkeypatch.delenv(key, raising=False)
+    base = (f"--device=cpu --model=tiny --batch_size=2 --seq_len=16 "
+            f"--log_every=2 --checkpoint_dir={tmp_path} --checkpoint_every=2")
+
+    def run(steps):
+        out = llama_train.main(types.SimpleNamespace(
+            process_id=0, program_args=f"{base} --steps={steps}"))
+        events = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+                  if line.startswith('{"event"')]
+        return out, events
+
+    first, events = run(4)
+    assert not [e for e in events if e["event"] == "restored"]
+    assert sorted(int(d.name) for d in tmp_path.iterdir() if d.name.isdigit()) == [2, 4]
+    saved = {k: v.clone() for k, v in
+             state_tree(first["state"]).items()}
+    again, events = run(4)
+    assert [e for e in events if e["event"] == "restored"] == [
+        {"event": "restored", "step": 4}]
+    assert again["restored_step"] == 4 and again["state"].step == 4
+    restored = state_tree(again["state"])
+    assert set(restored) == set(saved)
+    assert all(torch.equal(restored[k], saved[k]) for k in saved)
+    on, events = run(6)
+    assert on["state"].step == 6
+    assert [e["step"] for e in events if e["event"] == "step_phases"] == [6]
 
 
 def test_llama_train_model_config_layers_and_remat():
