@@ -26,14 +26,21 @@ roofline bound), then drives the port's three main paths, in this order:
   required to fall; a gradient oracle (2 layers, batch 1) against a
   forward of its own through plain attention; step time, tokens/s, MFU,
   peak memory, the compile phase, the tracer's overhead, the median
-  step phases and one profiled step's device-time split;
+  step phases and one profiled step's device-time split (``--strategy=
+  dp``); then the same run with ``--strategy=fsdp`` at world size 1 on
+  the one-process NCCL group ``build_mesh`` joined, FSDP2 on every block
+  and the root: the backend and the wrapping checked, K1-K3 launched
+  layers x steps times, the first 3 losses against ``dp``'s, step time,
+  tokens/s, MFU and peak memory beside ``dp``'s, and the group's NCCL
+  init seconds;
 - the launcher: ``python -m k8s_tpu_torch.launcher.spmd_launcher`` as a
   child process: the mesh smoke check (exit 0); training at Llama-3-8B
   width, 2 layers, 6 steps, with the per-host obs endpoint polled
   mid-run (the ``/healthz`` heartbeat and its ``hbm`` block against the
   card's memory, the ``/metrics`` HBM series, a one-second
   ``/debug/profile`` holding CUDA kernels, the live flight recorder;
-  exit 0); the same run with the local checkpoint tier sent SIGTERM
+  exit 0; every training child runs ``--strategy=fsdp``, the default,
+  so its state is ``DTensor`` s); the same run with the local checkpoint tier sent SIGTERM
   after step 2 (the flush at the current step, exit 143, the flight
   recorder's dump on disk); a restart that restores the flushed step
   from the local tier bit-equal (every leaf's crc read back from the
@@ -50,6 +57,10 @@ roofline bound), then drives the port's three main paths, in this order:
   checked against a teacher-forced forward of the same int8 model, the
   compiled chunk checked and timed as above (cache scales included),
   and the bf16 model of the same seed compared for information.
+
+Before the first K1 check, every SM's shared memory is filled with NaN
+words (``poison_shared_memory``, ROADMAP C4), so that check's launch
+meets no bytes an earlier launch left.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path launched. A
@@ -144,6 +155,11 @@ GRAD_ORACLE_TOL = 5e-2
 # against another request's logits.
 ORACLE_Q8_LOGIT_TOL = 1.0
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 8, 10, 2048, 8
+# train_fsdp against dp at world size 1: the same gradients from the same
+# kernels and GEMMs (FSDP2 adds copies, a reduce-scatter over one rank and
+# a division by 1), so the first losses agree to f32 rounding of the
+# loss's sums
+FSDP_DP_LOSS_RTOL = 1e-4
 # the launcher phase's training child: Llama-3-8B width, 2 layers
 LAUNCHER_LAYERS, LAUNCHER_STEPS = 2, 6
 # its checkpoints. A full-state save is 17.85 GB and a run of this script
@@ -1497,7 +1513,7 @@ def phase_train(torch, attn, card):
     rdzv = Rendezvous({
         "KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
         "KTPU_PROGRAM_ARGS": (
-            f"--model=llama3-8b --layers={layers} --seq_len={TRAIN_SEQ} "
+            f"--strategy=dp --model=llama3-8b --layers={layers} --seq_len={TRAIN_SEQ} "
             f"--batch_size={TRAIN_BATCH} --steps={steps} --log_every=1 "
             "--remat_policy=flash --fused_ce=1 --lr=3e-4 --data=learnable")})
     if rdzv.device != "cuda":
@@ -1529,6 +1545,11 @@ def phase_train(torch, attn, card):
             or "compile" not in phases[0]["phases_ms"]:
         fail(f"train: step_phases {phases}")
     tracer_ms = 1e3 * run["tracer"].overhead_s / steps
+    dp = {"layers": layers, "losses": [l for _, l in run["losses"]],
+          "step_ms_median_3_10": step_ms, "tokens_per_s": tokens_per_s,
+          "mfu_6nd": 6 * n_params * tokens_per_s / PEAK_BF16_FLOPS,
+          "peak_mem_gb": peak / 1e9, "mesh_s": run["mesh_s"],
+          "backend": _backend()}
     profile = _profile_train_step(torch, run)
     emit({"phase": "train", "model": "llama3_8b", "layers": layers,
           "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "steps": steps,
@@ -1588,7 +1609,98 @@ def phase_train(torch, attn, card):
           "card": card})
     del model, port, ref
     torch.cuda.empty_cache()
-    return launches, tracer_ms
+    return launches, tracer_ms, dp
+
+
+def _backend():
+    import torch.distributed as dist
+
+    return dist.get_backend() if dist.is_initialized() else None
+
+
+def phase_train_fsdp(torch, attn, card, dp):
+    """``llama_train --strategy=fsdp`` through the launcher's API in
+    process, as :func:`phase_train` runs ``dp``: the same model, depth,
+    data, seed and steps, at world size 1 on the one-process NCCL group
+    that ``build_mesh`` joined (in the first training phase), FSDP2
+    ``fully_shard`` on every block and the root. Checks the backend, the
+    wrapping, K1-K3 launched layers x steps times each, the loss falling
+    and the first 3 losses within ``FSDP_DP_LOSS_RTOL`` of ``dp``'s (at
+    world size 1 both compute the same gradients); reports step time,
+    tokens/s, MFU and peak memory beside ``dp``'s, and the group's
+    NCCL init seconds."""
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+
+    from k8s_tpu_torch.launcher.spmd_launcher import Rendezvous, run_program
+    from k8s_tpu_torch.parallel import mesh as pmesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    layers, steps = dp["layers"], TRAIN_STEPS
+    rdzv = Rendezvous({
+        "KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
+        "KTPU_PROGRAM_ARGS": (
+            f"--strategy=fsdp --model=llama3-8b --layers={layers} "
+            f"--seq_len={TRAIN_SEQ} --batch_size={TRAIN_BATCH} --steps={steps} "
+            "--log_every=1 --remat_policy=flash --fused_ce=1 --lr=3e-4 "
+            "--data=learnable")})
+    attn.flash_fwd.launches = 0
+    attn.flash_bwd.launches_dq = attn.flash_bwd.launches_dkv = 0
+    t0 = time.perf_counter()
+    run = run_program(rdzv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": attn.flash_fwd.launches,
+                "flash_bwd_dq": attn.flash_bwd.launches_dq,
+                "flash_bwd_dkv": attn.flash_bwd.launches_dkv}
+    peak = torch.cuda.max_memory_allocated()
+    backend = dist.get_backend()
+    if backend != "nccl" or dist.get_world_size() != 1:
+        fail(f"train_fsdp: process group {backend!r} of "
+             f"{dist.get_world_size()} ranks, expected one NCCL rank")
+    state = run["state"]
+    blocks = list(state.model.layers)
+    wrapped = sum(isinstance(b, FSDPModule) for b in blocks)
+    if wrapped != len(blocks) or not isinstance(state.model, FSDPModule):
+        fail(f"train_fsdp: fully_shard wrapped {wrapped} of {len(blocks)} "
+             "blocks (and the root must be wrapped too)")
+    want = layers * steps
+    if set(launches.values()) != {want}:
+        fail(f"train_fsdp: kernel launches {launches}, expected {want} each")
+    ratio = run.get("ratio")
+    if not (ratio is not None and np.isfinite(run["final_loss"]) and ratio < 1.0):
+        fail(f"train_fsdp: loss did not fall: first {run.get('first_loss')} "
+             f"final {run.get('final_loss')}")
+    losses = [l for _, l in run["losses"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:3], dp["losses"][:3])]
+    if len(rel) != 3 or max(rel) > FSDP_DP_LOSS_RTOL:
+        fail(f"train_fsdp: first losses {losses[:3]} vs dp's {dp['losses'][:3]} "
+             f"(rel {rel}, tol {FSDP_DP_LOSS_RTOL})")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step_ms = 1e3 * statistics.median(run["step_s"][2:])
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    emit({"phase": "train_fsdp", "model": "llama3_8b", "layers": layers,
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH, "steps": steps,
+          "world_size": dist.get_world_size(), "backend": backend,
+          "fully_shard_blocks": wrapped, "mesh": pmesh.mesh_shape(run["mesh"]),
+          "nccl_init_s": pmesh.PROCESS_GROUP_INIT_S,
+          "mesh_s": run["mesh_s"], "n_params": n_params,
+          "losses": losses, "first3_rel_vs_dp": rel,
+          "first3_rel_tol": FSDP_DP_LOSS_RTOL, "convergence_ratio": ratio,
+          "step_ms_median_3_10": step_ms, "step_ms": [1e3 * t for t in run["step_s"]],
+          "tokens_per_s": tokens_per_s,
+          "mfu_6nd": 6 * n_params * tokens_per_s / PEAK_BF16_FLOPS,
+          "peak_mem_gb": peak / 1e9, "wall_s": wall, "compile_s": run["compile_s"],
+          "launches": launches,
+          "phases_ms_median_3_10": median_phases(run["step_phases"][2:]),
+          "dp": {k: v for k, v in dp.items() if k != "losses"},
+          "dp_first3_losses": dp["losses"][:3], "card": card})
+    del run, state, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 class Child:
@@ -1933,7 +2045,8 @@ def _phase_launcher(torch, attn, card, train_tracer_ms, tmp):
     codes["mesh"] = rc
     mesh_s = time.perf_counter() - t0
 
-    args = (f"--model=llama3-8b --layers={LAUNCHER_LAYERS} --seq_len={TRAIN_SEQ} "
+    args = (f"--strategy=fsdp --model=llama3-8b --layers={LAUNCHER_LAYERS} "
+            f"--seq_len={TRAIN_SEQ} "
             f"--batch_size={TRAIN_BATCH} --log_every=1 --step_sleep=0.5 "
             "--remat_policy=flash --fused_ce=1 --lr=3e-4 --data=learnable")
 
@@ -2324,28 +2437,44 @@ def main() -> None:
         restored = phase_launcher(torch, attn, card, None)
         emit({"partial": only, "launches_restored_serving": restored})
         return
+    if only == ["train"]:
+        # the training phases alone (a debugging aid, as above)
+        attn.poison_shared_memory(torch.device("cuda"), attn.flash_smem_bytes("fwd", 1))
+        train, _, dp = phase_train(torch, attn, card)
+        emit({"partial": only, "launches_train_fsdp": phase_train_fsdp(torch, attn, card, dp)})
+        return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    # ROADMAP C4: the first K1 launch meets shared memory full of NaN
+    # words (the first check runs tile config 1), not what the build or
+    # an earlier process left there
+    poison = attn.poison_shared_memory(torch.device("cuda"),
+                                       attn.flash_smem_bytes("fwd", 1))
+    emit({"smem_poison": {"bytes_per_block": poison,
+                          "before": "the first K1 check (B 1, S 16, config 1)"}})
     k1 = phase_flash(torch, attn, _kernels, gen)
     bwd = phase_flash_bwd(torch, attn, _kernels, gen)
     k4 = phase_decode(torch, attn, _kernels, gen)
     k5 = phase_decode_q8(torch, attn, _kernels, gen)
     serving = phase_serving(torch, attn, card)
-    train, tracer_ms = phase_train(torch, attn, card)
+    train, tracer_ms, dp = phase_train(torch, attn, card)
+    train_fsdp = phase_train_fsdp(torch, attn, card, dp)
     restored = phase_launcher(torch, attn, card, tracer_ms)
     serving_int8 = phase_serving_int8(torch, attn, card)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
+                + train_fsdp["flash_fwd"]
                 + serving_int8["flash_fwd"] + restored["flash_fwd"],
                 "decode_attn": serving["decode_attn"] + restored["decode_attn"],
                 "decode_attn_q8": serving_int8["decode_attn_q8"],
-                "flash_bwd_dq": train["flash_bwd_dq"],
-                "flash_bwd_dkv": train["flash_bwd_dkv"]}
+                "flash_bwd_dq": train["flash_bwd_dq"] + train_fsdp["flash_bwd_dq"],
+                "flash_bwd_dkv": train["flash_bwd_dkv"] + train_fsdp["flash_bwd_dkv"]}
 
     def entry(name, src, replaces, row):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "launches_serving": serving.get(name, 0),
                 "launches_train": train.get(name, 0),
+                "launches_train_fsdp": train_fsdp.get(name, 0),
                 "launches_serving_int8": serving_int8.get(name, 0),
                 "launches_restored_serving": restored.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],

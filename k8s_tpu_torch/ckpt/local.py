@@ -309,12 +309,22 @@ def _shape_dtype(leaf):
 
 
 def local_shards_of(leaf) -> Dict[str, np.ndarray]:
-    """This process's shards of ``leaf`` as host arrays: one process
-    drives one device, so a tensor (or a numpy/python leaf) is one
-    fully-replicated shard keyed by the whole array. Eager spelling of
+    """This process's shards of ``leaf`` as host arrays: a ``DTensor``'s
+    local shard keyed by its global index, any other tensor (or a
+    numpy/python leaf) one whole-array shard. Eager spelling of
     :func:`shard_copy_jobs`."""
     jobs, _ = shard_copy_jobs(leaf)
     return {key: to_numpy(materialize()[0]) for key, materialize in jobs}
+
+
+def _local_key(leaf) -> str:
+    """The index key of this process's shard of a tensor leaf: a
+    ``DTensor``'s local shard (FSDP2's parameters and moments, a ZeRO
+    slice) at its global index, else the whole array."""
+    from k8s_tpu_torch.parallel.sharding import local_index
+
+    shape = tuple(int(d) for d in leaf.shape)
+    return index_key(local_index(leaf), shape)
 
 
 def shard_copy_jobs(leaf, buffers: Optional[HostBuffers] = None,
@@ -325,20 +335,28 @@ def shard_copy_jobs(leaf, buffers: Optional[HostBuffers] = None,
     (:func:`~k8s_tpu_torch.ckpt.pipeline.host_copy`): the copy has
     landed when it returns, so the writer never reads live storage —
     PyTorch updates the state in place, and a view of it would let the
-    next step scribble into a crc-consistent checkpoint."""
+    next step scribble into a crc-consistent checkpoint. A ``DTensor``
+    stages its local shard only."""
     shape, dtype = _shape_dtype(leaf)
     if isinstance(leaf, torch.Tensor):
-        def materialize(_l=leaf):
+        local = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+
+        def materialize(_l=local):
             return host_copy(_l, buffers, stream)
-    else:
-        def materialize(_l=leaf):
-            return torch.from_numpy(np.array(_l, copy=True)), None
+        return ([(_local_key(leaf), materialize)],
+                est_leaf_bytes(tuple(local.shape), dtype))
+
+    def materialize(_l=leaf):
+        return torch.from_numpy(np.array(_l, copy=True)), None
     return [(full_key(shape), materialize)], est_leaf_bytes(shape, dtype)
 
 
 def required_indices(template_leaf) -> List[str]:
     """The shard indices this process must source to rebuild
-    ``template_leaf``: the whole array (one process, one device)."""
+    ``template_leaf``: its local shard's for a ``DTensor``, else the
+    whole array."""
+    if isinstance(template_leaf, torch.Tensor):
+        return [_local_key(template_leaf)]
     return [full_key(_shape_dtype(template_leaf)[0])]
 
 

@@ -204,6 +204,7 @@ class MultiTierCheckpointManager:
         consensus=None,
         persistent=None,
         gang_consistent: bool = False,
+        process_group=None,
     ):
         self.policy = policy
         self.host_id = host_id
@@ -240,6 +241,7 @@ class MultiTierCheckpointManager:
                     1, policy.persistent_interval_steps or 1),
                 max_restore_step=policy.max_restore_step,
                 writer=host_id == 0,
+                process_group=process_group,
             )
         if transport is None and self.local is not None and policy.peer_fetch:
             peers_env = os.environ.get("KTPU_CKPT_PEERS", "")
@@ -382,10 +384,11 @@ class MultiTierCheckpointManager:
         immediately; ``force`` (preempt flush / final save) hands the
         live tensors to the same worker with the caller BLOCKING until
         the commit landed."""
+        sharded = any(hasattr(t, "placements") for t in state.values())
         if not force and self._persist_busy():
             self._count_skip(step, "committer_busy")
             return False
-        if not force:
+        if not force and not sharded:
             from k8s_tpu_torch.ckpt.pipeline import stage_tree
 
             staged = stage_tree(state)
@@ -395,10 +398,19 @@ class MultiTierCheckpointManager:
             # optimism as the local tier's async writer);
             # persistent_saves increments when the commit lands
             return True
+        # forced, or a sharded state (a gang-wide DCP save of every
+        # rank's shards, on the manager's own process group): the
+        # caller blocks until the commit lands
         box = self._persist_enqueue(step, state, force=force,
                                     blocking=True)
         self._persist_drain()
         err = box.get("err")
+        if err is not None and not force:
+            self.stats.persistent_save_failures += 1
+            log.warning("persistent checkpoint save failed at step %d "
+                        "(%s: %s); persistent tier degraded this interval",
+                        step, type(err).__name__, err)
+            return False
         if err is not None:
             raise err  # today's contract: a failed forced flush raises
         if box.get("ok"):

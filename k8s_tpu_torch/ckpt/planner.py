@@ -59,6 +59,7 @@ from k8s_tpu_torch.ckpt.local import (
     compose_shard,
     covering_plan,
     full_key,
+    index_key,
     parse_index_key,
     required_indices,
     union_covering_plan,
@@ -70,7 +71,13 @@ log = logging.getLogger(__name__)
 
 def _full_indices(template_leaf) -> List[str]:
     """EVERY shard index of the leaf's global array — the gang-coverage
-    vocabulary: the whole array (one process, one device)."""
+    vocabulary: each distinct shard of a ``DTensor`` over its mesh, else
+    the whole array."""
+    if isinstance(template_leaf, torch.Tensor):
+        from k8s_tpu_torch.parallel.sharding import all_indices
+
+        shape = tuple(int(d) for d in template_leaf.shape)
+        return [index_key(i, shape) for i in all_indices(template_leaf)]
     return [full_key(getattr(template_leaf, "shape", ()))]
 
 
@@ -454,14 +461,15 @@ class RestorePlanner:
         """The host shard → the TEMPLATE's own tensor, on its device and
         in its dtype (``copy_``: parameters and optimizer moments are
         restored in place, so the model and optimizer keep their
-        tensors)."""
+        tensors; a ``DTensor``'s local shard is written in place)."""
         arr = next(iter(shard_data.values()))
         host = from_numpy(arr, leaf.dtype)
-        if tuple(host.shape) != tuple(leaf.shape):
+        dst = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+        if tuple(host.shape) != tuple(dst.shape):
             raise ValueError(f"restored shard shape {tuple(host.shape)} != "
-                             f"template {tuple(leaf.shape)}")
+                             f"template {tuple(dst.shape)}")
         with torch.no_grad():
-            leaf.copy_(host)
+            dst.copy_(host)
         return leaf
 
     def _restore_local(self, plan: RestorePlan, template) -> Optional[Any]:

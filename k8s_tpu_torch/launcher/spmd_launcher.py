@@ -20,9 +20,8 @@ The one program the operator ships into pods. It
 
 There is no CPU fallback: without ``KTPU_FORCE_PLATFORM=cpu`` the
 process needs a card and exits 1 without one. One process drives one
-device (``KTPU_NUM_CPU_DEVICES`` above 1 is refused; several devices per
-process and the per-card process layout of a multi-card node are later
-work). ``KTPU_COMPILE_CACHE_DIR`` is parsed into the rendezvous and has
+device: card ``LOCAL_RANK`` of its node, else ``KTPU_PROCESS_ID`` modulo
+the node's card count (``KTPU_NUM_CPU_DEVICES`` above 1 is refused). ``KTPU_COMPILE_CACHE_DIR`` is parsed into the rendezvous and has
 no effect: the port compiles no XLA programs, and its CUDA kernels are
 built once per checkout by ``k8s_tpu_torch.ops._kernels``.
 
@@ -119,13 +118,25 @@ class Rendezvous:
         return self.process_id < 0
 
 
+def local_device_index(env=None) -> int:
+    """The card of this process on its node: ``LOCAL_RANK`` when set
+    (one process per card, as a GPU node runs them), else
+    ``KTPU_PROCESS_ID`` modulo the node's card count."""
+    env = env if env is not None else os.environ
+    if env.get("LOCAL_RANK", "") != "":
+        return int(env["LOCAL_RANK"])
+    return int(env.get("KTPU_PROCESS_ID", "0")) % max(1, torch.cuda.device_count())
+
+
 def configure_platform(env=None):
     """Check the platform overrides before first device use and select
     the card. ``KTPU_FORCE_PLATFORM=cpu`` (CPU smoke jobs) runs on the
-    CPU; unset, the process needs a card and takes the first visible
-    one. Raises — mapped to the permanent exit code by :func:`main` —
-    on an unknown platform, on ``KTPU_NUM_CPU_DEVICES`` above 1 on the
-    CPU, and when no card is visible."""
+    CPU; unset, the process needs a card and takes card
+    :func:`local_device_index`. Raises — mapped to the permanent exit
+    code by :func:`main` — on an unknown platform, on
+    ``KTPU_NUM_CPU_DEVICES`` above 1 on the CPU, when no card is
+    visible, and when the index names no card (there is no fallback to
+    card 0 or to the CPU)."""
     env = env if env is not None else os.environ
     platform = env.get("KTPU_FORCE_PLATFORM", "")
     if platform not in PLATFORMS:
@@ -143,7 +154,12 @@ def configure_platform(env=None):
         raise RuntimeError(
             "device 'cuda' requested but no CUDA device is available "
             "(set KTPU_FORCE_PLATFORM=cpu to run on the CPU)")
-    torch.cuda.set_device(0)
+    index, count = local_device_index(env), torch.cuda.device_count()
+    if not 0 <= index < count:
+        raise RuntimeError(
+            f"this process's card index {index} (LOCAL_RANK or "
+            f"KTPU_PROCESS_ID) names no card: {count} visible")
+    torch.cuda.set_device(index)
 
 
 def _device(rdzv) -> torch.device:

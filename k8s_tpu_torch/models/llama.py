@@ -18,9 +18,9 @@ through :func:`k8s_tpu_torch.ops.attention.flash_attention` (on the card
 the flash kernels forward and backward), optionally under per-block
 activation checkpointing (``remat``, non-reentrant
 ``torch.utils.checkpoint``) with the JAX package's policies
-(:func:`_remat_policy`). ``forward(..., return_hidden=True)`` returns the
-final-norm hidden states, the input of
-:func:`k8s_tpu_torch.ops.fused_ce.fused_lm_head_cross_entropy`.
+(:func:`_remat_policy`). ``forward(ids, labels=..., z_loss=...)`` returns
+the loss of :func:`k8s_tpu_torch.ops.fused_ce.fused_lm_head_cross_entropy`
+over the final-norm hidden states (``return_hidden=True`` returns those).
 
 **Serving** (``decode=True``): the cache is an explicit :class:`KVCache`
 object instead of flax's "cache" variable collection. Attention has the
@@ -86,6 +86,7 @@ from k8s_tpu_torch.ops.attention import (
     flash_attention,
     quantize_kv_rows,
 )
+from k8s_tpu_torch.ops.fused_ce import fused_lm_head_cross_entropy
 from k8s_tpu_torch.ops.norms import rms_norm
 from k8s_tpu_torch.ops.quant import Int8ServingDense, quantize_rows
 from k8s_tpu_torch.parallel.sharding import sharded_embedding_lookup
@@ -559,7 +560,9 @@ class LlamaForCausalLM(nn.Module):
         """Adopt a ``{name: tensor}`` dict keyed like
         ``named_parameters()``: each tensor moves to this model's device
         and the parameter's dtype and memory layout (no copy when all
-        three already match; the int8 kernels are held column-major)."""
+        three already match; the int8 kernels are held column-major). A
+        sharded ``DTensor`` (a trained FSDP state) is gathered whole
+        first, a collective of its mesh."""
         own = dict(self.named_parameters())
         if set(own) != set(params):
             raise ValueError(
@@ -567,6 +570,8 @@ class LlamaForCausalLM(nn.Module):
                 f", unexpected {sorted(set(params) - set(own))}")
         for name, p in own.items():
             src = params[name]
+            if hasattr(src, "full_tensor"):
+                src = src.full_tensor()
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                                  f"{tuple(p.shape)}")
@@ -588,12 +593,19 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, positions=None, cache: Optional[KVCache] = None,
                 last_logit_only: bool = False, return_hidden: bool = False,
-                segment_ids: Optional[torch.Tensor] = None):
+                segment_ids: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None, z_loss: float = 0.0):
         """Decode config: :meth:`decode_forward`. Training config:
         input_ids [B, S] -> logits [B, S or 1, V] f32, or the final-norm
-        hidden states [B, S, E] with ``return_hidden`` (the fused-CE
-        input). ``segment_ids`` [B, S] masks attention across packed
-        documents (CPU only: the kernels raise for them)."""
+        hidden states [B, S, E] with ``return_hidden``, or with
+        ``labels`` [B, S'] (S' <= S, the token each of the first S'
+        positions predicts) the fused LM-head cross-entropy of those
+        positions with ``z_loss`` (a scalar; the [B, S', V] logits never
+        exist). The loss reads ``lm_head`` inside this forward, where a
+        sharded parameter is whole (FSDP2 gathers the root's parameters
+        around its forward, and reduce-scatters their gradients after
+        its backward). ``segment_ids`` [B, S] masks attention across
+        packed documents (CPU only: the kernels raise for them)."""
         if self.config.decode:
             if segment_ids is not None:
                 raise NotImplementedError(
@@ -615,6 +627,9 @@ class LlamaForCausalLM(nn.Module):
                 x = checkpoint(block, x, positions, None, segment_ids,
                                use_reentrant=False, context_fn=context_fn)
         x = self.final_norm(x)
+        if labels is not None:
+            return fused_lm_head_cross_entropy(
+                x[:, :labels.shape[1]], self.lm_head, labels, z_loss=z_loss)
         if return_hidden:
             return x
         if last_logit_only:

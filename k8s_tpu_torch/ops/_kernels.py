@@ -73,6 +73,13 @@ KERNELS = {
         # scale, stream
         "k8s_decode_attn_q8": [_P] * 11 + [_I] * 6 + [_F, _P],
     }),
+    # a check kernel (no TPU counterpart): every SM's shared memory
+    # filled with NaN before a kernel under test (ROADMAP C4)
+    "smem_poison": ("smem_poison.cu", {
+        # dynamic shared memory per block (bytes), stream
+        "k8s_smem_poison": [_I, _P],
+        "k8s_smem_poison_max_bytes": [],
+    }),
 }
 
 _lock = threading.Lock()

@@ -132,6 +132,36 @@ def _launch(name: str, entry: str, device: torch.device, *args) -> None:
     _kernels.check(code, name)
 
 
+def poison_shared_memory(device, smem_bytes: Optional[int] = None) -> int:
+    """Fill the shared memory of every SM of CUDA ``device`` with NaN
+    words (``csrc/smem_poison.cu``), on its current stream: run just
+    before a kernel, a read of a tile before its bytes land then reads
+    NaN, not what an earlier launch left (ROADMAP C4). ``smem_bytes``
+    is the dynamic shared memory per poison block (a kernel's own size:
+    ``flash_smem_bytes``), by default the device's opt-in maximum, which
+    covers each SM's whole shared memory. Returns the size used. A check
+    kernel, not a port: it counts no launches."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("poison_shared_memory needs a CUDA device")
+    if smem_bytes is None:
+        with torch.cuda.device(device):
+            smem_bytes = _kernels.lib("smem_poison").k8s_smem_poison_max_bytes()
+        if smem_bytes <= 0:
+            raise RuntimeError("could not read the device's shared-memory limit")
+    _launch("smem_poison", "k8s_smem_poison", device, int(smem_bytes))
+    return int(smem_bytes)
+
+
+def flash_smem_bytes(kernel: str, config: int = 0) -> int:
+    """Dynamic shared memory per block of a flash kernel: ``"fwd"`` (K1,
+    tile ``config``), ``"dq"`` (K2) or ``"dkv"`` (K3)."""
+    if kernel == "fwd":
+        return int(_kernels.lib("flash_fwd").k8s_flash_fwd_smem_bytes(config))
+    return int(_kernels.lib("flash_bwd").k8s_flash_bwd_smem_bytes(
+        {"dq": 0, "dkv": 1}[kernel]))
+
+
 def _flash_fwd_config(b: int, sq: int, hq: int) -> int:
     """The forward kernel's tile configuration for a call (a key of
     :data:`FLASH_FWD_TILES`): 128-row query tiles when they make enough

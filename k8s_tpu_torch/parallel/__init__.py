@@ -1,5 +1,17 @@
-"""Parallelism helpers of the port (single device for now)."""
+"""Parallelism of the port: the device mesh, the logical-axis rules and
+the ZeRO layouts (port of ``k8s_tpu/parallel``)."""
 
-from k8s_tpu_torch.parallel.sharding import sharded_embedding_lookup
-
-__all__ = ["sharded_embedding_lookup"]
+from k8s_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXES,
+    MeshConfig,
+    best_pow2_split,
+    build_mesh,
+    data_parallel_degree,
+    mesh_shape,
+)
+from k8s_tpu_torch.parallel.sharding import (  # noqa: F401
+    LogicalRules,
+    sharded_embedding_lookup,
+    zero1_partition_spec,
+    zero3_selected,
+)

@@ -146,10 +146,17 @@ def build_checkpoint_manager(cfg: RunConfig, rdzv):
     None). ``KTPU_CKPT_RESTORE_MAX_STEP`` is the restore ceiling of both
     kinds. In a multi-process run the gang's local commits meet at a
     barrier and the restore step is agreed by an ``all_reduce(MIN)``;
-    process 0 alone writes the persistent tier."""
+    process 0 alone writes a replicated state to the persistent tier,
+    and every rank its shards of a sharded one."""
     if getattr(rdzv, "process_id", 0) < 0:
         return None, None
     host_id = max(0, getattr(rdzv, "process_id", 0))
+    import torch.distributed as dist
+
+    # the persistent tier's group for a sharded state's collective DCP
+    # save and load: gloo, of its own (it runs on the committer thread)
+    dcp_group = (dist.new_group(backend="gloo")
+                 if dist.is_available() and dist.is_initialized() else None)
     if os.environ.get("KTPU_CKPT_LOCAL_DIR"):
         from k8s_tpu_torch.ckpt import MultiTierCheckpointManager, PeerShardServer
         from k8s_tpu_torch.ckpt.manager import CheckpointPolicy
@@ -170,6 +177,7 @@ def build_checkpoint_manager(cfg: RunConfig, rdzv):
         mgr = MultiTierCheckpointManager(
             policy, host_id=host_id, barrier=barrier, consensus=consensus,
             gang_consistent=getattr(rdzv, "num_processes", 1) > 1,
+            process_group=dcp_group,
         )
         server = None
         try:
@@ -193,7 +201,7 @@ def build_checkpoint_manager(cfg: RunConfig, rdzv):
         return CheckpointManager(
             cfg.checkpoint_dir,
             max_restore_step=max_restore if max_restore >= 0 else None,
-            writer=host_id == 0,
+            writer=host_id == 0, process_group=dcp_group,
         ), None
     return None, None
 

@@ -1,7 +1,19 @@
-"""Llama causal-LM training on one device (port of
-``k8s_tpu/programs/llama_train.py``, its single-device ``dp`` path).
+"""Llama causal-LM training, one process per card, data parallel or
+FSDP (port of ``k8s_tpu/programs/llama_train.py``).
 
 Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
+  --strategy=fsdp|dp        (default fsdp, as in the JAX program) the
+                            mesh and rules: ``dp`` a ``data`` axis over
+                            every rank; ``fsdp`` an ``fsdp`` axis within
+                            a slice and ``data`` across the
+                            ``MEGASCALE_NUM_SLICES`` slices (HSDP)
+  --zero_stage=0..3         the ZeRO ladder under dp (or the operator's
+                            KTPU_ZERO_STAGE; --zero1=1 / KTPU_ZERO1 is
+                            stage 1); a no-op under fsdp at one slice
+  --zero3_leaves=a,b        stage 3's selected parameters: names holding
+                            any of these substrings (KTPU_ZERO3_LEAVES)
+  --zero3_min_leaf_size=N   ... or of at least N elements
+                            (KTPU_ZERO3_MIN_LEAF_SIZE)
   --model=tiny|llama3-8b    model (default llama3-8b on cuda, tiny on
                             cpu: tiny's head_dim has no CUDA kernel)
   --layers=N                layer count (default 2 for tiny, 32 for
@@ -12,7 +24,10 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
                             AdamW (16 bytes per parameter: weight, grad
                             and two moments)
   --seq_len=N               sequence length (default 128 tiny, 8192 8B)
-  --batch_size=N            (default 16)   --steps=N (default 30)
+  --batch_size=N            the global batch (default 16): each rank
+                            trains on its rows of it, so the ranks'
+                            count must divide it
+  --steps=N                 (default 30)
   --accum_steps=N           gradient-accumulation microbatches (default 1)
   --log_every=N             loss/health readback interval (default 10)
   --lr=F                    AdamW learning rate (default 3e-4)
@@ -54,10 +69,11 @@ the preemption poll (SIGTERM → flush at the current step,
 multi-tier manager, whose goodput block also rides the obs heartbeat as
 ``ckpt``).
 
-Weights are random from seed 0 (f32 masters, bf16 compute).
-Options of later slices raise: a ``--strategy`` other than ``dp``,
-``--zero_stage``/``--zero1``, ``--latency_hiding``, ``--num_experts``,
-``--quant``.
+Weights are random from seed 0 (f32 masters, bf16 compute), the same
+on every rank before the state is sharded. Options of later slices
+raise ``NotImplementedError`` naming their ROADMAP item: the
+``fsdp_tp``, ``fsdp_tp_sp``, ``pp`` and ``pp_fsdp`` strategies,
+``--latency_hiding``, ``--num_experts``, ``--quant``.
 
 The loop runs the JAX program's runtime: every step inside a
 :meth:`~k8s_tpu_torch.obs.trace.Tracer.step` span with phases
@@ -69,7 +85,8 @@ gated on the tracer being on); the per-host obs endpoint under
 ``KTPU_OBS_ADVERTISE``; the ``nan-grad`` chaos arm
 (``KTPU_CHAOS_NAN_GRAD``); ``KTPU_PROFILE_DIR``'s loop profile.
 
-Events (JSON lines): ``mesh`` (dp 1), ``obs_ready`` (with an obs
+Events (JSON lines): ``mesh`` (the axes, the DP degree and the ZeRO
+stage), ``obs_ready`` (with an obs
 endpoint), ``ckpt_restore`` and ``restored`` (after a restore),
 ``compile_phase``, the step/loss lines of
 :class:`~k8s_tpu_torch.programs.common.MetricLogger`, ``step_health``
@@ -97,7 +114,6 @@ from k8s_tpu_torch.controller.metrics import CKPT_RESTORE_SECONDS
 from k8s_tpu_torch.data import learnable_token_batches, synthetic_token_batches
 from k8s_tpu_torch.models import LlamaConfig, LlamaForCausalLM, init_params
 from k8s_tpu_torch.obs.health import consume_nan_grad, nan_grad_armed
-from k8s_tpu_torch.ops.fused_ce import fused_lm_head_cross_entropy
 from k8s_tpu_torch.programs.common import (
     MetricLogger,
     build_checkpoint_manager,
@@ -108,40 +124,127 @@ from k8s_tpu_torch.programs.common import (
     parse_run_config,
     start_obs_server,
 )
+from k8s_tpu_torch.parallel import (
+    LogicalRules,
+    MeshConfig,
+    build_mesh,
+    data_parallel_degree,
+    mesh_shape,
+)
 from k8s_tpu_torch.programs.llama_generate import default_model
 from k8s_tpu_torch.train import (
-    create_train_state,
+    create_sharded_state,
     cross_entropy_loss,
     init_optimizer_state,
     load_state_tree,
+    make_batch_sharder,
     make_train_step,
     state_tree,
 )
 
 Z_LOSS = 1e-4
 
+STRATEGIES = {"dp": "DP", "fsdp": "FSDP"}
+# strategies of the JAX program this port does not have yet, with the
+# ROADMAP item that brings each
+_UNPORTED_STRATEGIES = {
+    "fsdp_tp": "A5 (tensor parallel, the next A5 PR)",
+    "fsdp_tp_sp": "A7 (sequence parallel)",
+    "pp": "A8 (pipeline parallel)",
+    "pp_fsdp": "A8 (pipeline parallel)",
+}
 # options of the JAX trainer this port does not have yet: (arg, env,
-# values meaning "off")
+# values meaning "off", ROADMAP item)
 _UNPORTED = (
-    ("zero_stage", "KTPU_ZERO_STAGE", ("0", "")),
-    ("zero1", "KTPU_ZERO1", ("0", "false", "")),
-    ("latency_hiding", "KTPU_LATENCY_HIDING", ("0", "false", "")),
-    ("num_experts", None, ("0",)),
-    ("quant", None, ("none", "")),
+    ("latency_hiding", "KTPU_LATENCY_HIDING", ("0", "false", ""),
+     "A13 (XLA's latency-hiding scheduler has no counterpart yet)"),
+    ("num_experts", None, ("0",), "A9 (the MoE model)"),
+    ("quant", None, ("none", ""), "A10 (int8 training matmuls)"),
 )
 
 
-def _check_unported(cfg, extra) -> None:
-    strategy = extra.get("strategy", "dp")
-    if strategy != "dp":
+def _check_unported(extra) -> str:
+    """The strategy of the run config; raises for the options of later
+    slices."""
+    strategy = extra.get("strategy", "fsdp")
+    if strategy in _UNPORTED_STRATEGIES:
         raise NotImplementedError(
             f"strategy={strategy!r} is not ported to k8s_tpu_torch yet "
-            "(one device: dp)")
-    for key, env, off in _UNPORTED:
+            f"(ROADMAP {_UNPORTED_STRATEGIES[strategy]})")
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}")
+    for key, env, off, item in _UNPORTED:
         val = extra.get(key, os.environ.get(env, off[0]) if env else off[0])
         if val not in off:
             raise NotImplementedError(
-                f"{key}={val!r} is not ported to k8s_tpu_torch yet")
+                f"{key}={val!r} is not ported to k8s_tpu_torch yet "
+                f"(ROADMAP {item})")
+    return strategy
+
+
+def _mesh_for(strategy: str, num_slices: int, device_type: str):
+    """The JAX program's meshes: ``dp`` one ``data`` axis over every
+    rank; ``fsdp`` ``data`` across slices and ``fsdp`` within one."""
+    if strategy == "dp":
+        return build_mesh(MeshConfig(data=-1), device_type)
+    import torch.distributed as dist
+
+    from k8s_tpu_torch.parallel.mesh import ensure_process_group
+
+    ensure_process_group(device_type)
+    n = dist.get_world_size()
+    return build_mesh(MeshConfig(data=num_slices,
+                                 fsdp=max(1, n // num_slices)), device_type)
+
+
+def _rdzv_flag(rdzv, attr: str, env: str) -> bool:
+    """A trainer-mode flag from the launcher contract: the Rendezvous
+    already parsed the operator-injected env; bare rdzv stubs (tests)
+    fall back to reading the env var."""
+    val = getattr(rdzv, attr, None)
+    if val is not None:
+        return bool(val)
+    return os.environ.get(env, "0") in ("1", "true")
+
+
+def _rdzv_int(rdzv, attr: str, env: str, default: int = 0) -> int:
+    """Integer twin of :func:`_rdzv_flag`."""
+    val = getattr(rdzv, attr, None)
+    if val is not None:
+        try:
+            return int(val)
+        except (TypeError, ValueError):
+            return default
+    try:
+        return int(os.environ.get(env, str(default)))
+    except ValueError:
+        return default
+
+
+def zero_options(rdzv, extra: dict):
+    """``(zero_stage, zero3_leaves, zero3_min_leaf_size)`` from the flags,
+    else the rendezvous (the operator's env), as the JAX program takes
+    them."""
+    zero1 = extra.get(
+        "zero1", "1" if _rdzv_flag(rdzv, "zero1", "KTPU_ZERO1") else "0",
+    ) in ("1", "true")
+    zero_stage = int(extra.get(
+        "zero_stage",
+        _rdzv_int(rdzv, "zero_stage", "KTPU_ZERO_STAGE", 1 if zero1 else 0)))
+    if zero1 and zero_stage == 0:
+        zero_stage = 1
+    if not 0 <= zero_stage <= 3:
+        raise ValueError(f"zero_stage must be 0..3, got {zero_stage}")
+    min_leaf = int(extra.get(
+        "zero3_min_leaf_size",
+        _rdzv_int(rdzv, "zero3_min_leaf_size", "KTPU_ZERO3_MIN_LEAF_SIZE")))
+    default = getattr(rdzv, "zero3_leaves", None)
+    if default is None:
+        default = os.environ.get("KTPU_ZERO3_LEAVES", "")
+    if not isinstance(default, str):
+        default = ",".join(default)
+    leaves = [x for x in str(extra.get("zero3_leaves", default)).split(",") if x]
+    return zero_stage, leaves, min_leaf
 
 
 def model_config(model_name: str, extra: dict) -> LlamaConfig:
@@ -173,13 +276,15 @@ def _unhealthy_state(health_enabled: bool, metrics) -> bool:
 
 
 def _restore_crc(tree) -> dict:
-    """crc32 of every leaf of ``tree`` as read back from its device, in
-    the local tier's byte vocabulary (the manifest's crc of the same
-    leaf when the state is bit-equal to the checkpoint)."""
+    """crc32 of this rank's shard of every leaf of ``tree`` as read back
+    from its device, in the local tier's byte vocabulary (the manifest's
+    crc of the same shard when the state is bit-equal to the
+    checkpoint)."""
     from k8s_tpu_torch.ckpt.local import _leaf_paths
     from k8s_tpu_torch.ckpt.pipeline import crc32_array, to_numpy
 
-    return {path: crc32_array(to_numpy(t.detach().cpu()))
+    return {path: crc32_array(to_numpy(
+                (t.to_local() if hasattr(t, "to_local") else t).detach().cpu()))
             for path, t in _leaf_paths(tree)}
 
 
@@ -195,12 +300,11 @@ def _chaos_scaled(loss, batch):
 def lm_loss(model: LlamaForCausalLM, ids: torch.Tensor,
             fused_ce: bool = True) -> torch.Tensor:
     """Next-token cross-entropy with z-loss 1e-4 of a batch ``ids`` [B,
-    S]: the fused LM-head loss over the final hidden states (the [B, S,
-    V] logits never exist), or the unfused loss over f32 logits."""
+    S]: the fused LM-head loss inside the model's forward (the [B, S, V]
+    logits never exist, and ``lm_head`` is read where FSDP2 holds it
+    whole), or the unfused loss over f32 logits."""
     if fused_ce:
-        hidden = model(ids, return_hidden=True)
-        return fused_lm_head_cross_entropy(
-            hidden[:, :-1], model.lm_head, ids[:, 1:], z_loss=Z_LOSS)
+        return model(ids, labels=ids[:, 1:], z_loss=Z_LOSS)
     logits = model(ids)
     labels = torch.roll(ids, -1, dims=1)
     return cross_entropy_loss(logits[:, :-1], labels[:, :-1], z_loss=Z_LOSS)
@@ -209,23 +313,36 @@ def lm_loss(model: LlamaForCausalLM, ids: torch.Tensor,
 def main(rdzv) -> dict:
     cfg = parse_run_config(rdzv, {"steps": 30, "batch_size": 16})
     extra = cfg.extra or {}
-    _check_unported(cfg, extra)
+    strategy = _check_unported(extra)
     device = resolve_device(extra.get("device", getattr(rdzv, "device", "cuda")))
     model_name = extra.get("model", default_model(device))
     seq_len = int(extra.get("seq_len", "128" if model_name == "tiny" else "8192"))
     lead = getattr(rdzv, "process_id", 0) <= 0
+    num_slices = max(1, int(getattr(rdzv, "num_slices", 1) or 1))
+    zero_stage, zero3_leaves, zero3_min_leaf_size = zero_options(rdzv, extra)
+    m0 = time.perf_counter()
+    mesh = _mesh_for(strategy, num_slices, device.type)
+    mesh_s = time.perf_counter() - m0
     if lead:
-        print(json.dumps({"event": "mesh", "num_slices": 1, "dp": 1,
-                          "shape": {"data": 1}, "zero1": False,
-                          "zero_stage": 0}), flush=True)
+        # the JAX program's event: the mesh the env shaped
+        print(json.dumps({"event": "mesh", "num_slices": num_slices,
+                          "dp": data_parallel_degree(mesh),
+                          "shape": mesh_shape(mesh),
+                          "zero1": zero_stage >= 1,
+                          "zero_stage": zero_stage}), flush=True)
     lcfg = model_config(model_name, extra)
     lr = float(extra.get("lr", "3e-4"))
     model = LlamaForCausalLM(lcfg, device=device)
     model.load_params(init_params(lcfg, 0, device, dtype=torch.float32))
-    state = create_train_state(model, lr, weight_decay=0.1)
+    state = create_sharded_state(
+        model, lr, mesh, LogicalRules(getattr(LogicalRules, STRATEGIES[strategy])),
+        zero_stage=zero_stage, zero3_min_leaf_size=zero3_min_leaf_size,
+        zero3_leaves=zero3_leaves)
     data_fn = (learnable_token_batches if extra.get("data") == "learnable"
                else synthetic_token_batches)
+    # every rank draws the same global batch and trains on its rows
     data = data_fn(cfg.batch_size, seq_len, lcfg.vocab_size)
+    shard_batch = make_batch_sharder(mesh)
     fused_ce = extra.get("fused_ce", "1") not in ("0", "false")
     # multi-tier when the job's checkpointPolicy enables the local tier
     # (KTPU_CKPT_LOCAL_DIR), plain persistent otherwise, or None
@@ -271,11 +388,12 @@ def main(rdzv) -> dict:
 
     step_fn = make_train_step(loss_fn, accum_steps=cfg.accum_steps,
                               health=health)
-    logger = MetricLogger(rdzv, f"llama-{model_name}-dp")
+    logger = MetricLogger(rdzv, f"llama-{model_name}-{strategy}")
     step_sleep = float(extra.get("step_sleep", "0"))
 
     def device_batch():
-        return {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in shard_batch(next(data)).items()}
 
     # preemption contract: with checkpointing on, every step ends with
     # the gang-wide poll; on a positive the state is flushed at the
@@ -294,6 +412,7 @@ def main(rdzv) -> dict:
     first_loss = final_loss = None
     metrics = None  # the last step's (None until a step ran)
     step_s, phases, compile_s = [], [], None
+    losses = []  # (step, loss) at the log points
 
     def unhealthy_now() -> bool:
         # the never-checkpoint-a-poisoned-state gate: the LAST step's
@@ -357,6 +476,7 @@ def main(rdzv) -> dict:
                                     "update_ratio")},
                             }
                     logger.log(step, {"loss": loss_f})
+                    losses.append((step, loss_f))
                     if health_block is not None:
                         # heartbeat + flight-recorder ring on every host
                         tracer.note_health(step, health_block)
@@ -422,7 +542,8 @@ def main(rdzv) -> dict:
     if obs_server is not None:
         obs_server.stop()
 
-    summary = {"config": lcfg, "step_s": step_s, "step_phases": phases,
+    summary = {"config": lcfg, "mesh": mesh, "mesh_s": mesh_s, "losses": losses,
+               "step_s": step_s, "step_phases": phases,
                "compile_s": compile_s, "tracer": tracer, "state": state,
                "step_fn": step_fn, "next_batch": device_batch,
                "restored_step": start if mgr is not None and start else None,

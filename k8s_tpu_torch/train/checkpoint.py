@@ -4,13 +4,20 @@
 
 A state is a flat ``{path: tensor}`` dict (``train.trainer_lib.
 state_tree``). Each step is written to a directory of its own,
-``<directory>/<step>``, by this process alone (DCP with ``no_dist``: one
-process drives one device and holds the whole state), and DCP's
-``.metadata`` file — written last — is the commit point: a directory
-without it is an interrupted save, invisible to :meth:`all_steps` and
-removed by the next save of that step. Restores load IN PLACE into the
-template's tensors (their devices and dtypes; a bfloat16 template of
-an f32 checkpoint gets the values rounded by ``copy_``).
+``<directory>/<step>``, and DCP's ``.metadata`` file — written last — is
+the commit point: a directory without it is an interrupted save,
+invisible to :meth:`all_steps` and removed by the next save of that
+step. A replicated state is written by one process (DCP with
+``no_dist``: every rank holds the whole state, so process 0 writes); a
+state with a sharded leaf (a ``DTensor``: FSDP2, a ZeRO slice) in a
+process group is written and read by every rank through DCP's collective
+path, each rank its own shards, on the manager's ``process_group`` (a
+gloo group of its own, so a save on the committer thread never meets the
+training thread's collectives). DCP reshards on load: a sharded
+checkpoint loads into a whole template in one process (serving's
+restore) and a replicated one into a sharded template. Restores load IN
+PLACE into the template's tensors (their devices and dtypes; a bfloat16
+template of an f32 checkpoint gets the values rounded by ``copy_``).
 """
 
 from __future__ import annotations
@@ -95,6 +102,15 @@ def _single_process():
             raise RuntimeError(f"torch.distributed.checkpoint failed: {e}") from None
 
 
+def _is_sharded(state: Dict[str, torch.Tensor]) -> bool:
+    """Whether the state holds a sharded leaf and a process group exists:
+    then it is saved and loaded by every rank together."""
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and any(hasattr(t, "placements") for t in state.values()))
+
+
 class CheckpointManager:
     """The persistent tier: DCP saves of the flat state under
     ``directory/<step>``, ``max_to_keep`` of them."""
@@ -102,12 +118,14 @@ class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3,
                  save_interval_steps: int = 1,
                  max_restore_step: Optional[int] = None,
-                 writer: bool = True):
+                 writer: bool = True, process_group=None):
         self.directory = directory
-        # one writer per gang: the state of a data-parallel gang is the
-        # same on every process, so process 0 writes and the others'
-        # saves are no-ops (every process restores)
+        # one writer per gang for a replicated state: it is the same on
+        # every process, so process 0 writes and the others' saves are
+        # no-ops (every process restores); a sharded state is written
+        # by every rank on this group
         self.writer = writer
+        self.process_group = process_group
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(1, int(save_interval_steps))
         # restore ceiling ("last healthy step"): default-step restores
@@ -126,8 +144,10 @@ class CheckpointManager:
         """Write ``state`` at ``step`` (synchronously; the multi-tier
         manager runs routed saves on its committer thread). False when
         the step is committed already, off the save interval (unless
-        ``force``), or ``unhealthy()`` says the state is poisoned."""
-        if not self.writer or step in self.all_steps():
+        ``force``), or ``unhealthy()`` says the state is poisoned. A
+        sharded state: every rank calls it at the same step."""
+        sharded = _is_sharded(state)
+        if (not self.writer and not sharded) or step in self.all_steps():
             return False  # not this process's to write, or written
         if not force and step % self.save_interval_steps:
             return False
@@ -138,6 +158,13 @@ class CheckpointManager:
             print(json.dumps({"event": "ckpt_skip_unhealthy",
                               "step": step}), flush=True)
             return False
+
+        if sharded:
+            # collective: one attempt (a retry would have to be the
+            # gang's), the stale directory removed by rank 0 alone
+            self._save_collective(step, state)
+            self._retain()
+            return True
 
         def attempt() -> bool:
             import time
@@ -166,7 +193,28 @@ class CheckpointManager:
         self._retain()
         return ok
 
+    def _save_collective(self, step: int, state) -> None:
+        import time
+
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        path = self.step_dir(step)
+        if dist.get_rank() == 0:
+            shutil.rmtree(path, ignore_errors=True)
+        dist.barrier(group=self.process_group)
+        t0 = time.perf_counter()
+        with _single_process():
+            dcp.save(dict(state), checkpoint_id=path,
+                     process_group=self.process_group)
+        self.last_save_s = time.perf_counter() - t0
+
     def _retain(self) -> None:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_rank() != 0:
+            return  # the directory is the gang's: rank 0 prunes it
         steps = self.all_steps()
         for old in steps[: max(0, len(steps) - self.max_to_keep)]:
             shutil.rmtree(self.step_dir(old), ignore_errors=True)
@@ -178,7 +226,12 @@ class CheckpointManager:
 
         t0 = time.perf_counter()
         with torch.no_grad(), _single_process():
-            dcp.load(state, checkpoint_id=self.step_dir(step), no_dist=True)
+            if _is_sharded(state):
+                dcp.load(state, checkpoint_id=self.step_dir(step),
+                         process_group=self.process_group)
+            else:
+                dcp.load(state, checkpoint_id=self.step_dir(step),
+                         no_dist=True)
         if any(t.device.type == "cuda" for t in state.values()
                if isinstance(t, torch.Tensor)):
             torch.cuda.synchronize()

@@ -1,27 +1,66 @@
-"""The single-device train step (port of ``k8s_tpu/train/trainer_lib.py``).
+"""The train step and the sharded training state (port of
+``k8s_tpu/train/trainer_lib.py``).
 
 :func:`make_train_step` builds ``run(state, batch) -> (state, metrics)``
-over a :class:`TrainState` (step count, module, optimizer): forward and
-backward through ``loss_fn``, optional gradient accumulation over
-microbatches, one optimizer update, and optionally the in-step health
-block. The optimizer is :func:`adamw`, ``optax.adamw(lr,
-weight_decay=0.1)``'s semantics in ``torch.optim.AdamW``.
+over a :class:`TrainState` (step count, module, optimizer and, for a
+sharded state, its :class:`ShardedLayout`): forward and backward through
+``loss_fn``, optional gradient accumulation over microbatches, the
+gradient sync of the state's strategy, one optimizer update, and
+optionally the in-step health block. The optimizer is :func:`adamw`,
+``optax.adamw(lr, weight_decay=0.1)``'s semantics in
+``torch.optim.AdamW``.
 
-Eager PyTorch updates the state in place; ``run`` still returns it, as
-the JAX step returns the new state. :func:`state_tree` is the state as
-the flat tree of tensors the checkpoint tiers save and restore. Metric values stay device tensors
-until the caller reads them (no host sync in the step). The mesh,
-ZeRO stages, latency hiding and compiler options of the JAX step are
-later slices.
+:func:`create_sharded_state` is the one place that lays the state out
+over a mesh (``parallel/mesh.py``), one process per card:
+
+- ``dp`` (the ``DP`` rules), ZeRO stage 0: every rank holds the whole
+  state and all-reduces the mean gradient;
+- ``dp``, stage 1: as 0, but each rank keeps only its
+  :func:`~k8s_tpu_torch.parallel.sharding.zero1_partition_spec` slice
+  ("piece") of each shardable leaf's moments, applies AdamW to that
+  slice, then all-gathers the updated slices into the replicated
+  parameter — after the update, never in the backward;
+- ``dp``, stage 2: as 1, with the gradient sync a reduce-scatter into
+  the slice as each parameter's gradient lands (a post-accumulate-grad
+  hook), so no full-size gradient outlives its own backward;
+- ``dp``, stage 3: as 2, and the leaves
+  :func:`~k8s_tpu_torch.parallel.sharding.zero3_selected` picks are held
+  as their slice between steps and all-gathered just in time, in a
+  forward pre-hook of the module that owns them;
+- ``fsdp`` (the ``FSDP`` rules): FSDP2 ``fully_shard`` per
+  :class:`~k8s_tpu_torch.models.llama.LlamaBlock` and on the root over
+  the mesh's ``fsdp`` axis — HSDP over ``(data, fsdp)`` with several
+  slices — each parameter sharded on the dimension the rules give the
+  ``fsdp`` axis. A ZeRO stage on top of it is a no-op while ``data`` is
+  1, as in the JAX package.
+
+A sliced leaf appears in :func:`state_tree` as a ``DTensor`` whose local
+tensor is the live slice (``Shard(dim)`` over ``data``), and FSDP2's
+leaves are ``DTensor`` s already, so the checkpoint tiers see each
+rank's shard with its global index. Eager PyTorch updates the state in
+place; ``run`` still returns it, as the JAX step returns the new state.
+Metric values stay device tensors until the caller reads them; they are
+the gang's global values (the loss over the global batch, the health
+block over every shard), the same on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from k8s_tpu_torch.parallel.mesh import mesh_shape
+from k8s_tpu_torch.parallel.sharding import (
+    LogicalRules,
+    param_placement,
+    shard_dim,
+    zero1_partition_spec,
+    zero3_selected,
+)
 
 LossFn = Callable[["TrainState", Dict[str, torch.Tensor]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -29,12 +68,14 @@ LossFn = Callable[["TrainState", Dict[str, torch.Tensor]],
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count, the module (its parameters are the trained state) and
-    the optimizer over them."""
+    """Step count, the module (its parameters are the trained state),
+    the optimizer over them, and the layout of a sharded state (None:
+    one replica, no collectives)."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    layout: Optional["ShardedLayout"] = None
 
     def params(self):
         return [p for p in self.model.parameters() if p.requires_grad]
@@ -58,6 +99,349 @@ def create_train_state(model: nn.Module, lr: float,
                          "(a decode config?)")
     return TrainState(step=0, model=model,
                       optimizer=adamw(params, lr, weight_decay))
+
+
+# ---------------------------------------------------------------------------
+# The sharded state
+# ---------------------------------------------------------------------------
+
+
+def _resolve_zero_stage(zero1: bool, zero_stage: Optional[int]) -> int:
+    """Normalize the (legacy ``zero1`` bool, ``zero_stage`` int) pair to
+    one stage 0..3. ``zero1=True`` alone means stage 1; an explicit
+    ``zero_stage`` wins (stages are cumulative: 2 and 3 imply the
+    sharded optimizer state of 1)."""
+    if zero_stage is None:
+        return 1 if zero1 else 0
+    stage = int(zero_stage)
+    if not 0 <= stage <= 3:
+        raise ValueError(f"zero_stage must be 0..3, got {zero_stage}")
+    if zero1 and stage == 0:
+        return 1
+    return stage
+
+
+def _group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _to_local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard (the tensor itself otherwise)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+@dataclasses.dataclass
+class _ZeroLeaf:
+    """One ZeRO-sliced parameter under ``dp``: the model's parameter,
+    the dimension its slices cut, and ``piece``, this rank's slice — the
+    tensor AdamW updates (a view of the whole parameter at stages 1–2;
+    its own storage at stage 3, where the whole parameter exists only
+    between a forward's gather and the update)."""
+
+    name: str
+    param: nn.Parameter
+    dim: int
+    piece: nn.Parameter
+    stage3: bool
+    shape: Tuple[int, ...]
+
+
+class ShardedLayout:
+    """How a :class:`TrainState` is laid out over the mesh, and the
+    collectives of its step (:func:`make_train_step` calls them)."""
+
+    def __init__(self, strategy: str, mesh, zero_stage: int):
+        self.strategy = strategy
+        self.mesh = mesh
+        self.zero_stage = zero_stage
+        sizes = mesh_shape(mesh)
+        self.data_group = mesh.get_group("data")
+        self.data_mesh = mesh["data"]
+        # the pieces of a sharded leaf's shards are held by this many
+        # ranks each (HSDP's data replicas of an fsdp shard)
+        self.replicas = sizes["data"] if strategy == "fsdp" else 1
+        self.leaves: List[_ZeroLeaf] = []
+        self.hooks = []
+
+    @property
+    def world(self) -> int:
+        return dist.get_world_size()
+
+    def is_sharded(self, q: torch.Tensor) -> bool:
+        """Whether optimizer parameter ``q`` is one rank's shard (FSDP2's
+        ``DTensor`` s, a ZeRO piece) rather than a replica."""
+        if self.strategy == "fsdp":
+            return hasattr(q, "placements")
+        return any(q is z.piece for z in self.leaves)
+
+    # -- dp ZeRO ---------------------------------------------------------
+
+    def _slice_bounds(self, z: _ZeroLeaf) -> Tuple[int, int]:
+        n = z.shape[z.dim] // _group_size(self.data_group)
+        r = dist.get_rank(self.data_group)
+        return r * n, n
+
+    def gather(self, z: _ZeroLeaf) -> torch.Tensor:
+        """The whole parameter from every rank's piece (all-gather over
+        ``data`` along ``z.dim``)."""
+        dp = _group_size(self.data_group)
+        local = z.piece.detach().movedim(z.dim, 0).contiguous()
+        out = torch.empty((dp * local.shape[0],) + tuple(local.shape[1:]),
+                          dtype=local.dtype, device=local.device)
+        dist.all_gather_into_tensor(out, local, group=self.data_group)
+        return out.movedim(0, z.dim)
+
+    def reduce_scatter(self, z: _ZeroLeaf, grad: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the sum over ``data`` of ``grad``."""
+        dp = _group_size(self.data_group)
+        full = grad.movedim(z.dim, 0).contiguous()
+        out = torch.empty((full.shape[0] // dp,) + tuple(full.shape[1:]),
+                          dtype=full.dtype, device=full.device)
+        dist.reduce_scatter_tensor(out, full, group=self.data_group)
+        return out.movedim(0, z.dim)
+
+    def _stage2_hook(self, z: _ZeroLeaf):
+        def hook(p: torch.Tensor) -> None:
+            # this microbatch's whole gradient of p landed: reduce it
+            # into the slice, then drop it
+            shard = self.reduce_scatter(z, p.grad)
+            z.piece.grad = (shard if z.piece.grad is None
+                            else z.piece.grad.add_(shard))
+            p.grad = None
+        return hook
+
+    def _stage3_pre_forward(self, leaves: Sequence[_ZeroLeaf]):
+        def hook(module, args):
+            for z in leaves:
+                # gathered once per step: a remat recompute in the
+                # backward finds the parameter whole and gathers nothing
+                if z.param.numel() == 0:
+                    z.param.data = self.gather(z)
+        return hook
+
+    def release_stage3(self) -> None:
+        """Drop the whole stage-3 parameters (the pieces hold them)."""
+        for z in self.leaves:
+            if z.stage3:
+                z.param.data = z.param.data.new_empty((0,))
+
+    def sync_gradients(self, params: Sequence[nn.Parameter],
+                       accum_steps: int) -> None:
+        """After the backward: the mean gradient over the gang, in each
+        optimizer parameter's ``.grad`` (the piece's for a sliced
+        leaf)."""
+        if self.strategy == "fsdp":
+            # FSDP2 reduce-scattered (and, under HSDP, all-reduced) the
+            # mean already
+            if accum_steps > 1:
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(accum_steps)
+            return
+        dp = _group_size(self.data_group)
+        sliced = {id(z.param): z for z in self.leaves}
+        if dp > 1:
+            # the whole gradients (stages 2-3: the unsliced leaves')
+            _all_reduce_bucketed(
+                [p.grad for p in params if p.grad is not None and not (
+                    self.zero_stage >= 2 and id(p) in sliced)],
+                self.data_group)
+        for z in self.leaves:
+            if self.zero_stage == 1 and z.param.grad is not None:
+                start, n = self._slice_bounds(z)
+                z.piece.grad = z.param.grad.narrow(z.dim, start, n)
+        if dp * accum_steps > 1:
+            for q in self.optimizer_params(params):
+                if q.grad is not None:
+                    q.grad.div_(dp * accum_steps)
+
+    def optimizer_params(self, params: Sequence[nn.Parameter]):
+        """The tensors AdamW updates, in the model's parameter order:
+        each sliced leaf's piece, every other parameter itself."""
+        if self.strategy == "fsdp":
+            return list(params)
+        sliced = {id(z.param): z.piece for z in self.leaves}
+        return [sliced.get(id(p), p) for p in params]
+
+    def after_update(self) -> None:
+        """After AdamW: stages 1–2 all-gather the updated slices into the
+        replicated parameters; stage 3 frees its whole parameters."""
+        for z in self.leaves:
+            if z.stage3:
+                continue
+            z.param.data.copy_(self.gather(z))
+        self.release_stage3()
+
+    def leaf_tensor(self, z: _ZeroLeaf, local: torch.Tensor):
+        """``local``, a piece-shaped tensor of ``z`` (the piece or one of
+        its moments), as the ``DTensor`` of ``z``'s whole shape whose
+        local shard it is (no copy: a restore into it fills ``local``)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        stride = []
+        acc = 1
+        for d in reversed(z.shape):
+            stride.append(acc)
+            acc *= d
+        return DTensor.from_local(
+            local, self.data_mesh, [Shard(z.dim)], run_check=False,
+            shape=torch.Size(z.shape), stride=tuple(reversed(stride)))
+
+    def close(self) -> None:
+        for h in self.hooks:
+            h.remove()
+        self.hooks = []
+
+
+# gradients summed per all-reduce: one flat buffer of at most this many
+# bytes per dtype, as DDP's buckets
+BUCKET_BYTES = 256 << 20
+
+
+def _all_reduce_bucketed(tensors: Sequence[torch.Tensor], group) -> None:
+    """Sum ``tensors`` over ``group`` in place, a few all-reduces of
+    flat buckets instead of one per tensor."""
+    bucket: List[torch.Tensor] = []
+    nbytes = 0
+
+    def flush():
+        if not bucket:
+            return
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        offset = 0
+        for t in bucket:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+        bucket.clear()
+
+    for t in tensors:
+        if bucket and (t.dtype != bucket[0].dtype
+                       or t.device != bucket[0].device
+                       or nbytes + t.numel() * t.element_size() > BUCKET_BYTES):
+            flush()
+            nbytes = 0
+        bucket.append(t)
+        nbytes += t.numel() * t.element_size()
+    flush()
+
+
+def _fsdp_wrap(model: nn.Module, mesh, rules: LogicalRules) -> None:
+    """FSDP2 over the ``fsdp`` axis (``(data, fsdp)``, HSDP, with several
+    slices): one unit per block and the root, each parameter sharded on
+    the dimension the rules give ``fsdp``."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    sizes = mesh_shape(mesh)
+    sub = mesh["fsdp"] if sizes["data"] == 1 else mesh["data", "fsdp"]
+    name_of = {id(p): n for n, p in model.named_parameters()}
+
+    def placement(p):
+        dim = shard_dim(param_placement(name_of[id(p)], rules), "fsdp")
+        return Shard(0 if dim is None else dim)
+
+    for block in getattr(model, "layers", ()):
+        fully_shard(block, mesh=sub, shard_placement_fn=placement)
+    fully_shard(model, mesh=sub, shard_placement_fn=placement)
+
+
+def create_sharded_state(model: nn.Module, lr: float, mesh,
+                         rules: LogicalRules, zero_stage: int = 0,
+                         zero3_min_leaf_size: int = 0,
+                         zero3_leaves: Optional[Sequence[str]] = None,
+                         weight_decay: float = 0.1) -> TrainState:
+    """The state of ``model`` (its parameters loaded) laid out over
+    ``mesh`` by ``rules`` (``LogicalRules.DP`` or ``.FSDP``) and the ZeRO
+    stage, with its optimizer. Every rank calls it with the same
+    parameters."""
+    sizes = mesh_shape(mesh)
+    if any(sizes[a] != 1 for a in ("stage", "expert", "seq", "tensor")):
+        raise NotImplementedError(
+            f"mesh {sizes}: stage, expert, seq and tensor axes come with "
+            "later slices (ROADMAP A5 tensor parallel, A7, A8)")
+    fsdp = rules["embed"] == "fsdp"
+    strategy = "fsdp" if fsdp else "dp"
+    stage = int(zero_stage)
+    if fsdp and stage >= 1 and sizes["data"] > 1:
+        raise NotImplementedError(
+            "zero_stage >= 1 on an HSDP (data x fsdp) mesh is not ported "
+            "to k8s_tpu_torch yet (ROADMAP A5: ZeRO on HSDP, next A5 PR)")
+    layout = ShardedLayout(strategy, mesh, stage)
+    if fsdp:
+        # ZeRO on top of fsdp is a no-op at data 1, as in the JAX package
+        _fsdp_wrap(model, mesh, rules)
+    elif stage >= 1 and sizes["data"] > 1:
+        dp = sizes["data"]
+        r = dist.get_rank(layout.data_group)
+        owner = {}
+        for mod in model.modules():
+            for p in mod._parameters.values():
+                if p is not None:
+                    owner.setdefault(id(p), mod)
+        stage3_by_module: Dict[int, List[_ZeroLeaf]] = {}
+        for name, p in model.named_parameters():
+            if not p.requires_grad:
+                continue
+            placement = param_placement(name, rules)
+            z = zero1_partition_spec(placement, p.shape, sizes)
+            if z is None:
+                continue
+            dim = shard_dim(z, "data")
+            n = p.shape[dim] // dp
+            s3 = stage >= 3 and zero3_selected(
+                name, p.shape, placement, sizes,
+                min_leaf_size=zero3_min_leaf_size,
+                leaves=zero3_leaves) is not None
+            view = p.detach().narrow(dim, r * n, n)
+            piece = nn.Parameter(view.clone() if s3 else view)
+            leaf = _ZeroLeaf(name, p, dim, piece, s3, tuple(p.shape))
+            layout.leaves.append(leaf)
+            if stage >= 2:
+                layout.hooks.append(
+                    p.register_post_accumulate_grad_hook(
+                        layout._stage2_hook(leaf)))
+            if s3:
+                stage3_by_module.setdefault(id(owner[id(p)]), []).append(leaf)
+        for mod in model.modules():
+            sel = stage3_by_module.get(id(mod))
+            if sel:
+                layout.hooks.append(mod.register_forward_pre_hook(
+                    layout._stage3_pre_forward(sel)))
+        layout.release_stage3()
+    params = [p for p in model.parameters() if p.requires_grad]
+    if not params:
+        raise ValueError("the model has no trainable parameters "
+                         "(a decode config?)")
+    opt = adamw(layout.optimizer_params(params), lr, weight_decay)
+    return TrainState(step=0, model=model, optimizer=opt, layout=layout)
+
+
+def make_batch_sharder(mesh) -> Callable[[Dict], Dict]:
+    """This rank's rows of a global batch: the batch splits over the
+    ``data`` x ``fsdp`` ranks (the ``batch`` rule), rank ``r`` of them
+    taking rows ``[r B / W, (r + 1) B / W)``. A batch W does not divide
+    raises. Scalars ride along whole."""
+    sizes = mesh_shape(mesh)
+    w = sizes["data"] * sizes["fsdp"]
+    coord = mesh.get_coordinate() or [0] * len(sizes)
+    r = coord[0] * sizes["fsdp"] + coord[1]
+
+    def shard(batch):
+        out = {}
+        for key, x in batch.items():
+            if getattr(x, "ndim", 0) < 1:
+                out[key] = x
+                continue
+            if x.shape[0] % w:
+                raise ValueError(
+                    f"global batch {x.shape[0]} is not divisible by the "
+                    f"{w} data-parallel ranks")
+            n = x.shape[0] // w
+            out[key] = x[r * n:(r + 1) * n]
+        return out
+
+    return shard
 
 
 def init_optimizer_state(state: TrainState) -> None:
@@ -84,19 +468,48 @@ def state_tree(state: TrainState) -> Dict[str, torch.Tensor]:
     ``named_parameters`` names) and ``opt/<name>/{exp_avg,exp_avg_sq,
     step}``. Every tensor but ``step`` IS the live state (a detached
     view of it), so a restore into this tree updates the model and the
-    optimizer in place. Call :func:`init_optimizer_state` first on a
-    state that has not stepped."""
+    optimizer in place. A sharded leaf is a ``DTensor`` whose local
+    shard is this rank's live slice (FSDP2's parameters and moments; a
+    ZeRO slice's moments, and its parameter at stage 3). Call
+    :func:`init_optimizer_state` first on a state that has not stepped."""
     tree = {"step": torch.tensor(int(state.step), dtype=torch.int64)}
+    lay = state.layout
+    sliced = {id(z.param): z for z in lay.leaves} if lay is not None else {}
     names = {}
     for name, p in state.model.named_parameters():
-        if p.requires_grad:
-            names[p] = name
+        if not p.requires_grad:
+            continue
+        z = sliced.get(id(p))
+        if z is None:
+            names[id(p)] = (name, None)
             tree[f"params/{name}"] = p.detach()
-    for p, st in state.optimizer.state.items():
+            continue
+        names[id(z.piece)] = (name, z)
+        tree[f"params/{name}"] = (lay.leaf_tensor(z, z.piece.detach())
+                                  if z.stage3 else p.detach())
+    for q, st in state.optimizer.state.items():
+        name, z = names[id(q)]
         for key in ("exp_avg", "exp_avg_sq", "step"):
             if key in st:
-                tree[f"opt/{names[p]}/{key}"] = st[key]
+                v = st[key]
+                tree[f"opt/{name}/{key}"] = (
+                    lay.leaf_tensor(z, v) if z is not None and key != "step"
+                    else v)
     return tree
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst``'s shard of ``src`` into ``dst`` (both whole, both the same
+    layout, or a sharded ``dst`` of a whole ``src``)."""
+    from k8s_tpu_torch.parallel.sharding import local_index
+
+    local = _to_local(dst)
+    if hasattr(src, "placements"):
+        src = _to_local(src) if hasattr(dst, "placements") else src.full_tensor()
+    elif hasattr(dst, "placements"):
+        src = src[local_index(dst)]
+    if local.data_ptr() != src.data_ptr():
+        local.copy_(src)
 
 
 def load_state_tree(state: TrainState, tree: Dict[str, torch.Tensor]) -> None:
@@ -111,9 +524,13 @@ def load_state_tree(state: TrainState, tree: Dict[str, torch.Tensor]) -> None:
             f"unexpected {sorted(set(tree) - set(own))[:8]}")
     with torch.no_grad():
         for key, dst in own.items():
-            src = tree[key]
-            if key != "step" and src.data_ptr() != dst.data_ptr():
-                dst.copy_(src)
+            if key != "step":
+                _copy_into(dst, tree[key])
+        if state.layout is not None:
+            # the whole parameters of a ZeRO slice follow its piece
+            for z in state.layout.leaves:
+                if not z.stage3:
+                    z.param.data.copy_(state.layout.gather(z))
     state.step = int(tree["step"])
 
 
@@ -136,6 +553,30 @@ def cross_entropy_loss(
     return losses.mean()
 
 
+def _health_sums(old_params, new_params, grads, device=None) -> torch.Tensor:
+    """``[sum g^2, non-finite count, sum (new - old)^2, sum old^2]`` in
+    f32 over the given tensors (local shards: a sharded state adds them
+    up over its ranks), on ``device`` (default: the first gradient's)."""
+    dev = device if device is not None else grads[0].device
+    out = torch.zeros(4, dtype=torch.float32, device=dev)
+    for g in grads:
+        gf = g.float()
+        out[0] += gf.square().sum()
+        out[1] += (~torch.isfinite(gf)).sum().float()
+    for new, old in zip(new_params, old_params):
+        out[2] += (new.float() - old.float()).square().sum()
+        out[3] += old.float().square().sum()
+    return out
+
+
+def _health_metrics(sums: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {
+        "grad_norm": sums[0].sqrt(),
+        "nonfinite_grads": sums[1],
+        "update_ratio": sums[2].sqrt() / (sums[3] + 1e-20).sqrt(),
+    }
+
+
 def _health_block(old_params, new_params, grads) -> Dict[str, torch.Tensor]:
     """The in-step numerics summary (``make_train_step(health=True)``):
     global gradient L2, count of non-finite gradient elements (f32, so
@@ -143,20 +584,7 @@ def _health_block(old_params, new_params, grads) -> Dict[str, torch.Tensor]:
     over the parameters' L2. Device tensors only — no host sync.
     NaN-transparent: a poisoned gradient shows as ``nonfinite_grads >
     0`` and a NaN ``grad_norm``/``update_ratio``."""
-    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    gsq, nonfinite, usq, psq = zero, zero, zero, zero
-    for g in grads:
-        gf = g.float()
-        gsq = gsq + gf.square().sum()
-        nonfinite = nonfinite + (~torch.isfinite(gf)).sum().float()
-    for new, old in zip(new_params, old_params):
-        usq = usq + (new.float() - old.float()).square().sum()
-        psq = psq + old.float().square().sum()
-    return {
-        "grad_norm": gsq.sqrt(),
-        "nonfinite_grads": nonfinite,
-        "update_ratio": usq.sqrt() / (psq + 1e-20).sqrt(),
-    }
+    return _health_metrics(_health_sums(old_params, new_params, grads))
 
 
 def _split(batch: Dict[str, torch.Tensor], accum_steps: int):
@@ -192,13 +620,23 @@ def make_train_step(loss_fn: LossFn, accum_steps: int = 1,
     ``health=True`` adds ``grad_norm``, ``nonfinite_grads`` and
     ``update_ratio`` (:func:`_health_block`) to the metrics; it keeps a
     copy of the parameters across the update to measure it.
+
+    A state with a :class:`ShardedLayout` runs its collectives: the
+    gradient sync of its strategy and stage after the backward, the
+    slices' all-gather after the update, and one ``all_reduce`` of the
+    loss with the sharded leaves' health sums, so the metrics are the
+    gang's (none of them in a world of one).
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     def run(state: TrainState, batch: Dict[str, torch.Tensor]):
+        lay = state.layout
         params = state.params()
+        opt_params = lay.optimizer_params(params) if lay is not None else params
         state.optimizer.zero_grad(set_to_none=True)
+        for p in params:
+            p.grad = None
         micro = [batch] if accum_steps == 1 else _split(batch, accum_steps)
         loss_sum, aux_sum = None, {}
         for mb in micro:
@@ -209,20 +647,51 @@ def make_train_step(loss_fn: LossFn, accum_steps: int = 1,
             for key, val in aux.items():
                 val = torch.as_tensor(val).detach().float()
                 aux_sum[key] = aux_sum[key] + val if key in aux_sum else val
-        if accum_steps > 1:
+        if lay is not None:
+            lay.sync_gradients(params, accum_steps)
+        elif accum_steps > 1:
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        old = [p.detach().clone() for p in params] if health else None
+        grads = [_to_local(q.grad) if q.grad is not None
+                 else torch.zeros_like(_to_local(q)) for q in opt_params]
+        old = ([_to_local(q).detach().clone() for q in opt_params]
+               if health else None)
         state.optimizer.step()
+        if lay is not None:
+            lay.after_update()
         state.step += 1
-        metrics = {"loss": loss_sum / accum_steps,
+        loss = loss_sum / accum_steps
+        sums = part = None
+        if health:
+            new = [_to_local(q).detach() for q in opt_params]
+            sharded = ([lay.is_sharded(q) for q in opt_params]
+                       if lay is not None else [False] * len(opt_params))
+
+            def pick(xs, flag):
+                return [x for x, f in zip(xs, sharded) if f == flag]
+
+            sums = _health_sums(pick(old, False), pick(new, False),
+                                pick(grads, False), loss.device)
+            if any(sharded):
+                part = _health_sums(pick(old, True), pick(new, True),
+                                    pick(grads, True), loss.device)
+        if lay is not None and lay.world > 1:
+            # one all-reduce: the ranks' losses (the global batch's loss
+            # is the mean of their means) and the shards' health sums
+            vec = loss.reshape(1).to(torch.float32)
+            if part is not None:
+                vec = torch.cat([vec, part])
+            dist.all_reduce(vec)
+            loss = vec[0] / lay.world
+            if part is not None:
+                part = vec[1:]
+        if part is not None:
+            sums = sums + part / lay.replicas
+        metrics = {"loss": loss,
                    **{k: v / accum_steps for k, v in aux_sum.items()}}
         if health:
-            metrics.update(_health_block(old, [p.detach() for p in params],
-                                         grads))
+            metrics.update(_health_metrics(sums))
         return state, metrics
 
     return run

@@ -21,7 +21,20 @@ chip_smoke's tolerance of the plain version. A disagreement is
 described by the query rows, heads and 64-row tiles it touches.
 
     python3 scripts/kernel_repeat_stress.py [--children 32] [--parallel 4] [--reps 1000]
-        [--fresh 0] [--fresh_reps 100]
+        [--fresh 0] [--fresh_reps 100] [--poison N]
+
+``--poison N`` (ROADMAP C4) runs instead ``--children`` children, each
+making N rounds of launches with fresh inputs per launch (a seed per
+launch: child, round and shape) and every SM's shared memory filled
+with NaN words just before each K1, K2, K3 and K5 kernel launch
+(``poison_shared_memory``, at the next kernel's own dynamic
+shared-memory size; K5's, which also has static shared memory, at the
+device's maximum). A round: K1 at B 1, S 16 in both tile configs and at
+B 2, S 1000; the flash backward (K2 then K3) at B 2, S 1000; K5 at B 4,
+S 2048. Each output is held against its plain version at chip_smoke.py's
+limits (K1 8e-3, lse 1e-4; K2/K3 1e-2; K5 5e-3 and its appended rows and
+scales bit-equal). A consumer reading a tile before its bytes land
+would read NaN there and fail the check.
 
 Prints one JSON line per child and a summary line (also written to
 ``chiprun_out/kernel_repeat_stress.json``); exits 1 if any launch
@@ -135,6 +148,109 @@ def child(reps: int, build: bool = False) -> dict:
     return out
 
 
+POISON_K1 = ((1, 16), (2, 1000))
+POISON_BWD = (2, 1000)
+POISON_K5 = (4, 2048)
+
+
+def poison_child(rounds: int, child_index: int) -> dict:
+    """``rounds`` rounds of K1/K2/K3/K5 launches, each kernel launch
+    preceded by the shared-memory poison, every launch on fresh inputs,
+    each output held against its plain version."""
+    import torch
+
+    import chip_smoke as cs
+    from k8s_tpu_torch.ops import _kernels
+    from k8s_tpu_torch.ops import attention as attn
+
+    for name in _kernels.KERNELS:
+        _kernels.lib(name)
+    dev = torch.device("cuda")
+    sizes = {"k8s_flash_bwd_dq_bf16": attn.flash_smem_bytes("dq"),
+             "k8s_flash_bwd_dkv_bf16": attn.flash_smem_bytes("dkv")}
+    launch, poisoned = attn._launch, {"n": 0}
+
+    def with_poison(name, entry, device, *args):
+        if name in ("flash_fwd", "flash_bwd", "decode_attn_q8"):
+            if entry == "k8s_flash_fwd_bf16":
+                size = attn.flash_smem_bytes("fwd", args[-1])
+            else:
+                size = sizes.get(entry)
+            attn.poison_shared_memory(device, size)
+            poisoned["n"] += 1
+        return launch(name, entry, device, *args)
+
+    attn._launch = with_poison
+    out = {"faults": [], "launches": 0, "poisons": 0, "worst": {}}
+
+    def note(kernel, err, limit, **where):
+        out["worst"][kernel] = max(out["worst"].get(kernel, 0.0), err)
+        if not err <= limit:
+            out["faults"].append(dict(where, kernel=kernel, err=err, limit=limit))
+
+    scale = 1.0 / D ** 0.5
+    try:
+        for r in range(rounds):
+            seed = [child_index * 1_000_003 + r * 101]
+
+            def rnd(*shape):
+                seed[0] += 1
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(seed[0])
+                return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+            for b, s in POISON_K1:
+                for config in (1, 0):
+                    q, k, v = rnd(b, s, HQ, D), rnd(b, s, HKV, D), rnd(b, s, HKV, D)
+                    o, lse = attn.flash_fwd(q, k, v, True, scale, with_lse=True,
+                                            config=config)
+                    ref, ref_lse = attn.flash_fwd_plain(q.float(), k.float(), v.float(),
+                                                        True, scale)
+                    out["launches"] += 1
+                    note("flash_fwd", cs.row_rel_err(o, ref), cs.FLASH_REL_TOL,
+                         round=r, B=b, S=s, config=config)
+                    note("flash_fwd_lse", (lse - ref_lse).abs().max().item(),
+                         cs.FLASH_LSE_TOL, round=r, B=b, S=s, config=config)
+            b, s = POISON_BWD
+            q, k, v, do = rnd(b, s, HQ, D), rnd(b, s, HKV, D), rnd(b, s, HKV, D), \
+                rnd(b, s, HQ, D)
+            o, lse = attn.flash_fwd(q, k, v, True, scale, with_lse=True)
+            got = attn.flash_bwd(q, k, v, o, lse, do, True, scale)
+            ref = attn.flash_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                       do.float(), True, scale)
+            out["launches"] += 3
+            for n, x, want in zip(("dq", "dk", "dv"), got, ref):
+                note(f"flash_bwd_{n}", cs.row_rel_err(x, want, floor=cs.FLASH_BWD_ROW_FLOOR),
+                     cs.FLASH_BWD_REL_TOL, round=r, B=b, S=s)
+            b, s = POISON_K5
+            hq = HQ
+            qd, kn, vn = rnd(b, hq, D), rnd(b, HKV, D), rnd(b, HKV, D)
+            (kc, ks), (vc, vs) = (attn.quantize_kv_rows(rnd(b, HKV, s, D)),
+                                  attn.quantize_kv_rows(rnd(b, HKV, s, D)))
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed[0] + 1)
+            pos = torch.randint(0, s, (b,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            caches = [t.clone() for t in (kc, vc, ks, vs)]
+            plain = [t.clone() for t in (kc, vc, ks, vs)]
+            o = attn.decode_attention_update_q8(qd, kn, vn, *caches, pos, scale)[0]
+            ref = attn.decode_attention_q8_plain(qd.float(), kn.float(), vn.float(),
+                                                 *plain, pos, scale)
+            out["launches"] += 1
+            note("decode_attn_q8", cs.row_rel_err(o, ref), cs.DECODE_Q8_REL_TOL,
+                 round=r, B=b, S=s)
+            if not all(torch.equal(x, w) for x, w in zip(caches, plain)):
+                out["faults"].append({"kernel": "decode_attn_q8", "round": r,
+                                      "where": "appended rows or scales differ"})
+            torch.cuda.synchronize()
+            if len(out["faults"]) > 20:
+                break
+    finally:
+        attn._launch = launch
+    out["poisons"] = poisoned["n"]
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--children", type=int, default=32)
@@ -142,11 +258,15 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=1000)
     ap.add_argument("--fresh", type=int, default=0)
     ap.add_argument("--fresh_reps", type=int, default=100)
+    ap.add_argument("--poison", type=int, default=0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--child_index", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.reps, args.build)), flush=True)
+        res = (poison_child(args.poison, args.child_index) if args.poison
+               else child(args.reps, args.build))
+        print(json.dumps(res), flush=True)
         return
 
     import torch
@@ -164,7 +284,9 @@ def main() -> None:
     results = []
     # (index, cwd, argv extra, parallel) per child: the built checkout's
     # children, then the fresh copies one at a time
-    jobs = [(i, ROOT, ["--reps", str(args.reps)]) for i in range(args.children)]
+    jobs = [(i, ROOT, ["--poison", str(args.poison), "--child_index", str(i)]
+             if args.poison else ["--reps", str(args.reps)])
+            for i in range(args.children)]
     fresh_root = tempfile.mkdtemp(prefix="kernel-stress-fresh-") if args.fresh else None
     try:
         for j in range(args.fresh):
@@ -207,7 +329,9 @@ def main() -> None:
     faults = sum(len(r["faults"]) for r in results)
     fresh = [r for r in results if r["fresh"]]
     summary = {"card": card, "children": args.children, "parallel": args.parallel,
-               "reps": args.reps, "launches": sum(r["launches"] for r in results),
+               "reps": args.reps, "poison_rounds": args.poison,
+               "poisons": sum(r.get("poisons", 0) for r in results),
+               "launches": sum(r["launches"] for r in results),
                "faulty_children": sum(1 for r in results if r["faults"]),
                "faults": faults,
                "fresh_children": len(fresh),

@@ -295,6 +295,27 @@ def test_flash_kernel_matches_plain_on_card(cuda, s):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("config", [0, 1])
+def test_flash_fwd_after_shared_memory_poison_on_card(cuda, config):
+    """ROADMAP C4: every SM's shared memory filled with NaN words just
+    before each K1 launch at B 1, S 16 (chip_smoke's first check), on
+    fresh inputs per launch: a tile read before its bytes land would
+    read NaN and fail the limits."""
+    scale = 1.0 / 128 ** 0.5
+    size = tattn.flash_smem_bytes("fwd", config)
+    for seed in range(20):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1000 + seed)
+        q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)
+                   for sh in ((1, 16, 32, 128), (1, 16, 8, 128), (1, 16, 8, 128)))
+        assert tattn.poison_shared_memory(q.device, size) == size
+        out, lse = tattn.flash_fwd(q, k, v, True, scale, with_lse=True, config=config)
+        ref, ref_lse = tattn.flash_fwd_plain(q.float(), k.float(), v.float(), True, scale)
+        assert row_rel_err(out, ref) <= FLASH_REL_TOL, seed
+        assert (lse - ref_lse).abs().max().item() <= FLASH_LSE_TOL, seed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", [0, 1])
 @pytest.mark.parametrize("sq,sk,causal,fused", [
     (129, 129, True, False), (1000, 1000, True, False),
     (2047, 2047, True, False), (300, 777, False, False),

@@ -382,8 +382,9 @@ def test_llama_train_program_converges_on_cpu(capsys):
     events = {ln.get("event") for ln in lines}
     assert {"mesh", "step_health", "convergence"} <= events
     mesh = next(ln for ln in lines if ln.get("event") == "mesh")
-    assert mesh["dp"] == 1
-    steps = [ln["step"] for ln in lines if ln.get("run") == "llama-tiny-dp"]
+    assert mesh["dp"] == 1 and mesh["shape"]["fsdp"] == 1
+    # the default strategy is fsdp, as in the JAX program
+    steps = [ln["step"] for ln in lines if ln.get("run") == "llama-tiny-fsdp"]
     assert steps == [5, 10, 15, 20]
     conv = next(ln for ln in lines if ln.get("event") == "convergence")
     assert conv["ratio"] < 1.0 and out["ratio"] < 1.0
@@ -392,8 +393,8 @@ def test_llama_train_program_converges_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("args,match", [
-    ("--strategy=fsdp", "strategy"), ("--zero1=1", "zero1"),
-    ("--zero_stage=2", "zero_stage"), ("--latency_hiding=1", "latency_hiding"),
+    ("--strategy=fsdp_tp", "A5"), ("--strategy=fsdp_tp_sp", "A7"),
+    ("--strategy=pp", "A8"), ("--latency_hiding=1", "latency_hiding"),
     ("--num_experts=4", "num_experts"), ("--quant=int8", "quant")])
 def test_llama_train_unported_options_raise(args, match):
     with pytest.raises(NotImplementedError, match=match):
