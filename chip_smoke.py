@@ -8,7 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from ``k8s_tpu_torch/csrc/``, holds
 each one against its plain PyTorch version at the serving and training
 paths' shapes (error, kernel / plain / library times and the kernel's
-roofline bound), then drives the port's three main paths, in this order:
+roofline bound) and K1-K3 also at one rank's heads under tensor
+parallelism (``flash_head_split``: Hq/Hkv 16/4 and 8/2 at the training
+batch and sequence), then drives the port's three main paths, in this
+order:
 
 - serving: Llama-3-8B at full width and depth (random bf16 weights from
   a fixed seed) through the continuous-batching engine behind a real
@@ -32,7 +35,12 @@ roofline bound), then drives the port's three main paths, in this order:
   and the root: the backend and the wrapping checked, K1-K3 launched
   layers x steps times, the first 3 losses against ``dp``'s, step time,
   tokens/s, MFU and peak memory beside ``dp``'s, and the group's NCCL
-  init seconds;
+  init seconds; then ``--strategy=fsdp_tp`` the same way, its tensor
+  axis of one rank: every parameter a ``DTensor`` over ``(fsdp,
+  tensor)`` checked, the tensor-axis collectives of each step counted
+  against their expected number, the first 3 losses against ``dp``'s,
+  and its step time, tokens/s, MFU and peak beside ``dp``'s and
+  ``fsdp``'s;
 - the launcher: ``python -m k8s_tpu_torch.launcher.spmd_launcher`` as a
   child process: the mesh smoke check (exit 0); training at Llama-3-8B
   width, 2 layers, 6 steps, with the per-host obs endpoint polled
@@ -568,6 +576,85 @@ def phase_flash_bwd(torch, attn, kernels, gen):
                               rel_err=max(worst["dk"], worst["dv"]),
                               ms=train["k3_ms"], bound_ms=k3[0], bound_by=k3[1]),
     }
+
+
+# the per-rank head counts of llama_train --strategy=fsdp_tp at tensor 2
+# and 4 (Llama-3-8B's 32 q / 8 kv heads split contiguously over the
+# tensor axis), at the training phase's batch and sequence
+HEAD_SPLITS = ((16, 4), (8, 2))
+
+
+def phase_flash_head_split(torch, attn, gen):
+    """K1, K2 and K3 at each rank's shape under tensor parallelism
+    (``flash_attention_sharded``'s local block): B 8, S 2048, D 128,
+    causal, Hq/Hkv 16/4 (tensor 2) and 8/2 (tensor 4). Each is held
+    against its plain version at the limits of the full-head checks (K1
+    rows 8e-3, lse 1e-4; K2/K3 rows 1e-2 with the row floor) and timed
+    beside its bound, its plain version and SDPA (forward; forward and
+    backward for K2/K3), with the K1 tile config ``_flash_fwd_config``
+    chose."""
+    b, s, d = TRAIN_BATCH, TRAIN_SEQ, 128
+    scale = 1.0 / d ** 0.5
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    rows = []
+    names = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    for hq, hkv in HEAD_SPLITS:
+        q, k, v, do = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        config = attn._flash_fwd_config(b, s, hq)
+        out, lse = attn.flash_fwd(q, k, v, True, scale, with_lse=True)
+        ref, ref_lse = attn.flash_fwd_plain(q.float(), k.float(), v.float(), True, scale)
+        got = attn.flash_bwd(q, k, v, out, lse, do, True, scale)
+        gref = attn.flash_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                    do.float(), True, scale)
+        torch.cuda.synchronize()
+        row = {"Hq": hq, "Hkv": hkv, "tensor": 32 // hq, "config": config,
+               "k1_rel_err": row_rel_err(out, ref),
+               "k1_max_abs_err": (out.float() - ref).abs().max().item(),
+               "lse_err": (lse - ref_lse).abs().max().item()}
+        for name, x, r in zip(("dq", "dk", "dv"), got, gref):
+            row[name + "_rel_err"] = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR)
+            row[name + "_max_abs_err"] = (x.float() - r).abs().max().item()
+        del ref, gref
+        if not (row["k1_rel_err"] <= FLASH_REL_TOL and row["lse_err"] <= FLASH_LSE_TOL):
+            fail(f"flash_head_split K1 Hq={hq} Hkv={hkv}: {row} (tol {FLASH_REL_TOL}, "
+                 f"lse {FLASH_LSE_TOL})")
+        if max(row[n + "_rel_err"] for n in ("dq", "dk", "dv")) > FLASH_BWD_REL_TOL:
+            fail(f"flash_head_split K2/K3 Hq={hq} Hkv={hkv}: {row} "
+                 f"(tol {FLASH_BWD_REL_TOL})")
+        pairs = s * (s + 1) / 2
+        qo, kv, rowb = 2 * b * s * hq * d, 2 * b * s * hkv * d, 4 * b * hq * s
+        k1_flops = 4 * b * hq * d * pairs
+        row["k1_bound_ms"], row["k1_bound_by"] = bound(2 * qo + 2 * kv, k1_flops)
+        row["k2_bound_ms"], row["k2_bound_by"] = bound(3 * qo + 2 * kv + 2 * rowb,
+                                                       6 * b * hq * d * pairs)
+        row["k3_bound_ms"], row["k3_bound_by"] = bound(2 * qo + 4 * kv + 2 * rowb,
+                                                       8 * b * hq * d * pairs)
+        row["k1_ms"] = kernel_ms(torch, lambda: attn.flash_fwd(q, k, v, True, scale),
+                                 [K1_INSTANCES[config]], reps=10)[K1_INSTANCES[config]]
+        t_bwd = kernel_ms(torch, lambda: attn.flash_bwd(q, k, v, out, lse, do, True, scale),
+                          names)
+        row["k2_ms"], row["k3_ms"] = t_bwd[names[0]], t_bwd[names[1]]
+        row["k1_tflops"] = k1_flops / row["k1_ms"] / 1e9
+        row["k1_plain_ms"] = device_ms(
+            torch, lambda: attn.flash_fwd_plain(q, k, v, True, scale), reps=1)
+        row["bwd_plain_ms"] = device_ms(
+            torch, lambda: attn.flash_bwd_plain(q, k, v, out, lse, do, True, scale), reps=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        row["k1_sdpa_ms"] = device_ms(torch, sdpa(torch, qt.detach(), kt.detach(),
+                                                  vt.detach(), is_causal=True))
+        o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        row["bwd_sdpa_ms"] = device_ms(torch, lambda: torch.autograd.grad(
+            o_sdpa, (qt, kt, vt), dot, retain_graph=True))
+        rows.append(row)
+        del q, k, v, do, out, lse, got, qt, kt, vt, o_sdpa, dot
+        torch.cuda.empty_cache()
+    emit({"phase": "flash_head_split", "shape": f"B={b} S={s} D={d} causal bf16",
+          "rel_tol": FLASH_REL_TOL, "lse_tol": FLASH_LSE_TOL,
+          "bwd_rel_tol": FLASH_BWD_REL_TOL, "row_floor": FLASH_BWD_ROW_FLOOR,
+          "rows": rows})
+    return rows
 
 
 def ptxas_by_kernel(log: str, names) -> dict:
@@ -1697,6 +1784,121 @@ def phase_train_fsdp(torch, attn, card, dp):
           "phases_ms_median_3_10": median_phases(run["step_phases"][2:]),
           "dp": {k: v for k, v in dp.items() if k != "losses"},
           "dp_first3_losses": dp["losses"][:3], "card": card})
+    summary = {"step_ms_median_3_10": step_ms, "tokens_per_s": tokens_per_s,
+               "mfu_6nd": 6 * n_params * tokens_per_s / PEAK_BF16_FLOPS,
+               "peak_mem_gb": peak / 1e9,
+               "phases_ms_median_3_10": median_phases(run["step_phases"][2:])}
+    del run, state, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_train_fsdp_tp(torch, attn, card, dp, fsdp):
+    """``llama_train --strategy=fsdp_tp`` through the launcher's API in
+    process, as :func:`phase_train_fsdp` runs ``fsdp``: the same model,
+    depth, data, seed and steps, at world size 1 on the one-process NCCL
+    group, so the mesh's tensor axis has one rank — and the same code as
+    at tensor 4: every parameter a ``DTensor`` over ``(fsdp, tensor)``
+    with the ``FSDP_TP`` rules' placements, the model's tensor-axis
+    collectives issued on a one-rank NCCL group. Checks the backend, the
+    placements, K1-K3 launched layers x steps times each, the loss
+    falling, the first 3 losses within ``FSDP_DP_LOSS_RTOL`` of ``dp``'s
+    and the tensor-axis collectives of each step against
+    ``tensor_parallel.expected_per_step``; reports step time, tokens/s,
+    MFU, peak memory and the step phases beside ``dp``'s and ``fsdp``'s."""
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+
+    from k8s_tpu_torch.launcher.spmd_launcher import Rendezvous, run_program
+    from k8s_tpu_torch.parallel import mesh as pmesh
+    from k8s_tpu_torch.parallel import tensor_parallel as ptp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    layers, steps = dp["layers"], TRAIN_STEPS
+    rdzv = Rendezvous({
+        "KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
+        "KTPU_PROGRAM_ARGS": (
+            f"--strategy=fsdp_tp --model=llama3-8b --layers={layers} "
+            f"--seq_len={TRAIN_SEQ} --batch_size={TRAIN_BATCH} --steps={steps} "
+            "--log_every=1 --remat_policy=flash --fused_ce=1 --lr=3e-4 "
+            "--data=learnable")})
+    attn.flash_fwd.launches = 0
+    attn.flash_bwd.launches_dq = attn.flash_bwd.launches_dkv = 0
+    ptp.reset_counts()
+    t0 = time.perf_counter()
+    run = run_program(rdzv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": attn.flash_fwd.launches,
+                "flash_bwd_dq": attn.flash_bwd.launches_dq,
+                "flash_bwd_dkv": attn.flash_bwd.launches_dkv}
+    counted = dict(ptp.COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated()
+    backend = dist.get_backend()
+    if backend != "nccl" or dist.get_world_size() != 1:
+        fail(f"train_fsdp_tp: process group {backend!r} of "
+             f"{dist.get_world_size()} ranks, expected one NCCL rank")
+    state = run["state"]
+    mesh = pmesh.mesh_shape(run["mesh"])
+    if mesh["tensor"] != 1 or mesh["fsdp"] != 1:
+        fail(f"train_fsdp_tp: mesh {mesh}, expected fsdp 1 x tensor 1")
+    blocks = list(state.model.layers)
+    wrapped = sum(isinstance(b, FSDPModule) for b in blocks)
+    if wrapped != len(blocks) or not isinstance(state.model, FSDPModule):
+        fail(f"train_fsdp_tp: fully_shard wrapped {wrapped} of {len(blocks)} "
+             "blocks (and the root must be wrapped too)")
+    placements = {n: (tuple(p.device_mesh.mesh_dim_names), tuple(repr(x) for x in p.placements))
+                  for n, p in state.model.named_parameters()}
+    want_placements = {
+        "layers.0.attn.q_proj": (("fsdp", "tensor"), ("Shard(dim=0)", "Shard(dim=1)")),
+        "layers.0.attn.o_proj": (("fsdp", "tensor"), ("Shard(dim=1)", "Shard(dim=0)")),
+        "layers.0.mlp.down_proj": (("fsdp", "tensor"), ("Shard(dim=1)", "Shard(dim=0)")),
+        "layers.0.input_norm.weight": (("fsdp", "tensor"), ("Shard(dim=0)", "Replicate()")),
+        "embed_tokens": (("fsdp", "tensor"), ("Shard(dim=1)", "Shard(dim=0)")),
+        "lm_head": (("fsdp", "tensor"), ("Shard(dim=0)", "Shard(dim=1)"))}
+    off = {n: placements.get(n) for n, w in want_placements.items() if placements.get(n) != w}
+    if off:
+        fail(f"train_fsdp_tp: placements {off}, expected {want_placements}")
+    want = layers * steps
+    if set(launches.values()) != {want}:
+        fail(f"train_fsdp_tp: kernel launches {launches}, expected {want} each")
+    per_step = ptp.expected_per_step(layers, recompute=True)
+    if counted != {k: v * steps for k, v in per_step.items()}:
+        fail(f"train_fsdp_tp: tensor-axis collectives {counted} over {steps} steps, "
+             f"expected {per_step} per step")
+    ratio = run.get("ratio")
+    if not (ratio is not None and np.isfinite(run["final_loss"]) and ratio < 1.0):
+        fail(f"train_fsdp_tp: loss did not fall: first {run.get('first_loss')} "
+             f"final {run.get('final_loss')}")
+    losses = [l for _, l in run["losses"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:3], dp["losses"][:3])]
+    if len(rel) != 3 or max(rel) > FSDP_DP_LOSS_RTOL:
+        fail(f"train_fsdp_tp: first losses {losses[:3]} vs dp's {dp['losses'][:3]} "
+             f"(rel {rel}, tol {FSDP_DP_LOSS_RTOL})")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step_ms = 1e3 * statistics.median(run["step_s"][2:])
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    emit({"phase": "train_fsdp_tp", "model": "llama3_8b", "layers": layers,
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH, "steps": steps,
+          "world_size": dist.get_world_size(), "backend": backend, "mesh": mesh,
+          "fully_shard_blocks": wrapped,
+          "placements": {n: list(placements[n][1]) for n in want_placements},
+          "tensor_collectives_per_step": {k: v / steps for k, v in counted.items()},
+          "tensor_collectives_expected_per_step": per_step,
+          "mesh_s": run["mesh_s"], "n_params": n_params,
+          "losses": losses, "first3_rel_vs_dp": rel,
+          "first3_rel_tol": FSDP_DP_LOSS_RTOL, "convergence_ratio": ratio,
+          "step_ms_median_3_10": step_ms, "step_ms": [1e3 * t for t in run["step_s"]],
+          "tokens_per_s": tokens_per_s,
+          "mfu_6nd": 6 * n_params * tokens_per_s / PEAK_BF16_FLOPS,
+          "peak_mem_gb": peak / 1e9, "wall_s": wall, "compile_s": run["compile_s"],
+          "launches": launches,
+          "phases_ms_median_3_10": median_phases(run["step_phases"][2:]),
+          "dp": {k: v for k, v in dp.items() if k != "losses"},
+          "fsdp": fsdp, "card": card})
     del run, state, blocks
     gc.collect()
     torch.cuda.empty_cache()
@@ -2441,7 +2643,9 @@ def main() -> None:
         # the training phases alone (a debugging aid, as above)
         attn.poison_shared_memory(torch.device("cuda"), attn.flash_smem_bytes("fwd", 1))
         train, _, dp = phase_train(torch, attn, card)
-        emit({"partial": only, "launches_train_fsdp": phase_train_fsdp(torch, attn, card, dp)})
+        train_fsdp, fsdp = phase_train_fsdp(torch, attn, card, dp)
+        emit({"partial": only, "launches_train_fsdp": train_fsdp,
+              "launches_train_fsdp_tp": phase_train_fsdp_tp(torch, attn, card, dp, fsdp)})
         return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2454,20 +2658,24 @@ def main() -> None:
                           "before": "the first K1 check (B 1, S 16, config 1)"}})
     k1 = phase_flash(torch, attn, _kernels, gen)
     bwd = phase_flash_bwd(torch, attn, _kernels, gen)
+    head_split = phase_flash_head_split(torch, attn, gen)
     k4 = phase_decode(torch, attn, _kernels, gen)
     k5 = phase_decode_q8(torch, attn, _kernels, gen)
     serving = phase_serving(torch, attn, card)
     train, tracer_ms, dp = phase_train(torch, attn, card)
-    train_fsdp = phase_train_fsdp(torch, attn, card, dp)
+    train_fsdp, fsdp = phase_train_fsdp(torch, attn, card, dp)
+    train_fsdp_tp = phase_train_fsdp_tp(torch, attn, card, dp, fsdp)
     restored = phase_launcher(torch, attn, card, tracer_ms)
     serving_int8 = phase_serving_int8(torch, attn, card)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
-                + train_fsdp["flash_fwd"]
+                + train_fsdp["flash_fwd"] + train_fsdp_tp["flash_fwd"]
                 + serving_int8["flash_fwd"] + restored["flash_fwd"],
                 "decode_attn": serving["decode_attn"] + restored["decode_attn"],
                 "decode_attn_q8": serving_int8["decode_attn_q8"],
-                "flash_bwd_dq": train["flash_bwd_dq"] + train_fsdp["flash_bwd_dq"],
-                "flash_bwd_dkv": train["flash_bwd_dkv"] + train_fsdp["flash_bwd_dkv"]}
+                "flash_bwd_dq": train["flash_bwd_dq"] + train_fsdp["flash_bwd_dq"]
+                + train_fsdp_tp["flash_bwd_dq"],
+                "flash_bwd_dkv": train["flash_bwd_dkv"] + train_fsdp["flash_bwd_dkv"]
+                + train_fsdp_tp["flash_bwd_dkv"]}
 
     def entry(name, src, replaces, row):
         return {"name": name, "route": "cuda", "source": src,
@@ -2475,6 +2683,7 @@ def main() -> None:
                 "launches_serving": serving.get(name, 0),
                 "launches_train": train.get(name, 0),
                 "launches_train_fsdp": train_fsdp.get(name, 0),
+                "launches_train_fsdp_tp": train_fsdp_tp.get(name, 0),
                 "launches_serving_int8": serving_int8.get(name, 0),
                 "launches_restored_serving": restored.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
@@ -2491,15 +2700,26 @@ def main() -> None:
              train_shape_ms=k1["train"]["ms"],
              train_shape_bound_ms=k1["train"]["bound_ms"],
              train_shape_library_ms=k1["train"]["library_ms"],
-             train_shape_tflops=k1["train"]["tflops"]),
+             train_shape_tflops=k1["train"]["tflops"],
+             head_split=[{key: r[key] for key in (
+                 "Hq", "Hkv", "tensor", "config", "k1_ms", "k1_bound_ms",
+                 "k1_bound_by", "k1_plain_ms", "k1_sdpa_ms", "k1_rel_err", "lse_err")}
+                 for r in head_split]),
         entry("flash_bwd_dq", "k8s_tpu_torch/csrc/flash_bwd.cu",
               "k8s_tpu/ops/attention.py:354", bwd["flash_bwd_dq"])
         | {"shape": bwd["flash_bwd_dq"]["shape"],
-           "note": "plain_ms and library_ms compute dq, dk and dv together"},
+           "note": "plain_ms and library_ms compute dq, dk and dv together",
+           "head_split": [{key: r[key] for key in (
+               "Hq", "Hkv", "tensor", "k2_ms", "k2_bound_ms", "k2_bound_by",
+               "bwd_plain_ms", "bwd_sdpa_ms", "dq_rel_err")} for r in head_split]},
         entry("flash_bwd_dkv", "k8s_tpu_torch/csrc/flash_bwd.cu",
               "k8s_tpu/ops/attention.py:414", bwd["flash_bwd_dkv"])
         | {"shape": bwd["flash_bwd_dkv"]["shape"],
-           "note": "plain_ms and library_ms compute dq, dk and dv together"},
+           "note": "plain_ms and library_ms compute dq, dk and dv together",
+           "head_split": [{key: r[key] for key in (
+               "Hq", "Hkv", "tensor", "k3_ms", "k3_bound_ms", "k3_bound_by",
+               "bwd_plain_ms", "bwd_sdpa_ms", "dk_rel_err", "dv_rel_err")}
+               for r in head_split]},
         dict(entry("decode_attn", "k8s_tpu_torch/csrc/decode_attn.cu",
                    "k8s_tpu/ops/attention.py:875", k4),
              shape="B=8 S=2048 Hq=32 Hkv=8 D=128 ragged pos",

@@ -233,14 +233,53 @@ def union_covering_plan(
     return [(k, src) for k, (src, _) in pieces.items()]
 
 
+def _intersection(a, b) -> Optional[Tuple[Tuple[int, int], ...]]:
+    """The box ``a`` ∩ ``b`` (None when they share no element)."""
+    if len(a) != len(b):
+        return None
+    out = tuple((max(x[0], y[0]), min(x[1], y[1])) for x, y in zip(a, b))
+    return None if any(lo >= hi for lo, hi in out) else out
+
+
+def overlap_covering_plan(
+    want_key: str, have_by_source,
+) -> Optional[List[Tuple[str, Any]]]:
+    """:func:`union_covering_plan` for shards that OVERLAP ``want_key``
+    without lying inside it: a checkpoint written under a layout that
+    cuts another dimension (an ``fsdp_tp`` state's ``[E, H·D/4]`` column
+    blocks read back as an ``fsdp`` rank's ``[E/2, H·D]`` row block) has
+    no stored shard inside the wanted one. Every stored shard that
+    shares elements with ``want_key`` contributes that intersection (the
+    first source holding a key claims it); the intersections must tile
+    ``want_key`` exactly. Returns ``[(key, source), ...]`` or None.
+    Shards of one checkpoint are disjoint or identical (one layout), so
+    their intersections with a box are disjoint too."""
+    want = _box(want_key)
+    if want is None:
+        return None
+    pieces: Dict[str, Tuple[Any, Tuple]] = {}
+    for src, keys in have_by_source:
+        for k in keys:
+            if k in pieces:
+                continue
+            b = _box(k)
+            cut = None if b is None else _intersection(b, want)
+            if cut is not None:
+                pieces[k] = (src, cut)
+    if not _tiles_exactly(want, [c for _, c in pieces.values()]):
+        return None
+    return [(k, src) for k, (src, _) in pieces.items()]
+
+
 def compose_shard(
     want_key: str, plan: List[str], load,
 ) -> Optional[np.ndarray]:
     """Assemble the ``want_key`` slice from the shards named by a
-    :func:`covering_plan`. ``load(key) -> ndarray | None`` reads one
-    stored shard (crc-verified by the caller's loader); any failed load
-    fails the composition (caller falls back to a peer / the persistent
-    tier)."""
+    :func:`covering_plan` (or :func:`overlap_covering_plan`): each
+    stored shard's intersection with the wanted box lands at its place.
+    ``load(key) -> ndarray | None`` reads one stored shard (crc-verified
+    by the caller's loader); any failed load fails the composition
+    (caller falls back to a peer / the persistent tier)."""
     want = _box(want_key)
     if plan == [want_key] or want is None:
         return load(want_key)
@@ -262,10 +301,10 @@ def compose_shard(
             out = np.empty(
                 tuple(hi - lo for lo, hi in want), dtype=arr.dtype)
         kb = _box(k)
-        rel = tuple(
-            slice(b[0] - w[0], b[1] - w[0]) for b, w in zip(kb, want)
-        )
-        out[rel] = arr
+        cut = _intersection(kb, want)
+        dst = tuple(slice(c[0] - w[0], c[1] - w[0]) for c, w in zip(cut, want))
+        src = tuple(slice(c[0] - b[0], c[1] - b[0]) for c, b in zip(cut, kb))
+        out[dst] = arr[src]
     return out
 
 

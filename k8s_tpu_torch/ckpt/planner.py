@@ -60,6 +60,7 @@ from k8s_tpu_torch.ckpt.local import (
     covering_plan,
     full_key,
     index_key,
+    overlap_covering_plan,
     parse_index_key,
     required_indices,
     union_covering_plan,
@@ -79,6 +80,16 @@ def _full_indices(template_leaf) -> List[str]:
         shape = tuple(int(d) for d in template_leaf.shape)
         return [index_key(i, shape) for i in all_indices(template_leaf)]
     return [full_key(getattr(template_leaf, "shape", ()))]
+
+
+def _tiling_plan(key: str, have_by_source):
+    """The pieces that rebuild ``key`` across several manifests: the
+    shards inside it (:func:`union_covering_plan`), else the shards that
+    overlap it (:func:`overlap_covering_plan`: a checkpoint of another
+    layout and world size)."""
+    plan = union_covering_plan(key, have_by_source)
+    return plan if plan is not None else overlap_covering_plan(
+        key, have_by_source)
 
 
 SOURCE_LOCAL = "local"
@@ -281,7 +292,9 @@ class RestorePlanner:
         When no SINGLE manifest covers an index (a multi-host ZeRO-1
         checkpoint: each host stores only its own 1/DP opt tile), the
         UNION of own + peer manifests may still tile it —
-        union_covering_plan records the per-piece sources in ``tiled``.
+        union_covering_plan records the per-piece sources in ``tiled``,
+        and overlap_covering_plan the shards that only overlap it (a
+        checkpoint of another world size or strategy).
         ``coverage`` (gang mode) additionally requires the union of
         visible manifests to hold EVERY listed index — proving every
         peer could restore this step too."""
@@ -309,7 +322,7 @@ class RestorePlanner:
                     peer_shards.setdefault(path, {})[key] = host
                     fetches += 1
                     continue
-                union = union_covering_plan(
+                union = _tiling_plan(
                     key, self._sources(path, own_keys, peer_hosts,
                                        peer_manifests))
                 if union is None:
@@ -326,7 +339,7 @@ class RestorePlanner:
                     if self._peer_with(step, path, key, peer_hosts,
                                        peer_manifests) is not None:
                         continue
-                    if union_covering_plan(
+                    if _tiling_plan(
                             key, self._sources(path, own_keys, peer_hosts,
                                                peer_manifests)) is None:
                         return False, {}, {}, 0

@@ -84,12 +84,20 @@ from k8s_tpu_torch.ops.attention import (
     decode_attention_update,
     decode_attention_update_q8,
     flash_attention,
+    flash_attention_sharded,
     quantize_kv_rows,
 )
 from k8s_tpu_torch.ops.fused_ce import fused_lm_head_cross_entropy
 from k8s_tpu_torch.ops.norms import rms_norm
 from k8s_tpu_torch.ops.quant import Int8ServingDense, quantize_rows
 from k8s_tpu_torch.parallel.sharding import sharded_embedding_lookup
+from k8s_tpu_torch.parallel.tensor_parallel import (
+    TensorAxis,
+    copy_to_tensor_region,
+    gather_from_tensor_region,
+    reduce_from_tensor_region,
+    vocab_parallel_embedding_lookup,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,9 +354,17 @@ def _weight(cfg: LlamaConfig, *shape, dtype, device) -> nn.Parameter:
                         requires_grad=not cfg.decode)
 
 
+def _local(w: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor`` parameter (a tensor-parallel
+    layout's, whole over ``fsdp`` inside its module's forward), any other
+    tensor itself."""
+    return w.to_local() if hasattr(w, "to_local") else w
+
+
 def _use(w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """A weight cast to the compute dtype at use (the same tensor, with
-    no dispatch, when it is stored in it, as in serving)."""
+    """A weight's local shard cast to the compute dtype at use (the same
+    tensor, with no dispatch, when it is stored in it, as in serving)."""
+    w = _local(w)
     return w if w.dtype == cfg.dtype else w.to(cfg.dtype)
 
 
@@ -404,10 +420,48 @@ class LlamaAttention(nn.Module):
         self.k_proj = _projection(cfg, e, kv * d, device)
         self.v_proj = _projection(cfg, e, kv * d, device)
         self.o_proj = _projection(cfg, h * d, e, device)
+        # the mesh and its tensor axis of a tensor-parallel layout
+        # (LlamaForCausalLM.use_tensor_parallel), else None
+        self.mesh: Optional[object] = None
+        self.tp: Optional[TensorAxis] = None
+
+    def _train_forward(self, x, positions, segment_ids):
+        """Training self-attention on this rank's heads: the local head
+        counts come from the local projection widths (all of them
+        without a tensor-parallel layout)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        d = cfg.head_dim
+        if self.tp is not None:
+            x = copy_to_tensor_region(x, self.tp)
+        q = _rope(_dense(self.q_proj, x, cfg).view(b, s, -1, d), positions,
+                  cfg.rope_theta)
+        k = _rope(_dense(self.k_proj, x, cfg).view(b, s, -1, d), positions,
+                  cfg.rope_theta)
+        v = _dense(self.v_proj, x, cfg).view(b, s, -1, d)
+        if cfg.remat and cfg.remat_policy == "flash_qkv":
+            q = checkpoint_name(q, "attn_q")
+            k = checkpoint_name(k, "attn_k")
+            v = checkpoint_name(v, "attn_v")
+        if self.mesh is not None:
+            # every sharded layout, one rank included: the same kernel
+            # call on the local block (the JAX gate skips its shard_map
+            # on a one-device mesh only because it would be a no-op)
+            out = flash_attention_sharded(
+                q, k, v, self.mesh, causal=True, segment_ids=segment_ids,
+                global_heads=(cfg.num_heads, cfg.num_kv_heads))
+        else:
+            out = flash_attention(q, k, v, causal=True,
+                                  segment_ids=segment_ids)
+        out = _dense(self.o_proj, out.reshape(b, s, -1), cfg)
+        return out if self.tp is None else reduce_from_tensor_region(
+            out, self.tp)
 
     def forward(self, x, positions, cache: Optional[KVCache] = None,
                 segment_ids: Optional[torch.Tensor] = None):
         cfg = self.cfg
+        if not cfg.decode:
+            return self._train_forward(x, positions, segment_ids)
         b, s, _ = x.shape
         h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         xq = _quantized_input(x, cfg)
@@ -416,14 +470,6 @@ class LlamaAttention(nn.Module):
         k = _rope(_dense(self.k_proj, x, cfg, xq).view(b, s, kv, d),
                   positions, cfg.rope_theta)
         v = _dense(self.v_proj, x, cfg, xq).view(b, s, kv, d)
-        if not cfg.decode:
-            if cfg.remat and cfg.remat_policy == "flash_qkv":
-                q = checkpoint_name(q, "attn_q")
-                k = checkpoint_name(k, "attn_k")
-                v = checkpoint_name(v, "attn_v")
-            out = flash_attention(q, k, v, causal=True,
-                                  segment_ids=segment_ids)
-            return _dense(self.o_proj, out.reshape(b, s, h * d), cfg)
         if segment_ids is not None:
             raise NotImplementedError(
                 "packed segments are not supported in decode mode")
@@ -485,13 +531,18 @@ class LlamaMLP(nn.Module):
         self.gate_proj = _projection(cfg, e, f, device)
         self.up_proj = _projection(cfg, e, f, device)
         self.down_proj = _projection(cfg, f, e, device)
+        self.tp: Optional[TensorAxis] = None
 
     def forward(self, x):
         cfg = self.cfg
+        if self.tp is not None:
+            # gate/up column-parallel, down row-parallel
+            x = copy_to_tensor_region(x, self.tp)
         xq = _quantized_input(x, cfg)
         y = (F.silu(_dense(self.gate_proj, x, cfg, xq))
              * _dense(self.up_proj, x, cfg, xq))
-        return _dense(self.down_proj, y, cfg)
+        y = _dense(self.down_proj, y, cfg)
+        return y if self.tp is None else reduce_from_tensor_region(y, self.tp)
 
 
 class RMSNorm(nn.Module):
@@ -503,7 +554,7 @@ class RMSNorm(nn.Module):
             requires_grad=not cfg.decode)
 
     def forward(self, x):
-        return rms_norm(x, self.weight, self.eps)
+        return rms_norm(x, _local(self.weight), self.eps)
 
 
 class LlamaBlock(nn.Module):
@@ -555,6 +606,27 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = _weight(config, config.hidden_size,
                                    config.vocab_size, dtype=torch.float32,
                                    device=dev)
+        self.mesh: Optional[object] = None
+        self.tp: Optional[TensorAxis] = None
+
+    def use_tensor_parallel(self, mesh) -> None:
+        """Run the training forward on this rank's shards of a tensor-
+        parallel layout over ``mesh`` (``train.create_sharded_state``
+        under ``LogicalRules.FSDP_TP`` makes every parameter a ``DTensor``
+        split over its ``tensor`` axis): the attention's heads and the
+        MLP's columns local, their collectives over ``tensor``
+        (:mod:`k8s_tpu_torch.parallel.tensor_parallel`), the embedding and
+        the fused loss vocab-parallel. Every rank calls it, a world of
+        one too."""
+        if self.config.decode:
+            raise NotImplementedError(
+                "tensor-parallel serving is not ported to k8s_tpu_torch yet "
+                "(ROADMAP A15)")
+        axis = TensorAxis.of(mesh)
+        self.mesh, self.tp = mesh, axis
+        for block in self.layers:
+            block.attn.mesh, block.attn.tp = mesh, axis
+            block.mlp.tp = axis
 
     def load_params(self, params) -> None:
         """Adopt a ``{name: tensor}`` dict keyed like
@@ -589,6 +661,11 @@ class LlamaForCausalLM(nn.Module):
         ``_lm_head_logits``): an f32 product, or the int8 one."""
         if isinstance(self.lm_head, Int8ServingDense):
             return self.lm_head(hidden.float())
+        if self.tp is not None:
+            # vocab-parallel: this rank's columns, then every rank's
+            hidden = copy_to_tensor_region(hidden, self.tp)
+            return gather_from_tensor_region(
+                hidden.float() @ _local(self.lm_head), self.tp)
         return hidden.float() @ self.lm_head
 
     def forward(self, input_ids, positions=None, cache: Optional[KVCache] = None,
@@ -618,7 +695,12 @@ class LlamaForCausalLM(nn.Module):
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
-        x = sharded_embedding_lookup(self.embed_tokens, input_ids, cfg.dtype)
+        if self.tp is not None:
+            x = vocab_parallel_embedding_lookup(
+                _local(self.embed_tokens), input_ids, self.tp, cfg.dtype)
+        else:
+            x = sharded_embedding_lookup(self.embed_tokens, input_ids,
+                                         cfg.dtype)
         context_fn = _remat_policy(cfg.remat_policy) if cfg.remat else None
         for block in self.layers:
             if context_fn is None:
@@ -629,7 +711,8 @@ class LlamaForCausalLM(nn.Module):
         x = self.final_norm(x)
         if labels is not None:
             return fused_lm_head_cross_entropy(
-                x[:, :labels.shape[1]], self.lm_head, labels, z_loss=z_loss)
+                x[:, :labels.shape[1]], self.lm_head, labels, z_loss=z_loss,
+                mesh=self.mesh)
         if return_hidden:
             return x
         if last_logit_only:

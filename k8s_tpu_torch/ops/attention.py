@@ -38,7 +38,9 @@ forward and backward through :func:`flash_attention_kernel`, the
 ``jax.custom_vjp`` pair ``_flash`` as a ``torch.library`` custom op with
 a registered backward. Being one op the dispatcher sees, its outputs
 (``out`` and ``lse``) are what the ``flash`` remat policy saves
-(:mod:`k8s_tpu_torch.models.llama`). Layouts follow the JAX package:
+(:mod:`k8s_tpu_torch.models.llama`). :func:`flash_attention_sharded`
+runs it on one rank's block of a batch and heads split over a mesh
+(tensor parallelism). Layouts follow the JAX package:
 ``[B, S, H, D]`` for attention, ``[B, H, D]`` queries over a
 head-major ``[B, Hkv, S, D]`` cache for decode, ``[B, Hq, Sq]`` f32 for
 lse and D (the JAX ``[B*H, 1, Sq]`` row layout, reshaped).
@@ -47,7 +49,7 @@ lse and D (the JAX ``[B*H, 1, Sq]`` row layout, reshaped).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -412,6 +414,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     or v.requires_grad):
         return flash_attention_kernel(q, k, v, causal, scale)
     return flash_fwd(q, k, v, causal, scale)  # inference: no lse to keep
+
+
+def _split_extents(mesh, batch_axes, head_axis) -> Tuple[int, int]:
+    """(batch extent, head extent) of ``mesh`` for these axes."""
+    from k8s_tpu_torch.parallel.mesh import mesh_shape
+
+    sizes = mesh_shape(mesh)
+    batch_shard = 1
+    for ax in (batch_axes if isinstance(batch_axes, tuple) else (batch_axes,)):
+        batch_shard *= sizes.get(ax, 1)
+    return batch_shard, sizes.get(head_axis, 1)
+
+
+def check_sharded_split(b: int, hq: int, hkv: int, mesh,
+                        batch_axes=("data", "fsdp"),
+                        head_axis: str = "tensor") -> None:
+    """The JAX ``flash_attention_sharded``'s up-front checks on the
+    GLOBAL batch and head counts: the batch must divide over
+    ``batch_axes`` and both head counts over ``head_axis`` (so every GQA
+    group stays whole on one rank), with the JAX messages."""
+    batch_shard, head_shard = _split_extents(mesh, batch_axes, head_axis)
+    if b % batch_shard:
+        raise ValueError(
+            f"flash_attention_sharded: batch {b} not divisible by the "
+            f"{batch_axes} mesh extent {batch_shard}")
+    if hq % head_shard or hkv % head_shard:
+        raise ValueError(
+            f"flash_attention_sharded: heads {hq}/kv_heads {hkv} not "
+            f"divisible by mesh axis '{head_axis}'={head_shard} (cap the "
+            "TP degree to the head counts, cf. bert_train.tp_layout)")
+
+
+def flash_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            mesh, causal: bool = True,
+                            scale: Optional[float] = None,
+                            segment_ids: Optional[torch.Tensor] = None,
+                            batch_axes=("data", "fsdp"),
+                            head_axis: str = "tensor",
+                            global_heads: Optional[Tuple[int, int]] = None
+                            ) -> torch.Tensor:
+    """Flash attention on this rank's block of a batch split over
+    ``batch_axes`` and heads split over ``head_axis`` — the body of the
+    JAX function's ``shard_map``, which in SPMD PyTorch every rank runs
+    on what it holds: q ``[B/(data·fsdp), S, Hq/t, D]``, k/v ``[..., Hkv/t,
+    D]``, out like q. The split is contiguous, so query head h of a rank
+    reads its kv head h // G on the rank, as it would on one device. On
+    the card it is :func:`flash_attention` (K1, and K2/K3 under
+    autograd) on the local block; sequence stays whole (the ``seq`` axis
+    is ring/Ulysses attention's).
+
+    Raises the JAX function's divisibility errors for the global batch
+    (the local one times the batch extent) and the global head counts
+    ``global_heads`` (default: the local ones times the head extent),
+    and :func:`flash_attention`'s own for a local block the kernels do
+    not take."""
+    batch_shard, head_shard = _split_extents(mesh, batch_axes, head_axis)
+    hq, hkv = global_heads if global_heads is not None else (
+        q.shape[2] * head_shard, k.shape[2] * head_shard)
+    check_sharded_split(q.shape[0] * batch_shard, hq, hkv, mesh, batch_axes,
+                        head_axis)
+    if (q.shape[2] * head_shard, k.shape[2] * head_shard) != (hq, hkv):
+        raise ValueError(
+            f"flash_attention_sharded: local heads {q.shape[2]}/"
+            f"{k.shape[2]} are not this rank's 1/{head_shard} of {hq}/{hkv}")
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           segment_ids=segment_ids)
 
 
 # ---------------------------------------------------------------------------

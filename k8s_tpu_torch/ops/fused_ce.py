@@ -16,6 +16,18 @@ bf16 in training) with f32 results — the JAX ``preferred_element_type``
 — and all softmax math is f32. They are plain ``torch`` matmuls, as
 the JAX package leaves them to XLA.
 
+With a ``mesh`` the head is vocab-parallel over the mesh's ``tensor``
+axis (the JAX ``mesh=`` path, where GSPMD splits the chunks' vocab over
+``tensor``): each rank holds ``kernel``'s ``[E, V/t]`` columns and chunks
+them as above; one all-gather over ``tensor`` of each rank's logsumexp
+and label logit per token gives the global logsumexp (a logsumexp over
+the ranks, the same on every rank) and the label logit (the rank that
+owns the label contributes it, the others zero), and the z-loss applies
+to the global logsumexp. The backward forms each rank's softmax minus
+its one-hot on its own columns: the kernel's gradient stays local, and
+the ``hidden`` gradient, a partial sum over the vocab, is all-reduced
+over ``tensor`` in f32 before its one cast to ``hidden``'s dtype.
+
 Where the JAX version pads the kernel to a whole number of chunks and
 masks the padded columns to -inf, the port's last chunk is just the
 remaining columns: the same function (a -inf column adds exp(-inf) = 0
@@ -27,6 +39,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from k8s_tpu_torch.parallel import tensor_parallel as tp
 
 
 def _pick_num_chunks(vocab: int, target_chunk: int) -> int:
@@ -48,10 +62,10 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class _FusedCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, kernel, bias, labels, mask, z_loss: float,
-                num_chunks: int, cdt):
+                num_chunks: int, cdt, axis, vocab_start: int):
         e, v = kernel.shape
         x = hidden.reshape(-1, e).to(cdt)
-        lab = labels.reshape(-1).long()
+        lab = labels.reshape(-1).long() - vocab_start
         vc = -(-v // num_chunks)
         lses, label_logit = [], torch.zeros(
             lab.shape, dtype=torch.float32, device=x.device)
@@ -69,6 +83,12 @@ class _FusedCE(torch.autograd.Function):
                 label_logit += torch.where(hit, picked, 0.0)
                 del logits
             logz = torch.logsumexp(torch.stack(lses), dim=0)
+            if axis is not None:
+                # every rank's (logsumexp, label logit) per token
+                ranks = tp.all_gather(torch.stack([logz, label_logit]), axis,
+                                      "ce_forward")
+                logz = torch.logsumexp(ranks[:, 0], dim=0)
+                label_logit = ranks[:, 1].sum(0)
             losses = logz - label_logit
             if z_loss:
                 losses = losses + z_loss * logz.square()
@@ -79,7 +99,7 @@ class _FusedCE(torch.autograd.Function):
                 weights = torch.full_like(losses, 1.0 / losses.numel())
             loss = (losses * weights).sum()
         ctx.save_for_backward(x, kernel, bias, lab, logz, weights)
-        ctx.z_loss, ctx.vc = z_loss, vc
+        ctx.z_loss, ctx.vc, ctx.axis = z_loss, vc, axis
         ctx.hidden_shape, ctx.hidden_dtype = hidden.shape, hidden.dtype
         return loss
 
@@ -119,8 +139,11 @@ class _FusedCE(torch.autograd.Function):
                     db[c0:c1] = dlogits.sum(0).to(db.dtype)
                 del dlogits, dl
         if dx is not None:
+            if ctx.axis is not None:
+                # the sum over every rank's columns
+                dx = tp.all_reduce(dx, ctx.axis, "ce_backward")
             dx = dx.to(ctx.hidden_dtype).reshape(ctx.hidden_shape)
-        return dx, dw, db, None, None, None, None, None
+        return dx, dw, db, None, None, None, None, None, None, None
 
 
 def fused_lm_head_cross_entropy(
@@ -142,18 +165,44 @@ def fused_lm_head_cross_entropy(
     Differentiable in ``hidden``, ``kernel`` and ``bias`` (a head with a
     bias must pass it, or the bias gets no gradient). ``compute_dtype``
     sets the head-matmul input dtype (default ``hidden.dtype``; pass
-    ``torch.float32`` for parity with the unfused f32 head). ``mesh`` is
-    the JAX signature's sharding anchor: the port runs on one device and
-    raises for one.
+    ``torch.float32`` for parity with the unfused f32 head).
+
+    ``mesh`` makes the head vocab-parallel over its ``tensor`` axis (see
+    the module docstring): ``kernel`` is then a ``DTensor`` of the whole
+    ``[E, V]`` head split by columns over ``tensor`` (the model's
+    ``lm_head`` inside its forward) or a plain tensor of this rank's
+    ``[E, V/t]`` columns, ``bias`` likewise, and ``hidden``, ``labels`` and ``mask`` are the
+    rank's rows, the same on every rank of the axis. The loss is the
+    global one on every rank. A vocab the axis does not divide raises.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "fused_lm_head_cross_entropy: mesh shardings are not ported")
-    e, v = kernel.shape
+    e = kernel.shape[0]
     if hidden.shape[-1] != e or tuple(labels.shape) != tuple(hidden.shape[:-1]):
         raise ValueError(f"hidden {tuple(hidden.shape)}, kernel "
                          f"{tuple(kernel.shape)} and labels "
                          f"{tuple(labels.shape)} do not line up")
+    axis, vocab_start = None, 0
+    if mesh is not None:
+        from k8s_tpu_torch.parallel.mesh import mesh_shape
+
+        t = mesh_shape(mesh)["tensor"]
+        vocab = kernel.shape[1] if hasattr(kernel, "to_local") \
+            else kernel.shape[1] * t
+        if vocab % t:
+            raise ValueError(
+                f"fused_lm_head_cross_entropy: vocab {vocab} is not "
+                f"divisible by the tensor axis size {t}")
+        axis = tp.TensorAxis.of(mesh)
+        cols = axis.shard_range(vocab, "vocab")
+        kernel = _local(kernel)
+        bias = None if bias is None else _local(bias)
+        vocab_start = cols.start
     cdt = compute_dtype if compute_dtype is not None else hidden.dtype
     return _FusedCE.apply(hidden, kernel, bias, labels, mask, float(z_loss),
-                          _pick_num_chunks(v, target_chunk), cdt)
+                          _pick_num_chunks(kernel.shape[-1], target_chunk),
+                          cdt, axis, vocab_start)
+
+
+def _local(w: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard (differentiable), any other tensor
+    itself."""
+    return w.to_local() if hasattr(w, "to_local") else w

@@ -1,5 +1,6 @@
-"""Parallelism of the port: the device mesh, the logical-axis rules and
-the ZeRO layouts (port of ``k8s_tpu/parallel``)."""
+"""Parallelism of the port: the device mesh, the logical-axis rules, the
+ZeRO layouts and tensor parallelism's collectives (port of
+``k8s_tpu/parallel``)."""
 
 from k8s_tpu_torch.parallel.mesh import (  # noqa: F401
     AXES,

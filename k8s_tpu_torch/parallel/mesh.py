@@ -7,8 +7,10 @@ The mesh names the parallelism dimensions, as in the JAX package:
   it)
 - ``fsdp``   — fully-sharded data parallelism (parameters and optimizer
   state sharded, gathered per block by FSDP2)
-- ``stage``, ``expert``, ``seq``, ``tensor`` — pipeline, expert,
-  sequence and tensor parallelism (later slices; their size is 1 here)
+- ``tensor`` — Megatron-style tensor parallelism (heads, MLP columns
+  and the vocab split; ``parallel/tensor_parallel.py``)
+- ``stage``, ``expert``, ``seq`` — pipeline, expert and sequence
+  parallelism (later slices; their size is 1 here)
 
 One process drives one card, so the mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the world's ranks,

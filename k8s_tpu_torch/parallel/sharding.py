@@ -16,8 +16,9 @@ placement, mesh sizes) and choose what the JAX functions choose; the
 trainer turns each choice into a ``DTensor`` placement
 (``train/trainer_lib.py``).
 
-The ``DP`` and ``FSDP`` tables are ported; ``TP`` and ``FSDP_TP`` come
-with tensor parallelism.
+The ``DP``, ``FSDP``, ``TP`` and ``FSDP_TP`` tables run
+(``llama_train --strategy=dp|fsdp|fsdp_tp``); ``FSDP_TP_SP`` is the
+table sequence parallelism will read, and nothing runs it yet.
 """
 
 from __future__ import annotations
@@ -48,6 +49,44 @@ class LogicalRules:
         ("heads_out", "fsdp"),
         ("embed", "fsdp"),
         ("length", None),
+    )
+    # Megatron's layout: q/k/v, gate and up column-parallel, o_proj and
+    # down_proj row-parallel (their own names map to "tensor" on dim 0),
+    # the embedding and the head vocab-parallel
+    TP = (
+        ("batch", ("data", "fsdp")),
+        ("heads", "tensor"),
+        ("heads_out", "tensor"),
+        ("kv_heads", "tensor"),
+        ("mlp", "tensor"),
+        ("mlp_down", "tensor"),
+        ("vocab", "tensor"),
+        ("length", None),
+    )
+    # "embed" first: every projection's embed dimension takes fsdp, so
+    # o_proj and down_proj shard (tensor, fsdp), embed_tokens (tensor,
+    # fsdp) and lm_head (fsdp, tensor)
+    FSDP_TP = (
+        ("batch", ("data", "fsdp")),
+        ("embed", "fsdp"),
+        ("heads", "tensor"),
+        ("heads_out", "tensor"),
+        ("kv_heads", "tensor"),
+        ("mlp", "tensor"),
+        ("mlp_down", "tensor"),
+        ("vocab", "tensor"),
+        ("length", None),
+    )
+    FSDP_TP_SP = (
+        ("batch", ("data", "fsdp")),
+        ("embed", "fsdp"),
+        ("heads", "tensor"),
+        ("heads_out", "tensor"),
+        ("kv_heads", "tensor"),
+        ("mlp", "tensor"),
+        ("mlp_down", "tensor"),
+        ("vocab", "tensor"),
+        ("length", "seq"),
     )
 
     def __init__(self, rules: Sequence[Tuple[str, MeshAxes]]):

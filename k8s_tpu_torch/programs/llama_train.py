@@ -1,15 +1,23 @@
-"""Llama causal-LM training, one process per card, data parallel or
-FSDP (port of ``k8s_tpu/programs/llama_train.py``).
+"""Llama causal-LM training, one process per card, data parallel, FSDP
+or FSDP with tensor parallelism (port of
+``k8s_tpu/programs/llama_train.py``).
 
 Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
-  --strategy=fsdp|dp        (default fsdp, as in the JAX program) the
+  --strategy=fsdp|dp|fsdp_tp
+                            (default fsdp, as in the JAX program) the
                             mesh and rules: ``dp`` a ``data`` axis over
                             every rank; ``fsdp`` an ``fsdp`` axis within
                             a slice and ``data`` across the
-                            ``MEGASCALE_NUM_SLICES`` slices (HSDP)
+                            ``MEGASCALE_NUM_SLICES`` slices (HSDP);
+                            ``fsdp_tp`` as ``fsdp`` with a ``tensor`` axis
+                            of 4, 2 or 1 ranks cut from each slice (the
+                            largest that divides it), Megatron-style
+                            tensor parallelism inside it
   --zero_stage=0..3         the ZeRO ladder under dp (or the operator's
                             KTPU_ZERO_STAGE; --zero1=1 / KTPU_ZERO1 is
-                            stage 1); a no-op under fsdp at one slice
+                            stage 1); a no-op under fsdp and fsdp_tp at
+                            one slice, refused with several (ROADMAP
+                            A5.4)
   --zero3_leaves=a,b        stage 3's selected parameters: names holding
                             any of these substrings (KTPU_ZERO3_LEAVES)
   --zero3_min_leaf_size=N   ... or of at least N elements
@@ -72,8 +80,9 @@ multi-tier manager, whose goodput block also rides the obs heartbeat as
 Weights are random from seed 0 (f32 masters, bf16 compute), the same
 on every rank before the state is sharded. Options of later slices
 raise ``NotImplementedError`` naming their ROADMAP item: the
-``fsdp_tp``, ``fsdp_tp_sp``, ``pp`` and ``pp_fsdp`` strategies,
-``--latency_hiding``, ``--num_experts``, ``--quant``.
+``fsdp_tp_sp``, ``pp`` and ``pp_fsdp`` strategies, ZeRO on several
+slices under ``fsdp``/``fsdp_tp``, ``--latency_hiding``,
+``--num_experts``, ``--quant``.
 
 The loop runs the JAX program's runtime: every step inside a
 :meth:`~k8s_tpu_torch.obs.trace.Tracer.step` span with phases
@@ -144,11 +153,10 @@ from k8s_tpu_torch.train import (
 
 Z_LOSS = 1e-4
 
-STRATEGIES = {"dp": "DP", "fsdp": "FSDP"}
+STRATEGIES = {"dp": "DP", "fsdp": "FSDP", "fsdp_tp": "FSDP_TP"}
 # strategies of the JAX program this port does not have yet, with the
 # ROADMAP item that brings each
 _UNPORTED_STRATEGIES = {
-    "fsdp_tp": "A5 (tensor parallel, the next A5 PR)",
     "fsdp_tp_sp": "A7 (sequence parallel)",
     "pp": "A8 (pipeline parallel)",
     "pp_fsdp": "A8 (pipeline parallel)",
@@ -163,7 +171,7 @@ _UNPORTED = (
 )
 
 
-def _check_unported(extra) -> str:
+def _check_unported(extra, num_slices: int = 1, zero_stage: int = 0) -> str:
     """The strategy of the run config; raises for the options of later
     slices."""
     strategy = extra.get("strategy", "fsdp")
@@ -179,22 +187,41 @@ def _check_unported(extra) -> str:
             raise NotImplementedError(
                 f"{key}={val!r} is not ported to k8s_tpu_torch yet "
                 f"(ROADMAP {item})")
+    if strategy != "dp" and zero_stage >= 1 and num_slices > 1:
+        raise NotImplementedError(
+            f"zero_stage={zero_stage} with {num_slices} slices under "
+            f"strategy={strategy!r} (ZeRO on an HSDP mesh) is not ported to "
+            "k8s_tpu_torch yet (ROADMAP A5.4)")
     return strategy
 
 
-def _mesh_for(strategy: str, num_slices: int, device_type: str):
-    """The JAX program's meshes: ``dp`` one ``data`` axis over every
-    rank; ``fsdp`` ``data`` across slices and ``fsdp`` within one."""
+def mesh_config_for(strategy: str, n: int, num_slices: int) -> MeshConfig:
+    """The JAX program's mesh over ``n`` ranks in ``num_slices`` slices:
+    ``dp`` one ``data`` axis over every rank; ``fsdp`` ``data`` across
+    slices and ``fsdp`` within one; ``fsdp_tp`` as ``fsdp`` with a
+    ``tensor`` axis of 4 ranks when a slice's count divides by 4, else
+    2, else 1."""
     if strategy == "dp":
-        return build_mesh(MeshConfig(data=-1), device_type)
+        return MeshConfig(data=n)
+    per_slice = max(1, n // num_slices)
+    if strategy == "fsdp":
+        return MeshConfig(data=num_slices, fsdp=per_slice)
+    if strategy == "fsdp_tp":
+        tensor = 4 if per_slice % 4 == 0 else (2 if per_slice % 2 == 0 else 1)
+        return MeshConfig(data=num_slices, fsdp=per_slice // tensor,
+                          tensor=tensor)
+    raise ValueError(f"unknown strategy {strategy!r}")
+
+
+def _mesh_for(strategy: str, num_slices: int, device_type: str):
+    """The mesh of :func:`mesh_config_for` over the world's ranks."""
     import torch.distributed as dist
 
     from k8s_tpu_torch.parallel.mesh import ensure_process_group
 
     ensure_process_group(device_type)
-    n = dist.get_world_size()
-    return build_mesh(MeshConfig(data=num_slices,
-                                 fsdp=max(1, n // num_slices)), device_type)
+    return build_mesh(mesh_config_for(strategy, dist.get_world_size(),
+                                      num_slices), device_type)
 
 
 def _rdzv_flag(rdzv, attr: str, env: str) -> bool:
@@ -313,13 +340,13 @@ def lm_loss(model: LlamaForCausalLM, ids: torch.Tensor,
 def main(rdzv) -> dict:
     cfg = parse_run_config(rdzv, {"steps": 30, "batch_size": 16})
     extra = cfg.extra or {}
-    strategy = _check_unported(extra)
+    num_slices = max(1, int(getattr(rdzv, "num_slices", 1) or 1))
+    zero_stage, zero3_leaves, zero3_min_leaf_size = zero_options(rdzv, extra)
+    strategy = _check_unported(extra, num_slices, zero_stage)
     device = resolve_device(extra.get("device", getattr(rdzv, "device", "cuda")))
     model_name = extra.get("model", default_model(device))
     seq_len = int(extra.get("seq_len", "128" if model_name == "tiny" else "8192"))
     lead = getattr(rdzv, "process_id", 0) <= 0
-    num_slices = max(1, int(getattr(rdzv, "num_slices", 1) or 1))
-    zero_stage, zero3_leaves, zero3_min_leaf_size = zero_options(rdzv, extra)
     m0 = time.perf_counter()
     mesh = _mesh_for(strategy, num_slices, device.type)
     mesh_s = time.perf_counter() - m0

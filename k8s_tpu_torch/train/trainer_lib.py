@@ -32,7 +32,15 @@ over a mesh (``parallel/mesh.py``), one process per card:
   the mesh's ``fsdp`` axis — HSDP over ``(data, fsdp)`` with several
   slices — each parameter sharded on the dimension the rules give the
   ``fsdp`` axis. A ZeRO stage on top of it is a no-op while ``data`` is
-  1, as in the JAX package.
+  1, as in the JAX package;
+- ``fsdp_tp`` (the ``FSDP_TP`` rules): first every parameter becomes a
+  ``DTensor`` on the mesh's ``tensor`` axis, split on the dimension the
+  rules give ``tensor`` (the norms ``Replicate()``), and the model runs
+  its tensor-parallel forward
+  (:meth:`~k8s_tpu_torch.models.llama.LlamaForCausalLM.use_tensor_parallel`);
+  then FSDP2 as under ``fsdp``, which composes the two into one
+  ``DTensor`` per leaf over ``(fsdp, tensor)`` (``(data, fsdp,
+  tensor)`` under HSDP).
 
 A sliced leaf appears in :func:`state_tree` as a ``DTensor`` whose local
 tensor is the live slice (``Shard(dim)`` over ``data``), and FSDP2's
@@ -154,12 +162,8 @@ class ShardedLayout:
         self.strategy = strategy
         self.mesh = mesh
         self.zero_stage = zero_stage
-        sizes = mesh_shape(mesh)
         self.data_group = mesh.get_group("data")
         self.data_mesh = mesh["data"]
-        # the pieces of a sharded leaf's shards are held by this many
-        # ranks each (HSDP's data replicas of an fsdp shard)
-        self.replicas = sizes["data"] if strategy == "fsdp" else 1
         self.leaves: List[_ZeroLeaf] = []
         self.hooks = []
 
@@ -167,12 +171,31 @@ class ShardedLayout:
     def world(self) -> int:
         return dist.get_world_size()
 
+    @property
+    def fsdp2(self) -> bool:
+        """Whether FSDP2 holds the parameters (``fsdp``, ``fsdp_tp``)."""
+        return self.strategy in ("fsdp", "fsdp_tp")
+
     def is_sharded(self, q: torch.Tensor) -> bool:
         """Whether optimizer parameter ``q`` is one rank's shard (FSDP2's
         ``DTensor`` s, a ZeRO piece) rather than a replica."""
-        if self.strategy == "fsdp":
+        if self.fsdp2:
             return hasattr(q, "placements")
         return any(q is z.piece for z in self.leaves)
+
+    @staticmethod
+    def replicas(q: torch.Tensor) -> int:
+        """How many ranks hold each shard of sharded parameter ``q``: the
+        sizes of the mesh dimensions it is not split over (HSDP's
+        ``data``, the ``tensor`` axis of a norm scale), 1 for a ZeRO
+        piece."""
+        if not hasattr(q, "placements"):
+            return 1
+        n = 1
+        for size, place in zip(q.device_mesh.mesh.shape, q.placements):
+            if not place.is_shard():
+                n *= int(size)
+        return n
 
     # -- dp ZeRO ---------------------------------------------------------
 
@@ -230,9 +253,10 @@ class ShardedLayout:
         """After the backward: the mean gradient over the gang, in each
         optimizer parameter's ``.grad`` (the piece's for a sliced
         leaf)."""
-        if self.strategy == "fsdp":
+        if self.fsdp2:
             # FSDP2 reduce-scattered (and, under HSDP, all-reduced) the
-            # mean already
+            # mean already; tensor peers computed the same gradient of
+            # their own columns (the model's collectives)
             if accum_steps > 1:
                 for p in params:
                     if p.grad is not None:
@@ -258,7 +282,7 @@ class ShardedLayout:
     def optimizer_params(self, params: Sequence[nn.Parameter]):
         """The tensors AdamW updates, in the model's parameter order:
         each sliced leaf's piece, every other parameter itself."""
-        if self.strategy == "fsdp":
+        if self.fsdp2:
             return list(params)
         sliced = {id(z.param): z.piece for z in self.leaves}
         return [sliced.get(id(p), p) for p in params]
@@ -346,28 +370,74 @@ def _fsdp_wrap(model: nn.Module, mesh, rules: LogicalRules) -> None:
     fully_shard(model, mesh=sub, shard_placement_fn=placement)
 
 
+def _tensor_parallel_layout(model: nn.Module, mesh,
+                            rules: LogicalRules) -> None:
+    """Every parameter as a ``DTensor`` on the mesh's ``tensor`` axis:
+    this rank's block of the dimension the rules give ``tensor``
+    (``Shard``; a size the axis does not divide raises), or the whole
+    parameter (``Replicate()``: the norm scales). Every rank holds the
+    same whole parameters, so each cuts its own block and no collective
+    runs. Then the model runs its tensor-parallel forward."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from k8s_tpu_torch.ops.attention import check_sharded_split
+    from k8s_tpu_torch.parallel.tensor_parallel import TensorAxis
+
+    cfg, sizes = model.config, mesh_shape(mesh)
+    axis = TensorAxis.of(mesh)
+    # the heads here, with the JAX message; the global batch where it is
+    # cut (the sharder), every other split dimension below
+    check_sharded_split(sizes["data"] * sizes["fsdp"], cfg.num_heads,
+                        cfg.num_kv_heads, mesh)
+    tmesh = mesh["tensor"]
+    for name, p in list(model.named_parameters()):
+        dim = shard_dim(param_placement(name, rules), "tensor")
+        if dim is None:
+            local, place = p.detach().clone(), Replicate()
+        else:
+            rows = axis.shard_range(p.shape[dim], name)
+            local = p.detach().narrow(dim, rows.start, len(rows))
+            local, place = local.contiguous(), Shard(dim)
+        dt = DTensor.from_local(local, tmesh, [place], run_check=False,
+                                shape=p.shape, stride=p.stride())
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf,
+                nn.Parameter(dt, requires_grad=p.requires_grad))
+    model.use_tensor_parallel(mesh)
+
+
 def create_sharded_state(model: nn.Module, lr: float, mesh,
                          rules: LogicalRules, zero_stage: int = 0,
                          zero3_min_leaf_size: int = 0,
                          zero3_leaves: Optional[Sequence[str]] = None,
                          weight_decay: float = 0.1) -> TrainState:
     """The state of ``model`` (its parameters loaded) laid out over
-    ``mesh`` by ``rules`` (``LogicalRules.DP`` or ``.FSDP``) and the ZeRO
-    stage, with its optimizer. Every rank calls it with the same
-    parameters."""
+    ``mesh`` by ``rules`` (``LogicalRules.DP``, ``.FSDP`` or
+    ``.FSDP_TP``) and the ZeRO stage, with its optimizer. Every rank
+    calls it with the same parameters."""
     sizes = mesh_shape(mesh)
-    if any(sizes[a] != 1 for a in ("stage", "expert", "seq", "tensor")):
+    if any(sizes[a] != 1 for a in ("stage", "expert", "seq")):
         raise NotImplementedError(
-            f"mesh {sizes}: stage, expert, seq and tensor axes come with "
-            "later slices (ROADMAP A5 tensor parallel, A7, A8)")
+            f"mesh {sizes}: stage, expert and seq axes come with later "
+            "slices (ROADMAP A7, A8, A9)")
     fsdp = rules["embed"] == "fsdp"
-    strategy = "fsdp" if fsdp else "dp"
+    tensor = rules["heads"] == "tensor"
+    if tensor and not fsdp:
+        raise NotImplementedError(
+            "LogicalRules.TP lays out tensor-parallel serving, which is not "
+            "ported to k8s_tpu_torch yet (ROADMAP A15); train with FSDP_TP")
+    if sizes["tensor"] != 1 and not tensor:
+        raise ValueError(f"mesh {sizes} has a tensor axis that the rules "
+                         "map no parameter to (train with FSDP_TP)")
+    strategy = "fsdp_tp" if tensor else ("fsdp" if fsdp else "dp")
     stage = int(zero_stage)
     if fsdp and stage >= 1 and sizes["data"] > 1:
         raise NotImplementedError(
-            "zero_stage >= 1 on an HSDP (data x fsdp) mesh is not ported "
-            "to k8s_tpu_torch yet (ROADMAP A5: ZeRO on HSDP, next A5 PR)")
+            f"zero_stage >= 1 on an HSDP (data x fsdp) mesh under {strategy} "
+            "is not ported to k8s_tpu_torch yet (ROADMAP A5.4: ZeRO on HSDP)")
     layout = ShardedLayout(strategy, mesh, stage)
+    if tensor:
+        _tensor_parallel_layout(model, mesh, rules)
     if fsdp:
         # ZeRO on top of fsdp is a no-op at data 1, as in the JAX package
         _fsdp_wrap(model, mesh, rules)
@@ -673,9 +743,17 @@ def make_train_step(loss_fn: LossFn, accum_steps: int = 1,
 
             sums = _health_sums(pick(old, False), pick(new, False),
                                 pick(grads, False), loss.device)
-            if any(sharded):
-                part = _health_sums(pick(old, True), pick(new, True),
-                                    pick(grads, True), loss.device)
+            # each shard counted once over the gang: a shard held by r
+            # ranks (HSDP's data replicas, a norm scale's tensor peers)
+            # adds 1/r of its sums on each
+            groups: Dict[int, List[int]] = {}
+            for i, q in enumerate(opt_params):
+                if sharded[i]:
+                    groups.setdefault(lay.replicas(q), []).append(i)
+            for r, idx in groups.items():
+                h = _health_sums([old[i] for i in idx], [new[i] for i in idx],
+                                 [grads[i] for i in idx], loss.device) / r
+                part = h if part is None else part + h
         if lay is not None and lay.world > 1:
             # one all-reduce: the ranks' losses (the global batch's loss
             # is the mean of their means) and the shards' health sums
@@ -687,7 +765,7 @@ def make_train_step(loss_fn: LossFn, accum_steps: int = 1,
             if part is not None:
                 part = vec[1:]
         if part is not None:
-            sums = sums + part / lay.replicas
+            sums = sums + part
         metrics = {"loss": loss,
                    **{k: v / accum_steps for k, v in aux_sum.items()}}
         if health:

@@ -28,6 +28,7 @@ import json
 import os
 import random
 import threading
+import time
 import zlib
 
 import ml_dtypes
@@ -392,6 +393,19 @@ def test_failed_local_restore_without_persistent_raises(tmp_path):
                            man["leaves"][last]["shards"]["-" if last == "step"
                                                          else tlocal.full_key(ttree[last].shape)]["file"]))
     planner = tplanner.RestorePlanner(tier, None, parallel=1)
+    read_shard = tier.read_shard
+
+    def read_after_a_write(step, leaf_path, key, host_id=None):
+        # the pool fetches ahead of the consumer: hold the lost leaf's
+        # read until a leaf has been written, so the restore dies
+        # part-way however the threads are scheduled
+        deadline = time.monotonic() + 30
+        while leaf_path == last and time.monotonic() < deadline and \
+                not planner.last_restore_stats.get("leaves_written"):
+            time.sleep(0.001)
+        return read_shard(step, leaf_path, key, host_id)
+
+    tier.read_shard = read_after_a_write
     with pytest.raises(RuntimeError, match="part-restored"):
         planner.restore(t_template(ttree))
 

@@ -15,6 +15,8 @@ package on the same numpy inputs.
   against it on materialized logits.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,10 +135,19 @@ def test_cross_entropy_loss_matches_jax(use_mask, z_loss):
 
 
 def test_fused_ce_refuses_a_mesh_and_misaligned_shapes():
+    """A mesh whose tensor axis does not divide the vocab raises before
+    any collective (tests/test_torch_tp.py runs the vocab-parallel path
+    across ranks): stand-ins for a DTensor head, which states its global
+    vocab, and for a mesh with a tensor axis of 4."""
     x = _inputs(1)
     hidden, kernel = torch.from_numpy(x["hidden"]), torch.from_numpy(x["kernel"])
     labels = torch.from_numpy(x["labels"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fused_lm_head_cross_entropy(hidden, kernel, labels, mesh=object())
+    mesh = types.SimpleNamespace(
+        mesh_dim_names=("data", "fsdp", "stage", "expert", "seq", "tensor"),
+        mesh=np.zeros((1, 1, 1, 1, 1, 4)))
+    head = types.SimpleNamespace(shape=kernel.shape, to_local=lambda: kernel)
+    with pytest.raises(ValueError, match="vocab 103 is not divisible by the "
+                                         "tensor axis size 4"):
+        fused_lm_head_cross_entropy(hidden, head, labels, mesh=mesh)
     with pytest.raises(ValueError, match="line up"):
         fused_lm_head_cross_entropy(hidden, kernel, labels[:, :-1])

@@ -366,6 +366,29 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, s, sk, causal):
         assert err <= FLASH_BWD_REL_TOL, (name, err)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv", [(16, 4), (8, 2)])
+def test_flash_kernels_at_tensor_parallel_head_counts_on_card(cuda, hq, hkv):
+    """K1, K2 and K3 at one rank's heads under ``--strategy=fsdp_tp`` at
+    tensor 2 and 4 (Llama-3-8B's 32 q / 8 kv heads split contiguously,
+    chip_smoke.py's ``flash_head_split`` shapes at B 1, S 256, causal)
+    against their plain versions in f32."""
+    g = torch.Generator(device=cuda).manual_seed(hq)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).bfloat16()  # noqa: E731
+    q, do, k, v = rnd(1, 256, hq, 128), rnd(1, 256, hq, 128), rnd(1, 256, hkv, 128), \
+        rnd(1, 256, hkv, 128)
+    scale = 128 ** -0.5
+    out, lse = tattn.flash_fwd(q, k, v, True, scale, with_lse=True)
+    ref, ref_lse = tattn.flash_fwd_plain(*_f32(q, k, v), True, scale)
+    assert row_rel_err(out, ref) <= FLASH_REL_TOL
+    assert (lse - ref_lse).abs().max().item() <= FLASH_LSE_TOL
+    got = tattn.flash_bwd(q, k, v, out, lse, do, True, scale)
+    want = tattn.flash_bwd_plain(*_f32(q, k, v, out), lse, do.float(), True, scale)
+    for name, x, r in zip(("dq", "dk", "dv"), got, want):
+        err = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR)
+        assert err <= FLASH_BWD_REL_TOL, (name, err)
+
+
 def _bwd_inputs(cuda, seed, sq, sk, hq, hkv, fused):
     g = torch.Generator(device=cuda).manual_seed(seed)
     rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).bfloat16()  # noqa: E731

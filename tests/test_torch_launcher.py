@@ -414,10 +414,10 @@ def test_sigterm_mid_run_exits_143_with_flight_dump(tmp_path):
 def test_user_error_exits_1():
     res = _run(_env(KTPU_FORCE_PLATFORM="cpu",
                     KTPU_PROGRAM="k8s_tpu_torch.programs.llama_train:main",
-                    KTPU_PROGRAM_ARGS=f"{TINY_ARGS} --strategy=fsdp_tp"),
+                    KTPU_PROGRAM_ARGS=f"{TINY_ARGS} --strategy=pp"),
                timeout=60)
     assert res.returncode == 1, res.stderr
-    assert "program failed: strategy='fsdp_tp' is not ported" in res.stderr
+    assert "program failed: strategy='pp' is not ported" in res.stderr
 
 
 def test_unreachable_coordinator_exits_143():

@@ -393,13 +393,24 @@ def test_llama_train_program_converges_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("args,match", [
-    ("--strategy=fsdp_tp", "A5"), ("--strategy=fsdp_tp_sp", "A7"),
+    ("--strategy=fsdp_tp_sp", "A7"),
     ("--strategy=pp", "A8"), ("--latency_hiding=1", "latency_hiding"),
     ("--num_experts=4", "num_experts"), ("--quant=int8", "quant")])
 def test_llama_train_unported_options_raise(args, match):
     with pytest.raises(NotImplementedError, match=match):
         llama_train.main(types.SimpleNamespace(
             process_id=0, program_args=f"--device=cpu --steps=1 {args}"))
+
+
+@pytest.mark.parametrize("strategy", ["fsdp_tp", "fsdp"])
+def test_llama_train_zero_on_several_slices_raises(strategy):
+    """ZeRO on an HSDP mesh (several slices) stays unported under fsdp
+    and fsdp_tp, refused before the mesh is built."""
+    with pytest.raises(NotImplementedError, match="A5.4"):
+        llama_train.main(types.SimpleNamespace(
+            process_id=0, num_slices=2,
+            program_args=f"--device=cpu --steps=1 --strategy={strategy} "
+                         "--zero_stage=1"))
 
 
 def test_llama_train_checkpoint_dir_saves_and_resumes(tmp_path, monkeypatch,
