@@ -58,6 +58,14 @@ order:
   counted, the teacher-forced oracle, its weights against the local
   tier's copy) and a ``checkpoint`` line of save, flush, restore and
   MTTR seconds beside the measured rates;
+- the operator: the port's ``LocalWorld`` (controller, reconciler,
+  kubelet with subprocess pods on this card) runs three ``TpuJob`` s of
+  that 2-layer child, one WORKER with ``nvidia.com/gpu: 1`` each: one to
+  ``Succeeded`` with K1-K3 launched layers x steps times in the pod, one
+  SIGTERMed at step 2 (exit 143, one gang restart, then ``Succeeded``),
+  one with an argument the program refuses (exit 1, ``Failed``), with
+  create -> Running -> first step -> ``Succeeded`` beside the launcher's
+  direct child;
 - int8 serving, once the bf16 model and the training state are freed:
   the same Llama-3-8B with int8 weights and an int8 KV cache
   (``--quant=int8_serving --kv_quant=int8``), 16 slots of 8192 rows, 16
@@ -182,6 +190,12 @@ LAUNCHER_LAYERS, LAUNCHER_STEPS = 2, 6
 # never throttled by the writer); the grace period a flush must fit is
 # Kubernetes' default terminationGracePeriodSeconds.
 CKPT_LOCAL_EVERY, CKPT_SAVE_BUFFER_BYTES, CKPT_GRACE_S = 1000, 24 << 30, 30
+# the operator phase's jobs (the launcher phase's child configuration):
+# (o1) runs to its end, (o2) is SIGTERMed at step 2 and restarted by the
+# operator, then trains its steps; the obs port the jobs declare; the
+# deadline of every wait
+OPERATOR_STEPS, OPERATOR_TERM_STEPS, OPERATOR_OBS_PORT = 6, 5, 8790
+OPERATOR_DEADLINE_S = 300
 REPO = pathlib.Path(__file__).resolve().parent
 # K1's tile config -> its kernel instance (csrc/flash_fwd.cu, templated on
 # the number of consumer warpgroups), as torch.profiler names it
@@ -2187,7 +2201,8 @@ def phase_restored_serving(torch, attn, card, persist_dir, local_step_dir, tmp):
 def phase_launcher(torch, attn, card, train_tracer_ms):
     """See :func:`_phase_launcher`; its flight dirs, profiles and
     checkpoints go to a temporary directory that is removed afterwards.
-    Returns the kernel launches of the restored serving run (e)."""
+    Returns the kernel launches of the restored serving run (e) and the
+    seconds from (b)'s child start to its first step's end."""
     tmp = tempfile.mkdtemp(prefix="ktpu-launcher-")
     try:
         return _phase_launcher(torch, attn, card, train_tracer_ms, tmp)
@@ -2322,6 +2337,8 @@ def _phase_launcher(torch, attn, card, train_tracer_ms, tmp):
         fail(f"launcher train: exit {rc}; stdout tail {out[-3000:]}; stderr {err[-3000:]}")
     codes["train"] = rc
     train_s = time.perf_counter() - t0
+    # the operator phase's reference: a direct child's start -> step 1
+    child_first_step_s = child.times["compile_phase"] - child.started
     compile_s = events_of(out, "compile_phase")[0]["seconds"]
     walls = [e["wall_ms"] for e in phases[1:]]
     steady = median_phases(phases[1:])
@@ -2484,12 +2501,258 @@ def _phase_launcher(torch, attn, card, train_tracer_ms, tmp):
           "flightrecorder_live_steps": [e["step"] for e in ring_steps],
           "sigterm_dump": {"reason": dump.get("reason"), "steps": dumped},
           "k1_k3_launches_in_child_computed": LAUNCHER_LAYERS * LAUNCHER_STEPS,
+          "train_child_start_to_first_step_s": child_first_step_s,
           "tracer_overhead_ms_per_step_in_process": train_tracer_ms,
           "seconds": {"mesh": mesh_s, "train": train_s, "sigterm": sigterm_s,
                       "restore": restore_run_s,
                       "phase": time.perf_counter() - t_phase},
           "card": card})
-    return served["launches"]
+    return served["launches"], child_first_step_s
+
+
+def _operator_job(name, args):
+    """A TpuJob of one WORKER on one card (the gpu block of a one-card
+    node: ``nvidia.com/gpu: 1``), running ``llama_train`` with ``args``,
+    an obs port, no checkpoint directory, and one gang restart allowed."""
+    from k8s_tpu_torch import spec as S
+
+    return S.TpuJob.from_dict({
+        "apiVersion": "tpu.k8s.io/v1alpha1", "kind": "TpuJob",
+        "metadata": {"name": name, "namespace": "default"},
+        "spec": {
+            "gpu": {"accelerator": "h100-80gb-x1", "numCards": 1},
+            "maxGangRestarts": 1,
+            "observability": {"obsPort": OPERATOR_OBS_PORT},
+            "replicaSpecs": [{"tpuReplicaType": "WORKER", "template": {"spec": {
+                "containers": [{
+                    "name": "jax", "image": "local",
+                    "command": ["python", "-m", "k8s_tpu_torch.launcher.spmd_launcher"],
+                    "env": [{"name": "KTPU_PROGRAM",
+                             "value": "k8s_tpu_torch.programs.llama_train:main"},
+                            {"name": "KTPU_PROGRAM_ARGS", "value": args}]}]}}}],
+        }})
+
+
+class OperatorRun:
+    """One TpuJob through the port's ``LocalWorld``: the first time each
+    (kind, name, phase) was written, from the in-memory cluster's commit
+    hook, and the pod log's events by arrival time."""
+
+    def __init__(self, world, name, args, log_dir):
+        self.world, self.name, self.log_dir = world, name, log_dir
+        self.seen = {}
+        world.cluster.hooks.append(self._hook)
+        self.t_create = time.monotonic()
+        world.api.create(_operator_job(name, args))
+
+    def _hook(self, ev):
+        if ev.kind not in ("Pod", "TpuJob") or ev.type == "DELETED":
+            return
+        st = ev.object.get("status") or {}
+        key = (ev.kind, ev.name, st.get("phase"), st.get("state"),
+               st.get("gangRestarts"))
+        self.seen.setdefault(key, time.monotonic())
+
+    def first(self, kind, name=None, phase=None, state=None):
+        ts = [t for (k, n, p, s, _), t in self.seen.items()
+              if k == kind and (name is None or n == name)
+              and (phase is None or p == phase) and (state is None or s == state)]
+        return min(ts) if ts else None
+
+    @property
+    def pod(self):
+        rid = self.world.api.get("default", self.name).spec.runtime_id
+        return f"{self.name}-worker-{rid}-0-pod-0" if rid else None
+
+    def log(self):
+        path = os.path.join(self.log_dir, f"{self.pod}.log")
+        return open(path, errors="replace").read() if os.path.exists(path) else ""
+
+    def wait_log(self, pred, what, timeout=OPERATOR_DEADLINE_S):
+        """Poll the pod log until ``pred(text)``; the arrival time."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.pod and pred(self.log()):
+                return time.monotonic()
+            time.sleep(0.05)
+        fail(f"operator {self.name}: no {what} in the pod log within {timeout} s; "
+             f"log tail {self.log()[-3000:]}")
+
+    def wait_done(self, timeout=OPERATOR_DEADLINE_S):
+        from k8s_tpu_torch import spec as S
+
+        try:
+            job = self.world.api.wait_for_job("default", self.name, timeout=timeout,
+                                              polling_interval=0.05)
+        except TimeoutError:
+            fail(f"operator {self.name}: not done within {timeout} s; "
+                 f"log tail {self.log()[-3000:]}")
+        t = self.first("TpuJob", self.name, phase=S.TpuJobPhase.DONE)
+        return job, t
+
+
+def _pod_launches(log_text):
+    """The K1-K3 launch counts the training program printed (stderr)."""
+    lines = [ln for ln in log_text.splitlines()
+             if ln.startswith("llama_train: kernel launches ")]
+    return [json.loads(ln.split(" ", 3)[3]) for ln in lines]
+
+
+def _count_events(text, name):
+    from k8s_tpu_torch.obs.events import parse_events
+
+    return sum(1 for ln in text.splitlines() for e in parse_events(ln)
+               if e["event"] == name)
+
+
+def phase_operator(torch, card, launcher_child_first_step_s):
+    """See :func:`_phase_operator`; its pod logs go to a temporary
+    directory that is removed afterwards. Returns the K1-K3 launches the
+    pods counted."""
+    tmp = tempfile.mkdtemp(prefix="ktpu-operator-")
+    try:
+        return _phase_operator(torch, card, launcher_child_first_step_s, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_operator(torch, card, launcher_child_first_step_s, tmp):
+    """The port's operator on the card: a ``LocalWorld`` (in-memory
+    cluster, controller, kubelet with subprocess pods; no platform
+    forced) takes three ``TpuJob`` s through the port's ``TpuJobApi``,
+    each one WORKER with ``nvidia.com/gpu: 1`` running ``llama_train``
+    at Llama-3-8B width, 2 layers (the launcher phase's child), with no
+    checkpoint directory:
+
+    - (o1) 6 steps: the job ends ``Succeeded``; the pod got card 0
+      through ``CUDA_VISIBLE_DEVICES`` and its log shows K1-K3 launched
+      layers x steps times;
+    - (o2) the worker's process SIGTERMed once its heartbeat (the obs
+      endpoint on the port the kubelet's resolver gave its Service)
+      shows step 2: exit 143, one gang restart, the restarted pod trains
+      its 5 steps and the job ends ``Succeeded`` with ``gang_restarts`` 1;
+    - (o3) ``--strategy=bogus``, which the program refuses: an exit in
+      1-127 and the job ``Failed`` with 0 restarts.
+
+    The ``operator`` line holds create -> pod Running -> first step ->
+    ``Succeeded`` (and, in (o2), the exit -> the restarted pod's first
+    step) beside the launcher phase's direct child start -> first step."""
+    from k8s_tpu_torch import spec as S
+    from k8s_tpu_torch.tools.local_world import LocalWorld
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"chip_smoke: operator phase: {free / 1e9:.2f} GB free of "
+          f"{total / 1e9:.2f}", flush=True)
+    args = (f"--strategy=fsdp --model=llama3-8b --layers={LAUNCHER_LAYERS} "
+            f"--seq_len={TRAIN_SEQ} --batch_size={TRAIN_BATCH} --log_every=1 "
+            "--step_sleep=0.5 --remat_policy=flash --fused_ce=1 --lr=3e-4 "
+            "--data=learnable")
+    out = {}
+    world = LocalWorld(subprocess_pods=True, log_dir=tmp, reconcile_interval=0.1)
+    if world.kubelet.executor.extra_env:
+        fail(f"operator: the world forces {world.kubelet.executor.extra_env}")
+    with world:
+        cards = world.kubelet.devices.cards
+        if not cards:
+            fail("operator: the kubelet found no card")
+
+        # (o1) to Succeeded
+        o1 = OperatorRun(world, "op-o1", f"{args} --steps={OPERATOR_STEPS}", tmp)
+        t_step = o1.wait_log(lambda t: _count_events(t, "compile_phase") >= 1,
+                             "first step")
+        job, t_done = o1.wait_done()
+        t_run = o1.first("Pod", o1.pod, phase="Running")
+        pod = world.client.pods.get("default", o1.pod)
+        launches = _pod_launches(o1.log())
+        want = LAUNCHER_LAYERS * OPERATOR_STEPS
+        if job.status.state != S.TpuJobState.SUCCEEDED or job.status.gang_restarts:
+            fail(f"operator o1: {job.status.state} after {job.status.gang_restarts} "
+                 f"restarts ({job.status.reason}); log tail {o1.log()[-3000:]}")
+        if pod.metadata.annotations.get("tpu.k8s.io/cuda-visible-devices") != cards[0]:
+            fail(f"operator o1: pod cards {pod.metadata.annotations}, node {cards}")
+        if launches != [{"steps": OPERATOR_STEPS, "flash_fwd": want,
+                         "flash_bwd_dq": want, "flash_bwd_dkv": want}]:
+            fail(f"operator o1: the pod's K1-K3 launches {launches}, want {want} each")
+        out["o1"] = {"state": job.status.state, "gang_restarts": 0,
+                     "cuda_visible_devices": cards[0], "pod_launches": launches[0],
+                     "create_to_running_s": t_run - o1.t_create,
+                     "running_to_first_step_s": t_step - t_run,
+                     "first_step_to_succeeded_s": t_done - t_step,
+                     "create_to_first_step_s": t_step - o1.t_create,
+                     "create_to_succeeded_s": t_done - o1.t_create}
+
+        # (o2) SIGTERM at step 2, one gang restart, Succeeded
+        o2 = OperatorRun(world, "op-o2", f"{args} --steps={OPERATOR_TERM_STEPS}", tmp)
+        o2.wait_log(lambda t: "obs_ready" in t, "obs endpoint")
+        rid = world.api.get("default", "op-o2").spec.runtime_id
+        port = world.kubelet.resolver.port_for(f"op-o2-worker-{rid}-0", OPERATOR_OBS_PORT)
+        proc = world.kubelet.executor.procs[o2.pod]
+        deadline = time.monotonic() + OPERATOR_DEADLINE_S
+        while True:
+            try:
+                hz = json.loads(get_url(port, "/healthz", timeout=10))
+            except (OSError, ValueError):
+                hz = {}
+            if hz.get("obs", {}).get("step", 0) >= 2:
+                break
+            if proc.poll() is not None or time.monotonic() > deadline:
+                fail(f"operator o2: heartbeat never reached step 2 (exit "
+                     f"{proc.poll()}); log tail {o2.log()[-3000:]}")
+            time.sleep(0.1)
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=OPERATOR_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            fail("operator o2: the SIGTERMed worker did not exit")
+        t_exit = time.monotonic()
+        t_step2 = o2.wait_log(lambda t: _count_events(t, "compile_phase") >= 2,
+                              "restarted pod's first step")
+        job, t_done = o2.wait_done()
+        if rc != 143 or job.status.state != S.TpuJobState.SUCCEEDED \
+                or job.status.gang_restarts != 1 \
+                or _count_events(o2.log(), "preempt_requested") != 1:
+            fail(f"operator o2: exit {rc}, {job.status.state} after "
+                 f"{job.status.gang_restarts} restarts ({job.status.reason}); "
+                 f"log tail {o2.log()[-3000:]}")
+        restarted = _pod_launches(o2.log())
+        want2 = LAUNCHER_LAYERS * OPERATOR_TERM_STEPS
+        if restarted[-1:] != [{"steps": OPERATOR_TERM_STEPS, "flash_fwd": want2,
+                               "flash_bwd_dq": want2, "flash_bwd_dkv": want2}]:
+            fail(f"operator o2: the restarted pod's K1-K3 launches {restarted}")
+        out["o2"] = {"state": job.status.state, "gang_restarts": job.status.gang_restarts,
+                     "exit_code": rc, "heartbeat_step_at_sigterm": hz["obs"]["step"],
+                     "conditions": [c.type for c in job.status.conditions],
+                     "sigterm_to_exit_s": t_exit - t_term,
+                     "exit_to_restarted_first_step_s": t_step2 - t_exit,
+                     "create_to_succeeded_s": t_done - o2.t_create,
+                     "pod_launches_after_restart": restarted[-1]}
+
+        # (o3) an argument the program refuses: Failed, no restart
+        o3 = OperatorRun(world, "op-o3", f"{args} --steps=2 --strategy=bogus", tmp)
+        job, t_done = o3.wait_done()
+        pod = world.client.pods.get("default", o3.pod)
+        term = pod.status.container_statuses[0].state.terminated
+        if job.status.state != S.TpuJobState.FAILED or job.status.gang_restarts \
+                or term is None or not 1 <= term.exit_code <= 127:
+            fail(f"operator o3: {job.status.state}, {job.status.gang_restarts} "
+                 f"restarts, pod {pod.status.to_dict()}; log tail {o3.log()[-3000:]}")
+        out["o3"] = {"state": job.status.state, "gang_restarts": 0,
+                     "exit_code": term.exit_code,
+                     "create_to_failed_s": t_done - o3.t_create}
+    emit({"phase": "operator", "model": "llama3_8b", "layers": LAUNCHER_LAYERS,
+          "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "step_sleep_s": 0.5,
+          "free_gb_before": free / 1e9, "node_cards": cards, **out,
+          "launcher_child_start_to_first_step_s": launcher_child_first_step_s,
+          "operator_overhead_to_first_step_s": (
+              None if launcher_child_first_step_s is None
+              else out["o1"]["create_to_first_step_s"] - launcher_child_first_step_s),
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return {k: out["o1"]["pod_launches"][k] + out["o2"]["pod_launches_after_restart"][k]
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def _profile_train_step(torch, run):
@@ -2599,8 +2862,9 @@ def _profile_train_step(torch, run):
 def main() -> None:
     import torch
 
-    # ``--only=launcher``: the build and the launcher phase alone (a
-    # debugging aid; it ends with a ``partial`` line, not the ``ok`` one)
+    # ``--only=launcher`` / ``--only=operator``: the build and that phase
+    # alone (a debugging aid; it ends with a ``partial`` line, not the
+    # ``ok`` one)
     only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
 
     if not torch.cuda.is_available():
@@ -2636,8 +2900,13 @@ def main() -> None:
                     "ptxas": ptxas}})
 
     if only == ["launcher"]:
-        restored = phase_launcher(torch, attn, card, None)
+        restored, _ = phase_launcher(torch, attn, card, None)
         emit({"partial": only, "launches_restored_serving": restored})
+        return
+    if only == ["operator"]:
+        # the operator phase alone (a debugging aid, as above)
+        emit({"partial": only,
+              "launches_operator_pods": phase_operator(torch, card, None)})
         return
     if only == ["train"]:
         # the training phases alone (a debugging aid, as above)
@@ -2665,7 +2934,8 @@ def main() -> None:
     train, tracer_ms, dp = phase_train(torch, attn, card)
     train_fsdp, fsdp = phase_train_fsdp(torch, attn, card, dp)
     train_fsdp_tp = phase_train_fsdp_tp(torch, attn, card, dp, fsdp)
-    restored = phase_launcher(torch, attn, card, tracer_ms)
+    restored, child_first_step_s = phase_launcher(torch, attn, card, tracer_ms)
+    phase_operator(torch, card, child_first_step_s)
     serving_int8 = phase_serving_int8(torch, attn, card)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
                 + train_fsdp["flash_fwd"] + train_fsdp_tp["flash_fwd"]

@@ -1,13 +1,14 @@
 """Prometheus-style counters, gauges and histograms with the text
 exposition (the port's copy of ``k8s_tpu/controller/metrics.py``: the
-registry classes, and of the JAX package's series only those the
-program side sets — the ``ktpu_ckpt_*`` checkpoint series (goodput,
-restore and save seconds by phase, lost steps, skipped saves; the
-training program's ``compile`` phase reports into the restore gauge),
-and the device-memory gauges of the obs endpoint). Same names, help
-text and exposition format, so the series catalogue of
-``docs/OBSERVABILITY.md`` covers them. The operator's own
-series stay with the operator.
+registry classes, the series the program side sets — the ``ktpu_ckpt_*``
+checkpoint series (goodput, restore and save seconds by phase, lost
+steps, skipped saves; the training program's ``compile`` phase reports
+into the restore gauge) and the device-memory gauges of the obs
+endpoint — and the operator's series (reconciles, gang restarts, the
+obs tick's straggler and health verdicts, the work queue). Same names,
+help text and exposition format, so the series catalogue of
+``docs/OBSERVABILITY.md`` covers them. The serving, scheduler and
+resize series come with their slices.
 """
 
 from __future__ import annotations
@@ -267,4 +268,110 @@ OBS_HBM_PEAK = REGISTRY.gauge(
 OBS_HBM_LIMIT = REGISTRY.gauge(
     "ktpu_obs_hbm_bytes_limit",
     "Device HBM capacity visible to the allocator, by device",
+)
+# The operator's series (k8s_tpu_torch/controller, trainer): the JAX
+# package's names and help text, for the operator's /metrics.
+EVENTS_HANDLED = REGISTRY.counter(
+    "ktpu_operator_events_total", "Watch events dispatched, by type"
+)
+JOBS_STARTED = REGISTRY.counter(
+    "ktpu_operator_jobs_started_total", "TrainingJob reconcilers started"
+)
+JOBS_TERMINAL = REGISTRY.counter(
+    "ktpu_operator_jobs_terminal_total", "Jobs reaching a terminal state, by state"
+)
+RECONCILES = REGISTRY.counter(
+    "ktpu_operator_reconciles_total", "Reconcile passes executed"
+)
+LIVE_JOBS = REGISTRY.gauge(
+    "ktpu_operator_live_jobs", "Reconcilers currently tracked"
+)
+INFORMER_OBJECTS = REGISTRY.gauge(
+    "ktpu_operator_informer_objects",
+    "Objects held by the watch-fed informer cache, by kind",
+)
+INFORMER_SYNCED = REGISTRY.gauge(
+    "ktpu_operator_informer_synced",
+    "1 when every informer kind has completed its initial list",
+)
+GANG_RESTART_BACKOFF = REGISTRY.gauge(
+    "ktpu_operator_gang_restart_backoff_seconds",
+    "Current gang-restart backoff hold-off per job (0 = no hold-off)",
+)
+GANG_RESTARTS_DELAYED = REGISTRY.counter(
+    "ktpu_operator_gang_restarts_delayed_total",
+    "Gang restarts deferred by the backoff schedule, by job",
+)
+# Step-phase telemetry + gang straggler detection, fed by the
+# reconciler's per-host heartbeat aggregation over the workers' obs
+# endpoints.
+OBS_STEP_SKEW = REGISTRY.gauge(
+    "ktpu_obs_step_skew_seconds",
+    "Gang busy-step-time skew (slowest host - peer median), by job",
+)
+OBS_HOST_STEP_TIME = REGISTRY.gauge(
+    "ktpu_obs_host_step_time_seconds",
+    "Latest per-host train-step wall time, by job/host",
+)
+OBS_PHASE_SECONDS = REGISTRY.gauge(
+    "ktpu_obs_phase_seconds",
+    "Latest per-host step-phase duration, by job/host/phase",
+)
+OBS_STRAGGLERS = REGISTRY.counter(
+    "ktpu_obs_stragglers_total",
+    "StragglerDetected verdicts raised, by job",
+)
+# Training-health monitoring (obs/health.py HealthMonitor): numerics
+# verdicts + the goodput cost of divergence, fed by the obs tick.
+OBS_DIVERGENCE_RESTARTS = REGISTRY.counter(
+    "ktpu_obs_divergence_restarts_total",
+    "Gang restarts driven by a TrainingDiverged verdict, by job",
+)
+OBS_DIVERGED_STEPS = REGISTRY.counter(
+    "ktpu_obs_diverged_steps_total",
+    "Train steps discarded to divergence (progress past the last "
+    "healthy step at verdict time), by job",
+)
+OBS_NUMERICS_WARNINGS = REGISTRY.counter(
+    "ktpu_obs_numerics_warnings_total",
+    "NumericsWarning verdicts raised (loss spike / plateau), by job/kind",
+)
+OBS_MEMORY_PRESSURE = REGISTRY.counter(
+    "ktpu_obs_memory_pressure_total",
+    "MemoryPressure events raised (HBM peak over the spec'd fraction "
+    "of capacity), by job/host",
+)
+# the shared reconciler core's own telemetry — how much work the queue
+# is doing, how much it avoided, and what each pass cost
+RECONCILE_LATENCY = REGISTRY.histogram(
+    "ktpu_controller_reconcile_latency_seconds",
+    "Wall-clock duration of each reconcile pass through the shared "
+    "worker pool",
+)
+WORKQUEUE_DEPTH = REGISTRY.gauge(
+    "ktpu_controller_workqueue_depth",
+    "Keys waiting in the shared reconciler work queue (ready + "
+    "delayed requeues)",
+)
+WORKQUEUE_COALESCED = REGISTRY.counter(
+    "ktpu_controller_workqueue_coalesced_total",
+    "Queue adds merged into an already-queued or in-flight key — "
+    "reconcile passes the coalescing saved",
+)
+RECONCILE_REQUEUES = REGISTRY.counter(
+    "ktpu_controller_requeues_total",
+    "Keys re-queued after a pass, by reason (poll = periodic "
+    "obs/serving cadence, resync = slow backstop, error = exponential "
+    "failure backoff)",
+)
+CONTROLLER_HTTP_CALLS = REGISTRY.counter(
+    "ktpu_controller_http_calls_total",
+    "Status-poll HTTP calls issued by the shared connection-reusing "
+    "poller, by component (obs = worker heartbeat sweep, router = "
+    "serving stats)",
+)
+HEARTBEATS_PUSHED = REGISTRY.counter(
+    "ktpu_controller_heartbeats_pushed_total",
+    "Worker obs heartbeats PUSHED into the control plane (the "
+    "/v1/heartbeat receiver) instead of polled",
 )

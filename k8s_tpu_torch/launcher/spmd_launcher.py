@@ -57,8 +57,13 @@ class Rendezvous:
         self.num_processes = int(env.get("KTPU_NUM_PROCESSES", "1"))
         self.replica_type = env.get("KTPU_REPLICA_TYPE", "worker")
         self.task_index = int(env.get("KTPU_TASK_INDEX", "0"))
-        self.num_slices = int(env.get("MEGASCALE_NUM_SLICES", "1"))
-        self.slice_id = int(env.get("MEGASCALE_SLICE_ID", "0"))
+        # the gang's nodes and this process's node, as the operator
+        # writes them for a GPU job (GROUP_*, torchrun's names); the JAX
+        # contract's slice keys are read when those are absent
+        self.num_slices = int(env.get(
+            "GROUP_WORLD_SIZE", env.get("MEGASCALE_NUM_SLICES", "1")))
+        self.slice_id = int(env.get(
+            "GROUP_RANK", env.get("MEGASCALE_SLICE_ID", "0")))
         try:
             self.cluster = json.loads(env.get("KTPU_CLUSTER_SPEC", "{}"))
         except ValueError:

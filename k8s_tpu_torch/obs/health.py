@@ -14,19 +14,24 @@ profiler capture behind ``GET /debug/profile?seconds=N``.
   reads. Empty / ``None`` on the CPU, as the JAX package's is.
 - :func:`capture_profile` — one bounded ``torch.profiler`` session
   exported as a Chrome trace into the flight-recorder dir.
+- :class:`HealthMonitor` — the operator side: the reconciler's pure
+  decision logic over the ``step_health`` blocks of the heartbeats
+  (divergence, loss spikes, plateaus), copied from the JAX package.
 
 ``torch`` is imported inside the functions that need it, so the chaos
-arm stays importable anywhere. The reconciler's ``HealthMonitor`` is the
-operator's, not the program's, and is not here.
+arm and the monitor stay importable anywhere.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from collections import deque
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
 
 # health-block keys the step emits / the heartbeat carries
 HEALTH_KEYS = ("loss", "grad_norm", "nonfinite_grads", "update_ratio")
@@ -83,6 +88,238 @@ def consume_nan_grad(step: int, env=None) -> bool:
         os.environ["KTPU_CHAOS_NAN_GRAD_FIRED"] = \
             os.environ.pop("KTPU_CHAOS_NAN_GRAD")
     return True
+
+
+# -- pure health classification ------------------------------------------
+
+
+def _finite(x) -> bool:
+    try:
+        return math.isfinite(float(x))
+    except (TypeError, ValueError):
+        return False
+
+
+@dataclass
+class HealthVerdict:
+    """One observation's outcome. ``new_divergence`` fires exactly once
+    per episode (the observation that tripped it); ``diverged`` holds
+    while the episode lasts (until a restart's step regression resets
+    it). ``new_warning``/``warning_cleared`` bracket a warning episode
+    the same way."""
+
+    observed_step: int = -1
+    fresh: bool = False
+    restarted: bool = False          # step regressed: a restart replayed
+    new_divergence: bool = False
+    diverged: bool = False
+    first_bad_step: Optional[int] = None
+    last_healthy_step: Optional[int] = None
+    new_warning: Optional[str] = None   # "loss_spike" | "plateau"
+    warning: Optional[str] = None       # active warning kind
+    warning_cleared: Optional[str] = None
+    reason: str = ""
+    loss: Optional[float] = None
+
+
+class HealthMonitor:
+    def __init__(
+        self,
+        spike_factor: float = 3.0,
+        spike_steps: int = 2,
+        ema_alpha: float = 0.3,
+        warmup_obs: int = 3,
+        plateau_window: int = 0,
+        plateau_rel: float = 1e-3,
+        clear_after: int = 3,
+        min_window_s: float = 0.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if spike_factor <= 1.0:
+            raise ValueError("spike_factor must be > 1.0")
+        self.spike_factor = float(spike_factor)
+        self.spike_steps = max(1, int(spike_steps))
+        self.ema_alpha = float(ema_alpha)
+        self.warmup_obs = max(1, int(warmup_obs))
+        self.plateau_window = max(0, int(plateau_window))
+        self.plateau_rel = float(plateau_rel)
+        self.clear_after = max(1, int(clear_after))
+        self.min_window_s = float(min_window_s)
+        self.clock = clock
+        self._last_step = -1
+        self._last_healthy: Optional[int] = None
+        self._diverged = False
+        self._first_bad: Optional[int] = None
+        self._ema: Optional[float] = None
+        self._healthy_obs = 0
+        self._spike_streak = 0
+        self._spike_started_at = 0.0
+        self._warning: Optional[str] = None
+        self._clear_streak = 0
+        self._plateau: deque = deque(maxlen=max(1, self.plateau_window))
+
+    def reset(self, floor_step: int) -> None:
+        """Start a new episode after the CALLER acted on a verdict (the
+        reconciler's divergence restart): clears the divergence/warning
+        streaks and raises the fresh-observation floor to
+        ``floor_step`` — the gang's progress at verdict time — so the
+        torn-down gang's stale heartbeats (and the replay below the
+        floor) can't re-trip on old evidence, while a RECURRING fault
+        past the floor raises a new ``new_divergence`` (bounded by the
+        caller's restart budget). Without this, a replay that resumes
+        exactly at the old max step would never regress the step
+        counter and a persistent fault would never re-raise.
+        ``last_healthy_step`` survives — it is still the best-known
+        restore ceiling."""
+        self._diverged = False
+        self._first_bad = None
+        self._spike_streak = 0
+        self._clear_streak = 0
+        self._plateau.clear()
+        self._last_step = max(self._last_step, int(floor_step))
+
+    def observe(self, health: Dict) -> HealthVerdict:
+        """Judge one health observation
+        (``{"step", "loss", "grad_norm", "nonfinite_grads",
+        "update_ratio"}`` — the ``step_health`` block). Observations
+        with a non-advancing step are ignored (a reconciler re-polling
+        an unchanged heartbeat must not inflate any streak)."""
+        v = HealthVerdict(diverged=self._diverged,
+                          first_bad_step=self._first_bad,
+                          last_healthy_step=self._last_healthy,
+                          warning=self._warning)
+        try:
+            step = int(health.get("step", -1))
+        except (TypeError, ValueError):
+            return v
+        if step < 0:
+            return v
+        v.observed_step = step
+        if step < self._last_step:
+            # the gang restarted and replays from a restored step: the
+            # old episode's evidence describes a state that no longer
+            # exists — reset so the recovered run is judged afresh
+            v.restarted = True
+            self._diverged = False
+            self._first_bad = None
+            self._spike_streak = 0
+            self._clear_streak = 0
+            self._plateau.clear()
+            self._last_step = step - 1
+            v.diverged = False
+            v.first_bad_step = None
+        if step <= self._last_step:
+            return v
+        self._last_step = step
+        v.fresh = True
+
+        loss = health.get("loss")
+        v.loss = float(loss) if _finite(loss) else None
+        nonfinite = 0.0
+        try:
+            nf = float(health.get("nonfinite_grads", 0) or 0)
+            nonfinite = nf if math.isfinite(nf) else 1.0
+        except (TypeError, ValueError):
+            nonfinite = 0.0
+        bad = (
+            nonfinite > 0
+            or not _finite(loss)
+            or not _finite(health.get("grad_norm", 0.0))
+        )
+        if bad:
+            if not self._diverged:
+                self._diverged = True
+                self._first_bad = step
+                v.new_divergence = True
+                v.reason = (
+                    f"non-finite numerics at step {step} "
+                    f"(loss={health.get('loss')}, "
+                    f"grad_norm={health.get('grad_norm')}, "
+                    f"nonfinite_grads={nonfinite:g}); "
+                    f"last healthy step: {self._last_healthy}"
+                )
+            v.diverged = True
+            v.first_bad_step = self._first_bad
+            return v
+
+        # healthy observation
+        self._last_healthy = step
+        v.last_healthy_step = step
+        if self._diverged:
+            # NaN params cannot heal without a restore, so a healthy
+            # observation while diverged means the evidence is mixed
+            # (e.g. a host restarted without a step regression we saw)
+            # — count toward clearing rather than trusting one sample
+            self._clear_streak += 1
+            if self._clear_streak >= self.clear_after:
+                self._diverged = False
+                self._first_bad = None
+                self._clear_streak = 0
+            v.diverged = self._diverged
+            v.first_bad_step = self._first_bad
+            return v
+
+        lf = float(loss)
+        self._healthy_obs += 1
+        spiking = (
+            self._ema is not None
+            and self._healthy_obs > self.warmup_obs
+            and lf >= self.spike_factor * self._ema
+        )
+        if spiking:
+            if self._spike_streak == 0:
+                self._spike_started_at = self.clock()
+            self._spike_streak += 1
+        else:
+            self._spike_streak = 0
+        # EMA freezes while spike evidence accumulates PRE-verdict
+        # (updating it with the spiked samples would pull the baseline
+        # up and kill the streak before the bar); once the warning is
+        # raised it tracks again, so a sustained new loss level becomes
+        # the baseline and the warning self-clears (hysteresis).
+        if not (spiking and self._warning is None):
+            self._ema = (lf if self._ema is None
+                         else (1 - self.ema_alpha) * self._ema
+                         + self.ema_alpha * lf)
+
+        plateaued = False
+        if self.plateau_window > 0 and not spiking:
+            self._plateau.append(lf)
+            if len(self._plateau) == self.plateau_window:
+                first, last = self._plateau[0], self._plateau[-1]
+                denom = max(abs(first), 1e-12)
+                plateaued = (first - last) / denom < self.plateau_rel
+
+        if (
+            spiking
+            and self._spike_streak >= self.spike_steps
+            and self._warning != "loss_spike"
+            and self.clock() - self._spike_started_at >= self.min_window_s
+        ):
+            self._warning = "loss_spike"
+            self._clear_streak = 0
+            v.new_warning = "loss_spike"
+            v.reason = (
+                f"loss {lf:.4g} >= {self.spike_factor:g}x EMA "
+                f"{self._ema:.4g} for {self._spike_streak} consecutive "
+                f"steps (step {step})"
+            )
+        elif plateaued and self._warning != "plateau":
+            self._warning = "plateau"
+            self._clear_streak = 0
+            v.new_warning = "plateau"
+            v.reason = (
+                f"loss improvement under {self.plateau_rel:g} over the "
+                f"last {self.plateau_window} observations (step {step})"
+            )
+        elif self._warning is not None and not spiking and not plateaued:
+            self._clear_streak += 1
+            if self._clear_streak >= self.clear_after:
+                v.warning_cleared = self._warning
+                self._warning = None
+                self._clear_streak = 0
+        v.warning = self._warning
+        return v
 
 
 # -- device memory (HBM) gauges ------------------------------------------

@@ -114,6 +114,7 @@ import dataclasses
 import json
 import math
 import os
+import sys
 import time
 
 import torch
@@ -337,6 +338,17 @@ def lm_loss(model: LlamaForCausalLM, ids: torch.Tensor,
     return cross_entropy_loss(logits[:, :-1], labels[:, :-1], z_loss=Z_LOSS)
 
 
+def kernel_launches() -> dict:
+    """The flash kernels' launch counters (K1-K3): each wrapper ticks
+    only where it launches its kernel on the card, so a CPU run counts
+    none."""
+    from k8s_tpu_torch.ops import attention as attn
+
+    return {"flash_fwd": attn.flash_fwd.launches,
+            "flash_bwd_dq": attn.flash_bwd.launches_dq,
+            "flash_bwd_dkv": attn.flash_bwd.launches_dkv}
+
+
 def main(rdzv) -> dict:
     cfg = parse_run_config(rdzv, {"steps": 30, "batch_size": 16})
     extra = cfg.extra or {}
@@ -347,6 +359,7 @@ def main(rdzv) -> dict:
     model_name = extra.get("model", default_model(device))
     seq_len = int(extra.get("seq_len", "128" if model_name == "tiny" else "8192"))
     lead = getattr(rdzv, "process_id", 0) <= 0
+    launches0 = kernel_launches()
     m0 = time.perf_counter()
     mesh = _mesh_for(strategy, num_slices, device.type)
     mesh_s = time.perf_counter() - m0
@@ -542,6 +555,14 @@ def main(rdzv) -> dict:
                 phases.append(ev)
                 print(json.dumps(ev), flush=True)
             step_s.append(time.perf_counter() - t0)
+    if lead:
+        # the pod log's proof that the steps ran the card's kernels (the
+        # operator phase of chip_smoke.py reads it); on stderr, so that
+        # stdout keeps the JAX program's event schema
+        print("llama_train: kernel launches " + json.dumps(
+            {"steps": len(step_s),
+             **{k: v - launches0[k] for k, v in kernel_launches().items()}}),
+            file=sys.stderr, flush=True)
     goodput = None
     if mgr is not None:
         # the final force save rides the same gate: a diverged run must

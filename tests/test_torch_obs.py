@@ -253,7 +253,28 @@ def test_port_series_are_documented():
                     "ktpu_ckpt_restores_total", "ktpu_ckpt_lost_steps_total",
                     "ktpu_ckpt_lost_steps_per_restart",
                     "ktpu_ckpt_local_saves_total", "ktpu_ckpt_overhead_fraction",
-                    "ktpu_ckpt_save_seconds", "ktpu_ckpt_save_skipped_total"}
+                    "ktpu_ckpt_save_seconds", "ktpu_ckpt_save_skipped_total",
+                    # the operator's series (the controller and the reconciler)
+                    "ktpu_operator_events_total",
+                    "ktpu_operator_jobs_started_total",
+                    "ktpu_operator_jobs_terminal_total",
+                    "ktpu_operator_reconciles_total", "ktpu_operator_live_jobs",
+                    "ktpu_operator_informer_objects",
+                    "ktpu_operator_informer_synced",
+                    "ktpu_operator_gang_restart_backoff_seconds",
+                    "ktpu_operator_gang_restarts_delayed_total",
+                    "ktpu_obs_step_skew_seconds", "ktpu_obs_host_step_time_seconds",
+                    "ktpu_obs_phase_seconds", "ktpu_obs_stragglers_total",
+                    "ktpu_obs_divergence_restarts_total",
+                    "ktpu_obs_diverged_steps_total",
+                    "ktpu_obs_numerics_warnings_total",
+                    "ktpu_obs_memory_pressure_total",
+                    "ktpu_controller_reconcile_latency_seconds",
+                    "ktpu_controller_workqueue_depth",
+                    "ktpu_controller_workqueue_coalesced_total",
+                    "ktpu_controller_requeues_total",
+                    "ktpu_controller_http_calls_total",
+                    "ktpu_controller_heartbeats_pushed_total"}
     assert ours <= jax_lint.documented_series()
 
 
