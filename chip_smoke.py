@@ -66,6 +66,27 @@ order:
   one with an argument the program refuses (exit 1, ``Failed``), with
   create -> Running -> first step -> ``Succeeded`` beside the launcher's
   direct child;
+- the operator over REST (``operator_rest``): ``python -m
+  k8s_tpu_torch.api.apiserver --port 0 --with-kubelet`` (its kubelet the
+  card's device plugin) and ``python -m k8s_tpu_torch.operator`` without
+  ``--local``, as processes; (r1) ``kubectl_local create --server`` of a
+  one-card job of that child to ``Succeeded``, ``kubectl_local logs
+  --server`` showing K1-K3 launched layers x steps times, create ->
+  Running -> first step -> ``Succeeded`` beside the local-mode
+  operator's and the direct child's; (r2) a standby operator beside the
+  leader, the leader SIGKILLed after the job's first step: the standby
+  takes the lock after the 15 s lease and adopts the running job, whose
+  one pod trains its steps without a restart to ``Succeeded``;
+- the cluster scheduler (``sched``): a ``LocalWorld`` whose controller
+  config declares ``fleet: {h100-80gb-x1: 1}``; job A (priority 0,
+  preemptible) trains until its heartbeat shows step 2, then job B
+  (priority 10) arrives: A is preempted (SIGTERM, exit 143, ``Queued``),
+  B trains on the card to ``Succeeded``, A is re-admitted after B's
+  release and its cooldown and runs to ``Succeeded``; the ledger's
+  high-water mark is one node, the ``ktpu_sched_*`` series are printed,
+  and the device plugin's hand-outs show no two pods holding card 0 at
+  once. A runs with a local checkpoint directory only if a save still
+  fits the call's disk-write limit after the earlier phases;
 - int8 serving, once the bf16 model and the training state are freed:
   the same Llama-3-8B with int8 weights and an int8 KV cache
   (``--quant=int8_serving --kv_quant=int8``), 16 slots of 8192 rows, 16
@@ -196,6 +217,17 @@ CKPT_LOCAL_EVERY, CKPT_SAVE_BUFFER_BYTES, CKPT_GRACE_S = 1000, 24 << 30, 30
 # deadline of every wait
 OPERATOR_STEPS, OPERATOR_TERM_STEPS, OPERATOR_OBS_PORT = 6, 5, 8790
 OPERATOR_DEADLINE_S = 300
+# the operator_rest phase: (r2)'s job trains this many steps (~0.87 s
+# each) so that it outlasts the leader's 15 s lease, the standby's 3 s
+# retry and its adoption after the leader is killed at the first step
+REST_FAILOVER_STEPS = 36
+# the sched phase: A's and B's steps; A's re-admission hold-off after
+# its preemption (the scheduler's cooldown)
+SCHED_A_STEPS, SCHED_B_STEPS, SCHED_COOLDOWN_S = 8, 4, 5.0
+# a chip call may write 45 GiB (deleted files included); one save of the
+# 2-layer child's state is 17.84 GB. A's flush (sched) needs one save of
+# room, and a pod's terminationGracePeriodSeconds long enough for it
+WRITE_LIMIT_BYTES, CHILD_SAVE_BYTES, SCHED_FLUSH_GRACE_S = 45 << 30, 17.9e9, 180
 REPO = pathlib.Path(__file__).resolve().parent
 # K1's tile config -> its kernel instance (csrc/flash_fwd.cu, templated on
 # the number of consumer warpgroups), as torch.profiler names it
@@ -213,6 +245,11 @@ SERVING_DEPTHS_INT8 = [12, 300, 700, 1000, 1500, 2000, 2500, 3000, 3500,
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    if len(msg) > 400:
+        # a message that carries a log tail: its head once more, last,
+        # so that the end of stderr says what failed
+        print(f"chip_smoke: FAIL (head of the message above): {msg[:400]}",
+              file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -2079,6 +2116,7 @@ def measure_io(torch, dirpath) -> dict:
         os.fsync(f.fileno())
     write_s = time.perf_counter() - t0
     os.remove(path)
+    DISK_WRITES.append(("write-rate probe", 16 * chunk.nbytes))
     return {"pinned_d2h_gb_per_s": max(rates),
             "host_register_gb_per_s": n / register_s / 1e9,
             "host_copy_registered_gb_per_s": n / copy_s / 1e9,
@@ -2207,6 +2245,9 @@ def phase_launcher(torch, attn, card, train_tracer_ms):
     try:
         return _phase_launcher(torch, attn, card, train_tracer_ms, tmp)
     finally:
+        # its checkpoints, dumps and profiles count against the call's
+        # disk-write limit (the write-rate probe is noted where it runs)
+        DISK_WRITES.append(("launcher", tree_bytes(tmp)))
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2510,54 +2551,80 @@ def _phase_launcher(torch, attn, card, train_tracer_ms, tmp):
     return served["launches"], child_first_step_s
 
 
-def _operator_job(name, args):
+def operator_child_args():
+    """``llama_train``'s arguments in every operator phase's pods: the
+    launcher phase's child configuration (Llama-3-8B width, 2 layers)."""
+    return (f"--strategy=fsdp --model=llama3-8b --layers={LAUNCHER_LAYERS} "
+            f"--seq_len={TRAIN_SEQ} --batch_size={TRAIN_BATCH} --log_every=1 "
+            "--step_sleep=0.5 --remat_policy=flash --fused_ce=1 --lr=3e-4 "
+            "--data=learnable")
+
+
+def _operator_job(name, args, obs=True, priority=None, local_dir=None):
     """A TpuJob of one WORKER on one card (the gpu block of a one-card
-    node: ``nvidia.com/gpu: 1``), running ``llama_train`` with ``args``,
-    an obs port, no checkpoint directory, and one gang restart allowed."""
+    node: ``nvidia.com/gpu: 1``), running ``llama_train`` with ``args``
+    and one gang restart allowed; with ``obs`` an obs port (its
+    heartbeats are read on this machine's loopback, which only the
+    in-process ``LocalWorld`` resolves); with ``priority`` a scheduling
+    block (preemptible); with ``local_dir`` the local checkpoint tier
+    there and a grace period its flush fits."""
     from k8s_tpu_torch import spec as S
 
+    spec = {
+        "gpu": {"accelerator": "h100-80gb-x1", "numCards": 1},
+        "maxGangRestarts": 1,
+        "replicaSpecs": [{"tpuReplicaType": "WORKER", "template": {"spec": {
+            "containers": [{
+                "name": "jax", "image": "local",
+                "command": ["python", "-m", "k8s_tpu_torch.launcher.spmd_launcher"],
+                "env": [{"name": "KTPU_PROGRAM",
+                         "value": "k8s_tpu_torch.programs.llama_train:main"},
+                        {"name": "KTPU_PROGRAM_ARGS", "value": args}]}]}}}],
+    }
+    if obs:
+        spec["observability"] = {"obsPort": OPERATOR_OBS_PORT}
+    if priority is not None:
+        spec["scheduling"] = {"priority": priority, "preemptible": True}
+    if local_dir is not None:
+        spec["checkpointPolicy"] = {"localDir": local_dir,
+                                    "localIntervalSteps": CKPT_LOCAL_EVERY,
+                                    "saveBufferBytes": CKPT_SAVE_BUFFER_BYTES}
+        spec["replicaSpecs"][0]["template"]["spec"][
+            "terminationGracePeriodSeconds"] = SCHED_FLUSH_GRACE_S
     return S.TpuJob.from_dict({
         "apiVersion": "tpu.k8s.io/v1alpha1", "kind": "TpuJob",
-        "metadata": {"name": name, "namespace": "default"},
-        "spec": {
-            "gpu": {"accelerator": "h100-80gb-x1", "numCards": 1},
-            "maxGangRestarts": 1,
-            "observability": {"obsPort": OPERATOR_OBS_PORT},
-            "replicaSpecs": [{"tpuReplicaType": "WORKER", "template": {"spec": {
-                "containers": [{
-                    "name": "jax", "image": "local",
-                    "command": ["python", "-m", "k8s_tpu_torch.launcher.spmd_launcher"],
-                    "env": [{"name": "KTPU_PROGRAM",
-                             "value": "k8s_tpu_torch.programs.llama_train:main"},
-                            {"name": "KTPU_PROGRAM_ARGS", "value": args}]}]}}}],
-        }})
+        "metadata": {"name": name, "namespace": "default"}, "spec": spec})
+
+
+def first_write(timeline, kind, name, *phases, after=0.0):
+    """The time of the first row of ``timeline`` ((time, kind, name,
+    phase) per write) for ``kind``/``name`` in one of ``phases`` later
+    than ``after``; None if there is none yet."""
+    ts = [t for t, k, n, ph in list(timeline)
+          if t > after and k == kind and n == name and ph in phases]
+    return min(ts) if ts else None
 
 
 class OperatorRun:
-    """One TpuJob through the port's ``LocalWorld``: the first time each
-    (kind, name, phase) was written, from the in-memory cluster's commit
-    hook, and the pod log's events by arrival time."""
+    """One TpuJob through the port's ``LocalWorld``: every write of its
+    TpuJob and Pods, from the in-memory cluster's commit hook, and the
+    pod log's events by arrival time."""
 
-    def __init__(self, world, name, args, log_dir):
+    def __init__(self, world, name, args, log_dir, job=None):
         self.world, self.name, self.log_dir = world, name, log_dir
-        self.seen = {}
+        self.timeline = []  # (time, kind, name, phase) of every write
         world.cluster.hooks.append(self._hook)
         self.t_create = time.monotonic()
-        world.api.create(_operator_job(name, args))
+        world.api.create(job or _operator_job(name, args))
 
     def _hook(self, ev):
         if ev.kind not in ("Pod", "TpuJob") or ev.type == "DELETED":
             return
         st = ev.object.get("status") or {}
-        key = (ev.kind, ev.name, st.get("phase"), st.get("state"),
-               st.get("gangRestarts"))
-        self.seen.setdefault(key, time.monotonic())
+        self.timeline.append((time.monotonic(), ev.kind, ev.name, st.get("phase")))
 
-    def first(self, kind, name=None, phase=None, state=None):
-        ts = [t for (k, n, p, s, _), t in self.seen.items()
-              if k == kind and (name is None or n == name)
-              and (phase is None or p == phase) and (state is None or s == state)]
-        return min(ts) if ts else None
+    def first(self, kind, name, *phases, after=0.0):
+        return first_write(self.timeline, kind, name, *phases, after=after)
 
     @property
     def pod(self):
@@ -2587,7 +2654,7 @@ class OperatorRun:
         except TimeoutError:
             fail(f"operator {self.name}: not done within {timeout} s; "
                  f"log tail {self.log()[-3000:]}")
-        t = self.first("TpuJob", self.name, phase=S.TpuJobPhase.DONE)
+        t = self.first("TpuJob", self.name, S.TpuJobPhase.DONE)
         return job, t
 
 
@@ -2646,10 +2713,7 @@ def _phase_operator(torch, card, launcher_child_first_step_s, tmp):
     free, total = torch.cuda.mem_get_info()
     print(f"chip_smoke: operator phase: {free / 1e9:.2f} GB free of "
           f"{total / 1e9:.2f}", flush=True)
-    args = (f"--strategy=fsdp --model=llama3-8b --layers={LAUNCHER_LAYERS} "
-            f"--seq_len={TRAIN_SEQ} --batch_size={TRAIN_BATCH} --log_every=1 "
-            "--step_sleep=0.5 --remat_policy=flash --fused_ce=1 --lr=3e-4 "
-            "--data=learnable")
+    args = operator_child_args()
     out = {}
     world = LocalWorld(subprocess_pods=True, log_dir=tmp, reconcile_interval=0.1)
     if world.kubelet.executor.extra_env:
@@ -2664,7 +2728,7 @@ def _phase_operator(torch, card, launcher_child_first_step_s, tmp):
         t_step = o1.wait_log(lambda t: _count_events(t, "compile_phase") >= 1,
                              "first step")
         job, t_done = o1.wait_done()
-        t_run = o1.first("Pod", o1.pod, phase="Running")
+        t_run = o1.first("Pod", o1.pod, "Running")
         pod = world.client.pods.get("default", o1.pod)
         launches = _pod_launches(o1.log())
         want = LAUNCHER_LAYERS * OPERATOR_STEPS
@@ -2751,8 +2815,488 @@ def _phase_operator(torch, card, launcher_child_first_step_s, tmp):
               None if launcher_child_first_step_s is None
               else out["o1"]["create_to_first_step_s"] - launcher_child_first_step_s),
           "seconds": time.perf_counter() - t_phase, "card": card})
-    return {k: out["o1"]["pod_launches"][k] + out["o2"]["pod_launches_after_restart"][k]
+    return ({k: out["o1"]["pod_launches"][k] + out["o2"]["pod_launches_after_restart"][k]
+             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}, out["o1"])
+
+
+def _check_pod_launches(what, lines, steps=None):
+    """Every ``kernel launches`` line of a pod log: K1-K3 launched
+    layers x steps times (``steps``: the runs' step counts, if known)."""
+    if not lines or (steps is not None and [ln["steps"] for ln in lines] != steps):
+        fail(f"{what}: the pod's kernel launch lines {lines}, want steps {steps}")
+    for ln in lines:
+        want = LAUNCHER_LAYERS * ln["steps"]
+        if any(ln[k] != want for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+            fail(f"{what}: the pod's K1-K3 launches {ln}, want {want} each")
+    return {k: sum(ln[k] for ln in lines)
             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def _pod_steps(log_text):
+    """The steps of a pod log's ``step_phases`` events, in order."""
+    from k8s_tpu_torch.obs.events import parse_events
+
+    return [e["step"] for ln in log_text.splitlines() for e in parse_events(ln)
+            if e["event"] == "step_phases"]
+
+
+class DevCluster:
+    """The dev cluster as processes of this script: ``python -m
+    k8s_tpu_torch.api.apiserver --port 0 --with-kubelet`` (its kubelet
+    runs the pods on this machine's card and is the device plugin), the
+    operators started against it (``python -m k8s_tpu_torch.operator``
+    without ``--local``), and this script's own watches of TpuJobs and
+    Pods over REST, which note when each (kind, name, phase) was first
+    seen."""
+
+    def __init__(self, tmp):
+        from k8s_tpu_torch.api.restcluster import RestCluster
+
+        self.tmp = pathlib.Path(tmp)
+        self.env = {k: v for k, v in os.environ.items()
+                    if not k.startswith(("KTPU_", "MEGASCALE_"))}
+        self.env["PYTHONPATH"] = str(REPO)
+        self.log_dir = self.tmp / "logs"
+        self.api_out = []
+        self.api = subprocess.Popen(
+            [sys.executable, "-m", "k8s_tpu_torch.api.apiserver", "--port", "0",
+             "--with-kubelet", "--log-dir", str(self.log_dir)],
+            cwd=REPO, env=self.env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        self.ops = {}
+        self._stop = threading.Event()
+        self.timeline = []  # (time, kind, name, phase)
+        deadline = time.monotonic() + 120
+        self.url = None
+        while self.url is None and time.monotonic() < deadline:
+            line = self.api.stdout.readline()
+            if not line:
+                break
+            self.api_out.append(line)
+            if line.startswith("serving on "):
+                self.url = line.split()[2]
+        if self.url is None:
+            self.close()
+            fail(f"operator_rest: the apiserver printed no URL: {self.api_out[-20:]}")
+        threading.Thread(target=lambda: self.api_out.extend(self.api.stdout),
+                         daemon=True).start()
+        self.rest = RestCluster(self.url)
+        for kind in ("TpuJob", "Pod"):
+            threading.Thread(target=self._watch, args=(kind,), daemon=True).start()
+
+    def _watch(self, kind):
+        from k8s_tpu_torch.api.restcluster import RestCluster
+
+        rest = RestCluster(self.url)
+        while not self._stop.is_set():
+            try:
+                _, rv = rest.list_with_rv(kind, "default")
+                w = rest.watch(kind, "default", rv)
+                while not self._stop.is_set():
+                    ev = w.next(timeout=0.2)
+                    if ev is not None and ev.type != "DELETED":
+                        st = ev.object.get("status") or {}
+                        self.timeline.append((time.monotonic(), kind, ev.name,
+                                              st.get("phase")))
+                w.stop()
+            except Exception:  # a 410 or a closed stream: relist
+                time.sleep(0.1)
+
+    def first(self, kind, name, *phases, after=0.0):
+        return first_write(self.timeline, kind, name, *phases, after=after)
+
+    def wait(self, pred, what, timeout=OPERATOR_DEADLINE_S):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            v = pred()
+            if v:
+                return v
+            time.sleep(0.05)
+        fail(f"operator_rest: no {what} within {timeout} s; apiserver "
+             f"{''.join(self.api_out[-20:])}; operators "
+             + "; ".join(f"{n}: {self.op_log(n)[-1500:]}" for n in self.ops))
+
+    def start_operator(self, name):
+        log = open(self.tmp / f"{name}.log", "w")
+        self.ops[name] = subprocess.Popen(
+            [sys.executable, "-m", "k8s_tpu_torch.operator", "--health-port=-1"],
+            cwd=REPO, env={**self.env, "KTPU_APISERVER_URL": self.url,
+                           "MY_POD_NAMESPACE": "default", "MY_POD_NAME": name},
+            stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+
+    def op_log(self, name):
+        return (self.tmp / f"{name}.log").read_text(errors="replace")
+
+    def leader(self):
+        from k8s_tpu_torch.api import errors
+
+        try:
+            lock = self.rest.get("Endpoints", "default", "tpu-operator")
+        except errors.NotFoundError:
+            return None
+        raw = (lock["metadata"].get("annotations") or {}).get(
+            "control-plane.alpha.kubernetes.io/leader", "")
+        return json.loads(raw).get("holderIdentity") if raw else None
+
+    def kubectl(self, *argv, timeout=120):
+        return subprocess.run(
+            [sys.executable, "-m", "k8s_tpu_torch.tools.kubectl_local", *argv,
+             "--server", self.url], cwd=REPO, env=self.env, capture_output=True,
+            text=True, timeout=timeout)
+
+    def job(self, name):
+        from k8s_tpu_torch import spec as S
+
+        return S.TpuJob.from_dict(self.rest.get(S.CRD_KIND, "default", name))
+
+    def pod_log(self, pod):
+        from k8s_tpu_torch.api import errors
+
+        try:
+            return self.rest.pod_log("default", pod)
+        except errors.NotFoundError:
+            return ""
+
+    def close(self):
+        self._stop.set()
+        procs = list(self.ops.values()) + [self.api]
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def phase_operator_rest(torch, card, o1, launcher_child_first_step_s):
+    """See :func:`_phase_operator_rest`; its logs go to a temporary
+    directory that is removed afterwards. Returns the K1-K3 launches
+    the pods counted."""
+    tmp = tempfile.mkdtemp(prefix="ktpu-operator-rest-")
+    try:
+        return _phase_operator_rest(torch, card, o1, launcher_child_first_step_s, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_operator_rest(torch, card, o1, launcher_child_first_step_s, tmp):
+    """The port's operator against an apiserver, every component a
+    process: the dev apiserver with its kubelet, the operators over REST
+    with leader election, ``kubectl_local --server``. Each job is one
+    WORKER with ``nvidia.com/gpu: 1`` running the operator phase's child
+    (no obs port: its heartbeats would need the cluster's Service DNS).
+
+    - (r1) operator A leads; ``kubectl_local create --server`` of a job
+      of ``OPERATOR_STEPS`` steps, to ``Succeeded``; ``kubectl_local logs
+      --server`` returns the pod's log, with K1-K3 launched layers x
+      steps times; create -> pod Running -> first step -> ``Succeeded``
+      beside the local-mode operator's (o1) and the direct child's.
+    - (r2) operator B stands by; a job of ``REST_FAILOVER_STEPS`` steps;
+      at its first step A is SIGKILLed: B takes the lock (15 s lease)
+      and adopts the running job; its one pod trains one contiguous run
+      of steps, ``gang_restarts`` 0, ``Succeeded``; leader kill ->
+      standby leading -> ``Succeeded``."""
+    from k8s_tpu_torch import spec as S
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = operator_child_args()
+    out = {}
+    dc = DevCluster(tmp)
+    try:
+        dc.start_operator("op-a")
+        dc.wait(lambda: dc.leader() == "op-a", "op-a leading")
+
+        def run_job(name, steps):
+            manifest = pathlib.Path(tmp) / f"{name}.json"
+            manifest.write_text(json.dumps(_operator_job(
+                name, f"{args} --steps={steps}", obs=False).to_dict()))
+            r = dc.kubectl("create", "-f", str(manifest), "--no-wait")
+            if r.returncode != 0:
+                fail(f"operator_rest {name}: kubectl_local create --server: "
+                     f"{r.stdout}{r.stderr}")
+            t_create = dc.wait(lambda: dc.first("TpuJob", name, None, ""),
+                               f"{name} created")
+            rid = dc.wait(lambda: dc.job(name).spec.runtime_id, f"{name} runtime id")
+            pod = f"{name}-worker-{rid}-0-pod-0"
+            t_step = dc.wait(lambda: _count_events(dc.pod_log(pod), "compile_phase") >= 1
+                             and time.monotonic(), f"{name}'s first step")
+            return t_create, pod, t_step
+
+        # (r1) to Succeeded through the REST path
+        t_create, pod, t_step = run_job("op-r1", OPERATOR_STEPS)
+        t_done = dc.wait(lambda: dc.first("TpuJob", "op-r1", S.TpuJobPhase.DONE),
+                         "op-r1 done")
+        t_run = dc.first("Pod", pod, "Running")
+        job = dc.job("op-r1")
+        if job.status.state != S.TpuJobState.SUCCEEDED or job.status.gang_restarts:
+            fail(f"operator_rest r1: {job.status.state} after "
+                 f"{job.status.gang_restarts} restarts ({job.status.reason}); "
+                 f"log tail {dc.pod_log(pod)[-3000:]}")
+        r = dc.kubectl("logs", "op-r1")
+        if r.returncode != 0 or f"# logs of {pod}" not in r.stdout:
+            fail(f"operator_rest r1: kubectl_local logs --server: {r.stdout[-2000:]}"
+                 f"{r.stderr[-2000:]}")
+        r1_launches = _check_pod_launches("operator_rest r1", _pod_launches(r.stdout),
+                                          [OPERATOR_STEPS])
+        cards = dc.rest.get("Pod", "default", pod)["metadata"].get(
+            "annotations", {}).get("tpu.k8s.io/cuda-visible-devices")
+        if not cards:
+            fail(f"operator_rest r1: the pod got no card ({cards!r})")
+        out["r1"] = {"state": job.status.state, "gang_restarts": 0,
+                     "cuda_visible_devices": cards, "pod_launches": r1_launches,
+                     "create_to_running_s": t_run - t_create,
+                     "running_to_first_step_s": t_step - t_run,
+                     "first_step_to_succeeded_s": t_done - t_step,
+                     "create_to_first_step_s": t_step - t_create,
+                     "create_to_succeeded_s": t_done - t_create,
+                     "local_mode_o1": {k: o1[k] for k in (
+                         "create_to_running_s", "running_to_first_step_s",
+                         "first_step_to_succeeded_s", "create_to_first_step_s",
+                         "create_to_succeeded_s")} if o1 else None,
+                     "rest_over_local_to_first_step_s": (
+                         t_step - t_create - o1["create_to_first_step_s"]) if o1 else None}
+
+        # (r2) the leader dies at the first step; the standby adopts
+        dc.start_operator("op-b")
+        dc.wait(lambda: "waiting for the lock" in dc.op_log("op-b"), "op-b standing by")
+        _, pod2, t_step = run_job("op-r2", REST_FAILOVER_STEPS)
+        if dc.leader() != "op-a":
+            fail(f"operator_rest r2: the lock is held by {dc.leader()}, not op-a")
+        t_kill = time.monotonic()
+        dc.ops["op-a"].kill()
+        dc.ops["op-a"].wait(timeout=30)
+        t_lead = dc.wait(lambda: dc.leader() == "op-b" and time.monotonic(),
+                         "op-b leading", timeout=120)
+        phase_at_takeover = dc.job("op-r2").status.phase
+        dc.wait(lambda: "running (leading)" in dc.op_log("op-b"), "op-b's controller")
+        t_done = dc.wait(lambda: dc.first("TpuJob", "op-r2", S.TpuJobPhase.DONE),
+                         "op-r2 done")
+        job = dc.job("op-r2")
+        log2 = dc.pod_log(pod2)
+        steps = _pod_steps(log2)
+        pods = [p["metadata"]["name"] for p in dc.rest.list("Pod", "default")
+                if p["metadata"]["name"].startswith("op-r2-")]
+        r2_launches = _check_pod_launches("operator_rest r2", _pod_launches(log2),
+                                          [REST_FAILOVER_STEPS])
+        if job.status.state != S.TpuJobState.SUCCEEDED or job.status.gang_restarts \
+                or steps != list(range(1, REST_FAILOVER_STEPS + 1)) \
+                or pods not in ([pod2], []) or phase_at_takeover != S.TpuJobPhase.RUNNING:
+            fail(f"operator_rest r2: {job.status.state} after "
+                 f"{job.status.gang_restarts} restarts ({job.status.reason}), "
+                 f"steps {steps}, pods {pods}, phase at takeover {phase_at_takeover}; "
+                 f"op-b {dc.op_log('op-b')[-2000:]}")
+        out["r2"] = {"state": job.status.state, "gang_restarts": 0,
+                     "steps": len(steps), "pods": [pod2], "pod_launches": r2_launches,
+                     "job_phase_at_takeover": phase_at_takeover,
+                     "leader_kill_at_step": 1,
+                     "first_step_to_leader_kill_s": t_kill - t_step,
+                     "leader_kill_to_standby_leading_s": t_lead - t_kill,
+                     "standby_leading_to_succeeded_s": t_done - t_lead,
+                     "leader_kill_to_succeeded_s": t_done - t_kill}
+    finally:
+        dc.close()
+    emit({"phase": "operator_rest", "model": "llama3_8b", "layers": LAUNCHER_LAYERS,
+          "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "step_sleep_s": 0.5,
+          "lease_s": 15.0, "renew_deadline_s": 5.0, "retry_period_s": 3.0, **out,
+          "launcher_child_start_to_first_step_s": launcher_child_first_step_s,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return {k: out["r1"]["pod_launches"][k] + out["r2"]["pod_launches"][k]
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+# (what, bytes) the phases wrote to disk: the files each phase left in
+# its directory before removing it, and the write-rate probe (the
+# sandbox's /proc/self/io reads write_bytes 0, so the files are counted)
+DISK_WRITES = []
+
+
+def tree_bytes(path) -> int:
+    """The bytes of the files under ``path``."""
+    total = 0
+    for root, _, files in os.walk(path):
+        for f in files:
+            try:
+                total += os.lstat(os.path.join(root, f)).st_size
+            except OSError:
+                pass
+    return total
+
+
+def phase_sched(torch, card):
+    """See :func:`_phase_sched`; its logs (and A's checkpoint, if any) go
+    to a temporary directory that is removed afterwards. Returns the
+    K1-K3 launches the pods counted."""
+    tmp = tempfile.mkdtemp(prefix="ktpu-sched-")
+    try:
+        return _phase_sched(torch, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_sched(torch, card, tmp):
+    """The cluster scheduler on the card: a ``LocalWorld`` whose
+    controller config declares ``fleet: {h100-80gb-x1: 1}`` (one node of
+    one card). Job A (priority 0, preemptible, the operator phase's
+    child with an obs port) trains until its heartbeat shows step 2;
+    job B (priority 10) then arrives. The scheduler preempts A (SIGTERM,
+    exit 143, ``Queued``); B trains on the card to ``Succeeded``; after
+    B's release and A's cooldown A is re-admitted and runs to
+    ``Succeeded``. A gets a local checkpoint directory only when one
+    save still fits this call's disk-write limit (else it restarts from
+    step 0). The device plugin's hand-outs of card 0 are recorded: no
+    two pods may hold it at once."""
+    from k8s_tpu_torch import spec as S
+    from k8s_tpu_torch.controller import metrics
+    from k8s_tpu_torch.tools.local_world import LocalWorld
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    written = sum(n for _, n in DISK_WRITES)
+    with_ckpt = WRITE_LIMIT_BYTES - written >= CHILD_SAVE_BYTES
+    args = operator_child_args()
+    config = S.ControllerConfig(fleet={"h100-80gb-x1": 1},
+                                scheduler_cooldown_seconds=SCHED_COOLDOWN_S)
+    world = LocalWorld(subprocess_pods=True, log_dir=tmp, config=config,
+                       reconcile_interval=0.1)
+    holds = []  # (time, +1 take / -1 give back, cards)
+    with world:
+        plugin = world.kubelet.devices
+        take, give_back = plugin.take, plugin.give_back
+
+        def logged_take(n, stop=None):
+            got = take(n, stop=stop)
+            if got:
+                holds.append((time.monotonic(), 1, tuple(got)))
+            return got
+
+        def logged_give_back(cards):
+            if cards:
+                holds.append((time.monotonic(), -1, tuple(cards)))
+            give_back(cards)
+
+        plugin.take, plugin.give_back = logged_take, logged_give_back
+        a = OperatorRun(world, "sched-a", None, tmp, job=_operator_job(
+            "sched-a", f"{args} --steps={SCHED_A_STEPS}", priority=0,
+            local_dir=os.path.join(tmp, "a-local") if with_ckpt else None))
+        a.wait_log(lambda t: "obs_ready" in t, "A's obs endpoint")
+        rid = world.api.get("default", "sched-a").spec.runtime_id
+        port = world.kubelet.resolver.port_for(f"sched-a-worker-{rid}-0", OPERATOR_OBS_PORT)
+        proc_a = world.kubelet.executor.procs[a.pod]
+        deadline = time.monotonic() + OPERATOR_DEADLINE_S
+        while True:
+            try:
+                hz = json.loads(get_url(port, "/healthz", timeout=10))
+            except (OSError, ValueError):
+                hz = {}
+            if hz.get("obs", {}).get("step", 0) >= 2:
+                break
+            if proc_a.poll() is not None or time.monotonic() > deadline:
+                fail(f"sched: A's heartbeat never reached step 2 (exit "
+                     f"{proc_a.poll()}); log tail {a.log()[-3000:]}")
+            time.sleep(0.1)
+        b = OperatorRun(world, "sched-b", None, tmp, job=_operator_job(
+            "sched-b", f"{args} --steps={SCHED_B_STEPS}", priority=10))
+        try:
+            rc_a = proc_a.wait(timeout=OPERATOR_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            fail("sched: the preempted A did not exit")
+        t_a_exit = time.monotonic()
+        deadline = time.monotonic() + OPERATOR_DEADLINE_S
+        while a.first("TpuJob", "sched-a", S.TpuJobPhase.QUEUED, after=b.t_create) is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        t_a_queued = a.first("TpuJob", "sched-a", S.TpuJobPhase.QUEUED, after=b.t_create)
+        queued = world.api.get("default", "sched-a")
+        t_b_step = b.wait_log(lambda t: _count_events(t, "compile_phase") >= 1,
+                              "B's first step")
+        job_b, t_b_done = b.wait_done()
+        t_a_step = a.wait_log(lambda t: _count_events(t, "compile_phase") >= 2,
+                              "A's first step after re-admission")
+        job_a, t_a_done = a.wait_done()
+        # A's first write out of Queued, read once A is done: the
+        # re-admission follows B's release by milliseconds, so a read
+        # right after B's wait can come before it
+        t_a_admit = a.first("TpuJob", "sched-a", S.TpuJobPhase.CREATING,
+                            S.TpuJobPhase.RUNNING, after=t_a_queued)
+        log_a = a.log()
+        preempted = [c for c in queued.status.conditions if c.type == "Preempted"]
+        if rc_a != 143 or queued.status.phase not in (S.TpuJobPhase.QUEUED,
+                                                      S.TpuJobPhase.CREATING) \
+                or t_a_queued is None or not preempted \
+                or "default/sched-b" not in preempted[-1].reason:
+            fail(f"sched: A exited {rc_a}, phase {queued.status.phase} (queued at "
+                 f"{t_a_queued}), conditions {[c.to_dict() for c in queued.status.conditions]}")
+        if job_b.status.state != S.TpuJobState.SUCCEEDED \
+                or job_a.status.state != S.TpuJobState.SUCCEEDED \
+                or job_a.status.gang_restarts or job_b.status.gang_restarts \
+                or t_a_admit is None:
+            fail(f"sched: B {job_b.status.state}, A {job_a.status.state} "
+                 f"(restarts {job_a.status.gang_restarts}/{job_b.status.gang_restarts}), "
+                 f"A re-admitted at {t_a_admit} after B done at {t_b_done}; "
+                 f"A log tail {log_a[-3000:]}")
+        a_steps = _pod_steps(log_a)
+        restart_from = a_steps[a_steps.index(1, 1) - 1] if 1 in a_steps[1:] else None
+        from k8s_tpu_torch.obs.events import parse_events
+
+        restored = [e["step"] for ln in log_a.splitlines() for e in parse_events(ln)
+                    if e["event"] == "ckpt_restore"]
+        if with_ckpt != bool(restored) or (not with_ckpt and restart_from is None):
+            fail(f"sched: A (checkpoint {with_ckpt}) ran steps {a_steps}, "
+                 f"restored {restored}")
+        launches = {k: v for k, v in _check_pod_launches(
+            "sched B", _pod_launches(b.log()), [SCHED_B_STEPS]).items()}
+        a_lines = _pod_launches(log_a)
+        a_launches = _check_pod_launches("sched A", a_lines)
+        for k in launches:
+            launches[k] += a_launches[k]
+        inv = world.controller.scheduler.inventory
+        high_water = inv.max_used.get("h100-80gb-x1")
+        # card 0 held by one pod at a time: replay the hand-outs
+        held, most = {}, 0
+        for _, sign, got in sorted(holds):
+            for c in got:
+                held[c] = held.get(c, 0) + sign
+                most = max(most, held[c])
+        if high_water != 1 or inv.used("h100-80gb-x1") != 0 or most != 1 \
+                or sum(1 for _, sign, _ in holds if sign > 0) != 3:
+            fail(f"sched: high-water {high_water}, used {inv.used('h100-80gb-x1')}, "
+                 f"card hand-outs {holds}")
+        series = [ln for ln in metrics.REGISTRY.expose().splitlines()
+                  if ln.startswith("ktpu_sched_") and "_bucket" not in ln]
+    emit({"phase": "sched", "model": "llama3_8b", "layers": LAUNCHER_LAYERS,
+          "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "step_sleep_s": 0.5,
+          "fleet": {"h100-80gb-x1": 1}, "cooldown_s": SCHED_COOLDOWN_S,
+          "bytes_written_before": written, "writes_before": DISK_WRITES,
+          "write_limit_bytes": WRITE_LIMIT_BYTES,
+          "a_checkpoint": "local tier" if with_ckpt else "none (one save no longer fits)",
+          "a": {"state": job_a.status.state, "exit_code_preempted": rc_a,
+                "heartbeat_step_at_b_create": hz["obs"]["step"],
+                "steps_before_preemption": restart_from,
+                "restored_from_step": restored[0] if restored else None,
+                "kernel_launch_lines": a_lines,
+                "conditions": [c.type for c in job_a.status.conditions]},
+          "b": {"state": job_b.status.state, "pod_launches": _pod_launches(b.log())},
+          "b_create_to_a_exit_s": t_a_exit - b.t_create,
+          "b_create_to_a_queued_s": t_a_queued - b.t_create,
+          "a_exit_to_b_first_step_s": t_b_step - t_a_exit,
+          "b_create_to_b_first_step_s": t_b_step - b.t_create,
+          "b_succeeded_to_a_readmitted_s": t_a_admit - t_b_done,
+          "a_readmitted_to_a_first_step_s": t_a_step - t_a_admit,
+          "b_succeeded_to_a_first_step_s": t_a_step - t_b_done,
+          "a_create_to_succeeded_s": t_a_done - a.t_create,
+          "inventory_high_water_nodes": high_water,
+          "card_handouts": [[round(t - a.t_create, 3), sign, list(got)]
+                            for t, sign, got in holds],
+          "card0_max_holders": most, "ktpu_sched": series,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return launches
 
 
 def _profile_train_step(torch, run):
@@ -2862,9 +3406,9 @@ def _profile_train_step(torch, run):
 def main() -> None:
     import torch
 
-    # ``--only=launcher`` / ``--only=operator``: the build and that phase
-    # alone (a debugging aid; it ends with a ``partial`` line, not the
-    # ``ok`` one)
+    # ``--only=launcher`` / ``--only=operator`` / ``--only=operator_rest``
+    # / ``--only=sched``: the build and that phase alone (a debugging aid;
+    # it ends with a ``partial`` line, not the ``ok`` one)
     only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
 
     if not torch.cuda.is_available():
@@ -2906,7 +3450,14 @@ def main() -> None:
     if only == ["operator"]:
         # the operator phase alone (a debugging aid, as above)
         emit({"partial": only,
-              "launches_operator_pods": phase_operator(torch, card, None)})
+              "launches_operator_pods": phase_operator(torch, card, None)[0]})
+        return
+    if only == ["operator_rest"]:
+        emit({"partial": only, "launches_operator_rest_pods":
+              phase_operator_rest(torch, card, None, None)})
+        return
+    if only == ["sched"]:
+        emit({"partial": only, "launches_sched_pods": phase_sched(torch, card)})
         return
     if only == ["train"]:
         # the training phases alone (a debugging aid, as above)
@@ -2935,7 +3486,9 @@ def main() -> None:
     train_fsdp, fsdp = phase_train_fsdp(torch, attn, card, dp)
     train_fsdp_tp = phase_train_fsdp_tp(torch, attn, card, dp, fsdp)
     restored, child_first_step_s = phase_launcher(torch, attn, card, tracer_ms)
-    phase_operator(torch, card, child_first_step_s)
+    operator, o1 = phase_operator(torch, card, child_first_step_s)
+    operator_rest = phase_operator_rest(torch, card, o1, child_first_step_s)
+    sched = phase_sched(torch, card)
     serving_int8 = phase_serving_int8(torch, attn, card)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
                 + train_fsdp["flash_fwd"] + train_fsdp_tp["flash_fwd"]
@@ -2956,6 +3509,11 @@ def main() -> None:
                 "launches_train_fsdp_tp": train_fsdp_tp.get(name, 0),
                 "launches_serving_int8": serving_int8.get(name, 0),
                 "launches_restored_serving": restored.get(name, 0),
+                # counted by the operator phases' pods (processes of their
+                # own) and printed in their logs
+                "launches_operator_pods": operator.get(name, 0),
+                "launches_operator_rest_pods": operator_rest.get(name, 0),
+                "launches_sched_pods": sched.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -13,15 +13,17 @@ without a card they raise unless the caller asks for ``"cpu"``
 
 from __future__ import annotations
 
-import torch
-
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda") -> "torch.device":  # noqa: F821
     """The device an entry point runs on. A CUDA device without a card
     raises here, up front, instead of deep inside the first launch —
     there is no silent CPU fallback anywhere in the port."""
+    # imported here, so that the control plane (operator, apiserver,
+    # kubectl_local) starts without loading torch
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

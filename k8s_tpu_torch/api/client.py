@@ -35,7 +35,7 @@ T = TypeVar("T", bound=K8sObject)
 class _TypedResource:
     """CRUD for one kind, converting between dataclasses and the dict
     store. ``cluster`` is any backend with the InMemoryCluster method
-    surface (in-memory or a REST backend (ROADMAP A12.2))."""
+    surface (in-memory or :class:`k8s_tpu_torch.api.restcluster.RestCluster`)."""
 
     def __init__(self, cluster, kind: str, cls: Type[T]):
         self._cluster = cluster
@@ -128,19 +128,36 @@ class KubeClient:
             pass
 
 
-REST_BACKEND_ITEM = "A12.2 (the REST backend and leader election)"
-
-
 def get_cluster_client(kubeconfig: Optional[str] = None) -> KubeClient:
-    """Bootstrap helper (reference GetClusterConfig, k8sutil.go:45-65).
-    The port runs the operator on the in-memory cluster only: an
-    apiserver named by ``KTPU_APISERVER_URL``, ``kubeconfig`` or
-    ``KUBECONFIG`` raises, since the REST backend is not ported yet."""
+    """Bootstrap helper (reference GetClusterConfig, k8sutil.go:45-65 —
+    KUBECONFIG-env branch first, then in-cluster). Resolution order:
+
+    1. ``KTPU_APISERVER_URL`` env — an explicit apiserver URL (e.g. a
+       :mod:`k8s_tpu_torch.api.apiserver` dev server, or a ``kubectl proxy``)
+    2. ``kubeconfig`` arg (the operator's ``--kubeconfig``), then
+       ``KUBECONFIG`` env — both EXPLICIT opt-ins
+    3. in-cluster serviceaccount (KUBERNETES_SERVICE_HOST + token mount)
+    4. in-memory cluster (local/test mode)
+
+    Real-cluster mode is never entered implicitly: a bare
+    ``~/.kube/config`` on the machine is NOT used unless named by (2)
+    — mutating whatever cluster a developer's kubeconfig happens to
+    point at (CRD creation, election, job adoption/GC) must be asked
+    for, not stumbled into (round-2 advisor finding). The reference
+    behaved the same way: KUBECONFIG env or in-cluster only
+    (``k8sutil.go:45-65``).
+    """
     import os
 
-    if (os.environ.get("KTPU_APISERVER_URL") or kubeconfig
-            or os.environ.get("KUBECONFIG")):
-        raise NotImplementedError(
-            "a remote apiserver is not ported to k8s_tpu_torch yet "
-            f"(ROADMAP {REST_BACKEND_ITEM}); run the operator with --local")
+    from k8s_tpu_torch.api import restcluster
+
+    url = os.environ.get("KTPU_APISERVER_URL")
+    if url:
+        return KubeClient(restcluster.RestCluster(url))
+    path = kubeconfig or os.environ.get("KUBECONFIG")
+    if path:
+        return KubeClient(restcluster.kubeconfig_config(path))
+    in_cluster = restcluster.in_cluster_config()
+    if in_cluster is not None:
+        return KubeClient(in_cluster)
     return KubeClient()

@@ -20,7 +20,7 @@ from k8s_tpu_torch.spec import CRD_KIND, CRD_GROUP, CRD_VERSION, TpuJob, crd_nam
 class TpuJobClient:
     """CRUD + watch for TpuJob custom resources. ``cluster`` is any
     backend with the InMemoryCluster method surface (in-memory, or
-    a REST backend (ROADMAP A12.2) against a real
+    :class:`k8s_tpu_torch.api.restcluster.RestCluster` against a real
     apiserver — the reference's raw-REST client analogue)."""
 
     def __init__(self, cluster):

@@ -11,14 +11,23 @@ that informer: the operator opens ONE watch stream per kind, keeps a
 local cache of every object it manages, and the reconcilers read the
 cache — steady-state reconcile makes **zero** apiserver calls.
 
-The feed: :class:`k8s_tpu_torch.api.cluster.InMemoryCluster` fires its
-``hooks`` synchronously inside the commit, so the cache is updated
-*before* the mutating call returns — a perfectly fresh cache for tests
-and single-host local mode. The JAX package's reflector thread per kind
-over a REST backend (list, watch, relist on 410 Gone) comes with that
-backend (ROADMAP A12.2); the trainer's delete tombstones
-(``trainer/replicas.py``), which its eventual consistency needs, are
-kept.
+Two feed mechanisms, chosen per backend:
+
+- :class:`k8s_tpu_torch.api.cluster.InMemoryCluster` fires its ``hooks``
+  synchronously inside the commit, so the cache is updated *before*
+  the mutating call returns — a perfectly fresh cache for tests and
+  single-host local mode.
+- Any other backend (:class:`k8s_tpu_torch.api.restcluster.RestCluster`
+  against a real apiserver or the local wire-format one) gets a
+  watch thread per kind: LIST to prime the cache, stream from the
+  list's resourceVersion, relist on 410 Gone — client-go reflector
+  semantics (the reference got these for free from client-go; we own
+  them).
+
+Cache readers must tolerate eventual consistency on the REST path:
+an object the reconciler just deleted may still be cached for a few
+milliseconds. The trainer handles that with delete tombstones
+(``trainer/replicas.py``) — the informer itself stays a dumb mirror.
 """
 
 from __future__ import annotations
@@ -28,11 +37,19 @@ import logging
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+from k8s_tpu_torch.api import errors
 from k8s_tpu_torch.api.cluster import InMemoryCluster, WatchEvent, _matches
+from k8s_tpu_torch.robustness.backoff import Backoff, BackoffPolicy
 
 log = logging.getLogger(__name__)
 
 DEFAULT_KINDS = ("Job", "Pod", "Service", "ConfigMap", "Deployment")
+
+# Reflector resync schedule: list/watch failures and 410 relists space
+# out 0.5s → 15s (jittered) instead of hammering a browned-out apiserver.
+RESYNC_POLICY = BackoffPolicy(
+    base=0.5, factor=2.0, cap=15.0, jitter=0.5, reset_after=60.0
+)
 
 
 class _KindCache:
@@ -120,12 +137,16 @@ class Informer:
         self.cluster = cluster
         self.namespace = namespace
         self.caches: Dict[str, _KindCache] = {k: _KindCache(k) for k in kinds}
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
         self._hook = None
         self._started = False
         # event listeners (the event-driven control plane's feed,
         # docs/SCHEDULER.md "Event-driven core"): called with each
-        # WatchEvent that MATERIALLY changed the cache. Listeners must
-        # be cheap and never raise.
+        # WatchEvent that MATERIALLY changed the cache, plus a
+        # synthetic type="RESYNC" event after every reflector relist
+        # (anything could have changed while the watch was down).
+        # Listeners must be cheap and never raise.
         self._listeners: List = []
 
     def add_listener(self, fn) -> None:
@@ -183,13 +204,21 @@ class Informer:
             for cache in self.caches.values():
                 cache.synced.set()
             return self
-        raise NotImplementedError(
-            "an informer over a REST backend is not ported to k8s_tpu_torch "
-            "yet (ROADMAP A12.2)")
+        for kind in self.caches:
+            t = threading.Thread(
+                target=self._reflect, args=(kind,), daemon=True,
+                name=f"informer-{kind.lower()}",
+            )
+            t.start()
+            self._threads.append(t)
+        return self
 
     def stop(self) -> None:
+        self._stop.set()
         if self._hook is not None and self._hook in getattr(self.cluster, "hooks", []):
             self.cluster.hooks.remove(self._hook)
+        for t in self._threads:
+            t.join(timeout=5)
 
     def wait_for_sync(self, timeout: float = 30.0) -> bool:
         import time
@@ -204,6 +233,65 @@ class Informer:
     @property
     def synced(self) -> bool:
         return all(c.synced.is_set() for c in self.caches.values())
+
+    # ------------------------------------------------------------ reflector
+
+    def _reflect(self, kind: str) -> None:
+        """client-go reflector loop: list → watch(rv) → apply; relist on
+        410; re-dial on stream errors (the RestWatcher already re-dials
+        EOFs internally — only staleness surfaces here)."""
+        cache = self.caches[kind]
+        bo = Backoff(RESYNC_POLICY)  # unified resync/relist schedule
+        while not self._stop.is_set():
+            if bo.wait(self._stop):
+                return
+            try:
+                lister = getattr(self.cluster, "list_with_rv", None)
+                if lister is not None:
+                    # the LIST's own resourceVersion is the watch
+                    # anchor; the client-wide high-water mark can be
+                    # AHEAD of this snapshot (other threads share the
+                    # client) and would skip events committed between
+                    items, rv = lister(kind, self.namespace)
+                else:
+                    items = self.cluster.list(kind, self.namespace)
+                    rv = self.cluster.resource_version
+                cache.replace(items)
+                cache.synced.set()
+                # anything may have changed while the watch was down —
+                # one synthetic event lets listeners resync themselves
+                # (the controller re-kicks every job key on it)
+                self._notify(WatchEvent("RESYNC", kind, {
+                    "metadata": {"name": "", "namespace": ""}}))
+                watcher = self.cluster.watch(kind, self.namespace, rv)
+            except Exception as e:
+                delay = bo.note_failure()
+                log.warning("informer %s: list/watch failed (%s); retry in %.1fs",
+                            kind, e, delay)
+                continue
+            bo.note_success()
+            try:
+                while not self._stop.is_set():
+                    ev = watcher.next(timeout=0.2)
+                    if ev is None:
+                        continue
+                    if cache.apply(ev):
+                        self._notify(ev)
+            except errors.OutdatedVersionError:
+                # a 410 storm (chaos watch-drop, compacted history)
+                # relists through the same backoff as any other failure
+                delay = bo.note_failure()
+                log.info("informer %s: watch outdated; relisting in %.1fs",
+                         kind, delay)
+            except Exception as e:
+                delay = bo.note_failure()
+                log.warning("informer %s: watch error (%s); relisting in %.1fs",
+                            kind, e, delay)
+            finally:
+                try:
+                    watcher.stop()
+                except Exception:
+                    pass
 
     # ------------------------------------------------------------ readers
 

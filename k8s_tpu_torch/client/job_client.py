@@ -24,10 +24,16 @@ DEFAULT_POLL = 1.0
 
 
 def load_tpu_job_yaml(text: str) -> TpuJob:
-    """Parse a TpuJob manifest (the kubectl-facing YAML schema)."""
-    import yaml
+    """Parse a TpuJob manifest (the kubectl-facing YAML schema; a JSON
+    manifest, which is YAML too, parses without PyYAML)."""
+    import json
 
-    doc = yaml.safe_load(text)
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        import yaml
+
+        doc = yaml.safe_load(text)
     if not isinstance(doc, dict):
         raise ValueError("manifest must be a mapping")
     kind = doc.get("kind")

@@ -7,8 +7,10 @@ into the restore gauge) and the device-memory gauges of the obs
 endpoint — and the operator's series (reconciles, gang restarts, the
 obs tick's straggler and health verdicts, the work queue). Same names,
 help text and exposition format, so the series catalogue of
-``docs/OBSERVABILITY.md`` covers them. The serving, scheduler and
-resize series come with their slices.
+``docs/OBSERVABILITY.md`` covers them — and the cluster scheduler's
+``ktpu_sched_*`` series (a node of the port's ledger stands where the
+JAX package's counts a slice, a card where it counts a chip). The
+serving and resize series come with their slices.
 """
 
 from __future__ import annotations
@@ -374,4 +376,69 @@ HEARTBEATS_PUSHED = REGISTRY.counter(
     "ktpu_controller_heartbeats_pushed_total",
     "Worker obs heartbeats PUSHED into the control plane (the "
     "/v1/heartbeat receiver) instead of polled",
+)
+# Cluster scheduler (k8s_tpu_torch/sched, docs/SCHEDULER.md): the
+# resource market's own telemetry — queue pressure, admission/preemption
+# flow, quota burn, and the goodput priced into eviction decisions. The
+# JAX package's names; the ledger's unit is a node, its quota a card.
+SCHED_QUEUE_DEPTH = REGISTRY.gauge(
+    "ktpu_sched_queue_depth",
+    "Jobs waiting for admission (incl. re-queued preemption victims), "
+    "by queue",
+)
+SCHED_ADMITTED = REGISTRY.counter(
+    "ktpu_sched_admitted_total",
+    "Jobs admitted by the cluster scheduler, by queue",
+)
+SCHED_PREEMPTED = REGISTRY.counter(
+    "ktpu_sched_preempted_total",
+    "Running jobs preempted for a higher-priority job, by the victim's "
+    "queue",
+)
+SCHED_QUOTA_USED = REGISTRY.gauge(
+    "ktpu_sched_quota_used_chips",
+    "Cards currently admitted against each queue's quota, by queue",
+)
+SCHED_SLICES_FREE = REGISTRY.gauge(
+    "ktpu_sched_slices_free",
+    "Unassigned nodes in the fleet inventory, by accelerator",
+)
+SCHED_PREEMPT_LOST_STEPS = REGISTRY.counter(
+    "ktpu_sched_preempt_lost_steps_total",
+    "Steps at stake at each preemption decision (victim progress past "
+    "its last checkpoint — the cost the scheduler priced; the preempt "
+    "flush usually reduces the realized loss, visible in "
+    "ktpu_ckpt_lost_steps_total), by victim job",
+)
+SCHED_TICK_SECONDS = REGISTRY.histogram(
+    "ktpu_sched_tick_seconds",
+    "Wall-clock duration of each pure scheduler decision pass "
+    "(placement scoring + backfill pricing included; acting on the "
+    "verdicts is reconcile work and is not counted)",
+)
+SCHED_BACKFILLS = REGISTRY.counter(
+    "ktpu_sched_backfill_total",
+    "Jobs admitted through a head-of-line reservation gap by "
+    "conservative backfill, by queue",
+)
+SCHED_FRAGMENTATION = REGISTRY.gauge(
+    "ktpu_sched_fragmentation",
+    "Free-space fragmentation of each topology pool (1 − largest free "
+    "block under one leaf switch / total free nodes; 0 = one whole "
+    "block), by accelerator",
+)
+SCHED_CONTIGUITY_HIT_RATE = REGISTRY.gauge(
+    "ktpu_sched_contiguity_hit_rate",
+    "Fraction of multi-node gang placements that landed under one leaf "
+    "switch since operator start, by accelerator",
+)
+SCHED_KICKS = REGISTRY.counter(
+    "ktpu_sched_kicks_total",
+    "Scheduler-tick kicks requested by job/capacity deltas (each "
+    "wakes the event-driven tick loop at most once)",
+)
+SCHED_KICKS_COALESCED = REGISTRY.counter(
+    "ktpu_sched_kicks_coalesced_total",
+    "Scheduler kicks merged into an already-pending wakeup — full "
+    "scheduler passes the dedup kick saved",
 )

@@ -1,18 +1,26 @@
 """Operator process entrypoint (the port's counterpart of
-``k8s_tpu/operator.py``), on the in-memory cluster.
+``k8s_tpu/operator.py``).
 
 Analogue of reference ``cmd/tf_operator/main.go``: flag parsing
 (:48-54), YAML ControllerConfig loading (:68-84), the
-``MY_POD_NAMESPACE``/``MY_POD_NAME`` env contract (:89-96) and the run
-loop (:153-169). ``python -m k8s_tpu_torch.operator --local`` runs the
-controller and the in-process kubelet (subprocess pods on this node's
-cards) as one single-node control+data plane, with the liveness +
-``/metrics`` endpoint on ``--health-port``.
+``MY_POD_NAMESPACE``/``MY_POD_NAME`` env contract (:89-96), leader
+election with 15s/5s/3s lease timing (:40-46,125-148), and the run
+loop (:153-169), with the liveness + ``/metrics`` endpoint on
+``--health-port``.
 
-Refused, each with its ROADMAP item: a remote apiserver and leader
-election (without ``--local``; A12.2), ``--chaos-level`` (A12.6), and,
-through :meth:`ControllerConfig.check_ported`, a config that declares a
-scheduler ``fleet`` (A12.3) or ``useNativeSupervisor`` (A12.7).
+- Without ``--local`` the operator talks to an apiserver (resolved by
+  :func:`~k8s_tpu_torch.api.client.get_cluster_client`:
+  ``KTPU_APISERVER_URL``, ``--kubeconfig``/``KUBECONFIG``, the in-cluster
+  service account, else in memory) and reconciles only while it holds
+  the ``tpu-operator`` lock; the pods run on the cluster's nodes (e.g.
+  ``python -m k8s_tpu_torch.api.apiserver --with-kubelet``).
+- ``--local`` runs the controller and the in-process kubelet
+  (subprocess pods on this node's cards) on the in-memory cluster, as
+  one single-node control+data plane; its elector wins the lock at once.
+
+Refused, each with its ROADMAP item: ``--chaos-level`` (A12.6), and,
+through :meth:`ControllerConfig.check_ported`, ``useNativeSupervisor``
+(A12.7).
 """
 
 from __future__ import annotations
@@ -26,12 +34,17 @@ import tempfile
 import threading
 
 from k8s_tpu_torch import version
-from k8s_tpu_torch.api.client import REST_BACKEND_ITEM, KubeClient
+from k8s_tpu_torch.api.client import KubeClient, get_cluster_client
 from k8s_tpu_torch.api.crd_client import TpuJobClient
+from k8s_tpu_torch.api.election import LeaderElector
 from k8s_tpu_torch.controller.controller import Controller
 from k8s_tpu_torch.spec import ControllerConfig
 
 log = logging.getLogger("k8s_tpu_torch.operator")
+
+LEASE_DURATION = 15.0  # reference main.go:42-44
+RENEW_DEADLINE = 5.0
+RETRY_PERIOD = 3.0
 
 
 def parse_args(argv=None):
@@ -45,6 +58,10 @@ def parse_args(argv=None):
                    help="liveness + /metrics listener. -1 disables, "
                         "0 = ephemeral port")
     p.add_argument("--namespace", default=None)
+    p.add_argument("--kubeconfig", default=None,
+                   help="kubeconfig path for out-of-cluster runs; default: "
+                        "KTPU_APISERVER_URL / KUBECONFIG env, in-cluster "
+                        "serviceaccount, then local in-memory mode")
     p.add_argument("--log-dir", default=os.path.join(
         tempfile.gettempdir(), "ktpu-logs"), help="pod logs")
     p.add_argument("--local", action="store_true",
@@ -69,11 +86,6 @@ def main(argv=None) -> int:
     if args.version:
         print(f"tpu-operator {version.VERSION} (git {version.GIT_SHA})")
         return 0
-    if not args.local:
-        raise NotImplementedError(
-            "the operator against a remote apiserver, with leader "
-            "election, is not ported to k8s_tpu_torch yet (ROADMAP "
-            f"{REST_BACKEND_ITEM}); run it with --local")
     if args.chaos_level >= 0:
         raise NotImplementedError(
             "--chaos-level: the chaos monkey is not ported to "
@@ -88,10 +100,15 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, lambda *_: stop.set())
 
     # env contract (reference main.go:89-96)
-    namespace = os.environ.get("MY_POD_NAMESPACE", "default")
-    name = os.environ.get("MY_POD_NAME", f"tpu-operator-{os.getpid()}")
+    namespace = os.environ.get("MY_POD_NAMESPACE", "default" if args.local else "")
+    name = os.environ.get("MY_POD_NAME", f"tpu-operator-{os.getpid()}" if args.local else "")
+    if not namespace or not name:
+        log.error("MY_POD_NAMESPACE and MY_POD_NAME must be set")
+        return 1
 
-    client = KubeClient()
+    # --local forces the in-memory backend: the in-process kubelet hangs
+    # off its synchronous hooks, which no remote apiserver can provide
+    client = KubeClient() if args.local else get_cluster_client(args.kubeconfig)
     job_client = TpuJobClient(client.cluster)
 
     health = None
@@ -100,24 +117,51 @@ def main(argv=None) -> int:
 
         health = HealthServer(args.health_port).start()
 
-    from k8s_tpu_torch.runtime.kubelet import LocalKubelet, SubprocessExecutor
+    kubelet = None
+    if args.local:
+        from k8s_tpu_torch.runtime.kubelet import LocalKubelet, SubprocessExecutor
 
-    kubelet = LocalKubelet(client, SubprocessExecutor(log_dir=args.log_dir))
-    kubelet.start()
+        kubelet = LocalKubelet(client, SubprocessExecutor(log_dir=args.log_dir))
+        kubelet.start()
 
-    controller = Controller(client, job_client, config, args.namespace)
-    if health is not None:
-        # pushed obs heartbeats (POST /v1/heartbeat/...) route to the
-        # owning reconciler instead of waiting for a poll
-        health.heartbeat_sink = controller.ingest_heartbeat
-    controller.start()
-    log.info("operator %s/%s running (local mode)", namespace, name)
+    elector = LeaderElector(
+        client.cluster,
+        namespace,
+        "tpu-operator",
+        identity=name,
+        lease_duration=LEASE_DURATION,
+        renew_deadline=RENEW_DEADLINE,
+        retry_period=RETRY_PERIOD,
+    )
+
+    def on_started_leading(lost: threading.Event):
+        controller = Controller(client, job_client, config, args.namespace)
+        if health is not None:
+            # pushed obs heartbeats (POST /v1/heartbeat/...) route to
+            # the owning reconciler instead of waiting for a poll
+            health.heartbeat_sink = controller.ingest_heartbeat
+        controller.start()
+        log.info("operator %s/%s running (%s)", namespace, name,
+                 "local mode" if args.local else "leading")
+        try:
+            while not stop.is_set() and not lost.is_set():
+                stop.wait(0.5)
+        finally:
+            controller.stop()
+
+    def on_stopped_leading():
+        # Reference main.go Fatalf-exits here; the liveness endpoint
+        # flips too, so the kubelet restarts us even if shutdown wedges.
+        log.info("leader election lost")
+        if health is not None:
+            health.set_unhealthy()
+
+    log.info("operator %s/%s waiting for the lock", namespace, name)
     try:
-        while not stop.is_set():
-            stop.wait(0.5)
+        elector.run(on_started_leading, on_stopped_leading, stop=stop)
     finally:
-        controller.stop()
-        kubelet.stop()
+        if kubelet is not None:
+            kubelet.stop()
         if health is not None:
             health.stop()
     return 0

@@ -188,6 +188,22 @@ class LocalServiceResolver:
         return out
 
 
+# SIGTERM -> SIGKILL wait of a deleted pod whose spec sets no
+# terminationGracePeriodSeconds
+DEFAULT_GRACE_SECONDS = 10.0
+
+
+def _grace_seconds(pod: Pod) -> float:
+    """The pod's ``terminationGracePeriodSeconds`` (the time a
+    preemption flush has to land), else :data:`DEFAULT_GRACE_SECONDS`."""
+    raw = (pod.spec.extra or {}).get("terminationGracePeriodSeconds") \
+        if pod.spec is not None else None
+    try:
+        return float(raw) if raw is not None else DEFAULT_GRACE_SECONDS
+    except (TypeError, ValueError):
+        return DEFAULT_GRACE_SECONDS
+
+
 class SimulatedExecutor:
     """Unit-test executor: returns a scripted exit code per pod."""
 
@@ -254,7 +270,7 @@ class SubprocessExecutor:
                 if stop.is_set():
                     proc.terminate()
                     try:
-                        proc.wait(timeout=10)
+                        proc.wait(timeout=_grace_seconds(pod))
                     except subprocess.TimeoutExpired:
                         proc.kill()
                     return 143

@@ -648,8 +648,8 @@ class TpuJobSpec(K8sObject):
     # Tracing + telemetry: per-host obs endpoint, flight recorder,
     # straggler detection. None → trace id stamping only.
     observability: Optional[ObservabilitySpec] = None
-    # Cluster-scheduler terms, passed to the programs as KTPU_SCHED_*
-    # (the scheduler itself is a later slice, ROADMAP A12.3).
+    # Cluster-scheduler terms (k8s_tpu_torch/sched, when the controller
+    # config declares a fleet), passed to the programs as KTPU_SCHED_*.
     scheduling: Optional[SchedulingSpec] = None
     # the JAX package's tpu:, serving: and elastic: blocks land here
     # when a manifest carries them; validation refuses each by name

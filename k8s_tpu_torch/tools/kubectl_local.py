@@ -1,27 +1,34 @@
-"""kubectl-style CLI of the port's operator, in local mode (the port's
-counterpart of ``k8s_tpu/tools/kubectl_local.py``).
+"""kubectl-style CLI of the port's operator (the port's counterpart of
+``k8s_tpu/tools/kubectl_local.py``). Two modes:
 
-The reference's user surface is ``kubectl create -f tf_job.yaml``
-(README quickstart). Here every verb runs without a cluster:
+- default, without a cluster:
 
-- ``validate -f job.yaml`` checks a manifest offline (defaults, then
-  validation — including the refusals of features the port does not
-  run yet, each with its ROADMAP item);
-- ``create -f job.yaml`` runs the job to its end in a
-  :class:`~k8s_tpu_torch.tools.local_world.LocalWorld` that lives for
-  the command (subprocess pods on this machine's cards, or simulated
-  pods with ``--simulate``), then records the finished job, its Events
-  and its pods' logs under ``--state-dir``;
-- ``get``, ``describe``, ``logs`` and ``delete`` read (or remove) those
-  records.
+  - ``validate -f job.yaml`` checks a manifest offline (defaults, then
+    validation — including the refusals of features the port does not
+    run yet, each with its ROADMAP item);
+  - ``create -f job.yaml`` runs the job to its end in a
+    :class:`~k8s_tpu_torch.tools.local_world.LocalWorld` that lives for
+    the command (subprocess pods on this machine's cards, or simulated
+    pods with ``--simulate``), then records the finished job, its Events
+    and its pods' logs under ``--state-dir``;
+  - ``get``, ``describe``, ``logs`` and ``delete`` read (or remove) those
+    records.
 
-``--server`` (a remote apiserver) is the REST backend, not ported yet
-(ROADMAP A12.2).
+- ``--server URL`` (or ``KTPU_APISERVER_URL``): ``create``, ``get``,
+  ``describe``, ``logs`` and ``delete`` against a running apiserver (a
+  real cluster through ``kubectl proxy``, or ``python -m
+  k8s_tpu_torch.api.apiserver --with-kubelet``) where a separately
+  running operator (``python -m k8s_tpu_torch.operator``) reconciles
+  them — the reference's deployment shape. ``create`` waits for the
+  job's end unless ``--no-wait``; ``logs`` reads the pod's log through
+  the ``pods/{name}/log`` subresource.
 
     python -m k8s_tpu_torch.tools.kubectl_local create \\
         -f k8s_tpu_torch/examples/gpu_job_cpu_tiny.yaml
     python -m k8s_tpu_torch.tools.kubectl_local describe llama-tiny-cpu
     python -m k8s_tpu_torch.tools.kubectl_local logs llama-tiny-cpu
+    python -m k8s_tpu_torch.tools.kubectl_local create --server \\
+        http://127.0.0.1:8001 -f k8s_tpu_torch/examples/gpu_job_cpu_tiny.yaml
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ import sys
 import tempfile
 
 from k8s_tpu_torch import spec as S
-from k8s_tpu_torch.api.client import REST_BACKEND_ITEM
 from k8s_tpu_torch.client.job_client import load_tpu_job_yaml
 from k8s_tpu_torch.tools.local_world import LocalWorld
 from k8s_tpu_torch.trainer import labels as L
@@ -102,6 +108,127 @@ def _save_record(world: LocalWorld, state_dir: str, log_dir: str,
                   f, indent=1, sort_keys=True)
 
 
+def _remote_client(server: str):
+    from k8s_tpu_torch.api.crd_client import TpuJobClient
+    from k8s_tpu_torch.api.restcluster import RestCluster
+
+    return TpuJobClient(RestCluster(server))
+
+
+def _wait_remote(jc, namespace: str, name: str, timeout: float) -> int:
+    import time
+
+    deadline = time.monotonic() + timeout
+    last = None
+    while time.monotonic() < deadline:
+        j = jc.get(namespace, name)
+        key = (j.status.phase, j.status.state)
+        if key != last:
+            print(f"  phase={j.status.phase or 'None'} state={j.status.state}",
+                  flush=True)
+            last = key
+        if j.status.phase in (S.TpuJobPhase.DONE, S.TpuJobPhase.FAILED):
+            return 0 if j.status.state == S.TpuJobState.SUCCEEDED else 1
+        time.sleep(1.0)
+    print("timeout waiting for job")
+    return 1
+
+
+def cmd_create_remote(args) -> int:
+    with open(args.file) as f:
+        text = f.read()
+    jc = _remote_client(args.server)
+    job = load_tpu_job_yaml(text)
+    ns = job.metadata.namespace or "default"
+    jc.create(job)
+    print(f"tpujob.tpu.k8s.io/{job.metadata.name} created", flush=True)
+    if args.wait:
+        return _wait_remote(jc, ns, job.metadata.name, args.timeout)
+    return 0
+
+
+def cmd_get_remote(args) -> int:
+    jc = _remote_client(args.server)
+    name = _name_of(args)
+    jobs = [jc.get(args.namespace, name)] if name else jc.list(args.namespace)
+    print(f"{'NAME':24} {'PHASE':10} {'STATE':10} {'RESTARTS':8}")
+    for j in jobs:
+        print(f"{j.metadata.name:24} {j.status.phase or 'None':10} "
+              f"{j.status.state or '-':10} {j.status.gang_restarts:<8}")
+    return 0
+
+
+def cmd_delete_remote(args) -> int:
+    jc = _remote_client(args.server)
+    jc.delete(args.namespace, args.name)
+    print(f"tpujob.tpu.k8s.io/{args.name} deleted")
+    return 0
+
+
+def cmd_describe_remote(args) -> int:
+    """The job, its conditions and replica states, and this job's Events
+    read from the apiserver."""
+    from k8s_tpu_torch.api import errors
+    from k8s_tpu_torch.api.client import KubeClient
+    from k8s_tpu_torch.api.restcluster import RestCluster
+
+    name = _name_of(args)
+    if not name:
+        print("describe needs a TpuJob name")
+        return 1
+    rest = RestCluster(args.server)
+    try:
+        j = _remote_client(args.server).get(args.namespace, name)
+    except errors.NotFoundError:
+        print(f"TpuJob {args.namespace}/{name} not found")
+        return 1
+    events = [
+        {"type": e.type, "reason": e.reason, "message": e.message}
+        for e in KubeClient(rest).events.list(args.namespace)
+        if (e.involved_object or {}).get("name") == name
+    ]
+    _print_description(j, [], events)
+    return 0
+
+
+def cmd_logs_remote(args) -> int:
+    """`kubectl logs`-style through the apiserver's ``pods/{name}/log``
+    subresource: an exact pod name, or a TpuJob name (its WORKER pod
+    ``--index``)."""
+    from k8s_tpu_torch.api import errors
+    from k8s_tpu_torch.api.client import KubeClient
+    from k8s_tpu_torch.api.restcluster import RestCluster
+
+    rest = RestCluster(args.server)
+    try:
+        # exact pod name first — works even for a deleted/crashed pod,
+        # whose log deliberately outlives it on the server
+        sys.stdout.write(rest.pod_log(args.namespace, args.name,
+                                      tail_lines=args.tail))
+        return 0
+    except errors.NotFoundError:
+        pass
+    pods = [
+        p for p in KubeClient(rest).pods.list(args.namespace)
+        if (p.metadata.labels or {}).get(L.JOB_NAME_LABEL) == args.name
+        and (p.metadata.labels or {}).get(L.JOB_TYPE_LABEL) == S.WORKER
+        and int((p.metadata.labels or {}).get(L.TASK_INDEX_LABEL, "0") or 0)
+        == args.index
+    ]
+    if not pods:
+        print(f"no pod log or TpuJob pods named {args.name!r}")
+        return 1
+    pod_name = sorted(p.metadata.name for p in pods)[-1]
+    print(f"# logs of {pod_name}", flush=True)
+    try:
+        sys.stdout.write(rest.pod_log(args.namespace, pod_name,
+                                      tail_lines=args.tail))
+    except errors.NotFoundError as e:
+        print(f"logs unavailable: {e}")
+        return 1
+    return 0
+
+
 def cmd_create(args) -> int:
     with open(args.file) as f:
         text = f.read()
@@ -157,18 +284,9 @@ def cmd_get(args) -> int:
     return 0
 
 
-def cmd_describe(args) -> int:
+def _print_description(j, pods, events) -> None:
     """`kubectl describe`-style detail: spec summary, status, the
     condition ring, replica-state histograms, pods and Events."""
-    name = _name_of(args)
-    if not name:
-        print("usage: describe [tpujobs] <name>")
-        return 1
-    rec = _load(args.state_dir, args.namespace, name)
-    if rec is None:
-        print(f"TpuJob {args.namespace}/{name} not found")
-        return 1
-    j = S.TpuJob.from_dict(rec["job"])
     print(f"Name:       {j.metadata.name}")
     print(f"Namespace:  {j.metadata.namespace}")
     print(f"RuntimeId:  {j.spec.runtime_id or '<unassigned>'}")
@@ -194,14 +312,27 @@ def cmd_describe(args) -> int:
         print("Conditions:")
         for c in s.conditions:
             print(f"  {c.type}: {c.reason}")
-    if rec["pods"]:
+    if pods:
         print("Pods:")
-        for p in sorted(rec["pods"], key=lambda p: p["name"]):
+        for p in sorted(pods, key=lambda p: p["name"]):
             print(f"  {p['name']}: {p['phase']} exit={p['exit_code']}")
-    if rec["events"]:
+    if events:
         print("Events:")
-        for e in rec["events"][-15:]:
+        for e in events[-15:]:
             print(f"  {e['type']:8} {e['reason']:20} {e['message']}")
+
+
+def cmd_describe(args) -> int:
+    name = _name_of(args)
+    if not name:
+        print("usage: describe [tpujobs] <name>")
+        return 1
+    rec = _load(args.state_dir, args.namespace, name)
+    if rec is None:
+        print(f"TpuJob {args.namespace}/{name} not found")
+        return 1
+    _print_description(S.TpuJob.from_dict(rec["job"]), rec["pods"],
+                       rec["events"])
     return 0
 
 
@@ -248,38 +379,50 @@ def main(argv=None) -> int:
     p.add_argument("--state-dir", default=DEFAULT_STATE_DIR,
                    help="where create records finished jobs for the "
                         "read verbs")
+    server_help = "apiserver URL (default: $KTPU_APISERVER_URL)"
     p.add_argument("--server", default=os.environ.get(
-        "KTPU_APISERVER_URL", ""), help=argparse.SUPPRESS)
+        "KTPU_APISERVER_URL", ""), help=server_help)
     sub = p.add_subparsers(dest="cmd", required=True)
-    c = sub.add_parser("create", help="run a TpuJob to its end locally")
+
+    def verb(name, **kw):
+        sp = sub.add_parser(name, **kw)
+        # also after the verb, as kubectl takes it
+        sp.add_argument("--server", default=argparse.SUPPRESS,
+                        help=server_help)
+        return sp
+
+    c = verb("create", help="run a TpuJob to its end locally, or create it "
+                            "on --server")
     c.add_argument("-f", "--file", required=True)
     c.add_argument("--timeout", type=float, default=600.0)
     c.add_argument("--simulate", action="store_true", help="simulated pods")
     c.add_argument("--log-dir", default="",
                    help="pod logs (default: <state-dir>/logs)")
+    c.add_argument("--no-wait", dest="wait", action="store_false",
+                   help="with --server: return once the job is created")
     v = sub.add_parser("validate", help="validate a TpuJob manifest")
     v.add_argument("-f", "--file", required=True)
-    for verb in ("get", "describe"):
-        g = sub.add_parser(verb, help=f"{verb} recorded TpuJobs")
+    for name in ("get", "describe"):
+        g = verb(name, help=f"{name} TpuJobs (recorded, or on --server)")
         g.add_argument("resource", nargs="?", default=None,
                        help="kubectl-style resource word (tpujobs) or a job name")
         g.add_argument("name", nargs="?", default=None)
         g.add_argument("-n", "--namespace", default="default")
-    lg = sub.add_parser("logs", help="pod logs (pod name or TpuJob name)")
+    lg = verb("logs", help="pod logs (pod name or TpuJob name)")
     lg.add_argument("name")
     lg.add_argument("-n", "--namespace", default="default")
     lg.add_argument("--tail", type=int, default=None,
                     help="last N lines only")
     lg.add_argument("--index", type=int, default=0,
                     help="which WORKER's pod when given a TpuJob name")
-    d = sub.add_parser("delete", help="delete a recorded TpuJob")
+    d = verb("delete", help="delete a TpuJob (recorded, or on --server)")
     d.add_argument("name")
     d.add_argument("-n", "--namespace", default="default")
     args = p.parse_args(argv)
-    if args.server:
-        raise NotImplementedError(
-            "--server: a remote apiserver is not ported to k8s_tpu_torch "
-            f"yet (ROADMAP {REST_BACKEND_ITEM})")
+    if args.server and args.cmd != "validate":
+        return {"create": cmd_create_remote, "get": cmd_get_remote,
+                "delete": cmd_delete_remote, "describe": cmd_describe_remote,
+                "logs": cmd_logs_remote}[args.cmd](args)
     return {"create": cmd_create, "validate": cmd_validate,
             "get": cmd_get, "delete": cmd_delete,
             "describe": cmd_describe, "logs": cmd_logs}[args.cmd](args)

@@ -1,7 +1,7 @@
 """TrainingJob: the per-job reconciler and state machine (the port's
 copy of ``k8s_tpu/trainer/training.py``, without the serving fleet's
-autoscaling, elastic resize and the scheduler's preemption — later
-slices, ROADMAP A12.3-A12.5; validation refuses their spec blocks).
+autoscaling and elastic resize — later slices, ROADMAP A12.4-A12.5;
+validation refuses their spec blocks).
 
 Analogue of reference ``pkg/trainer/training.go``: one worker thread
 per TpuJob with an event queue (cap 100) and an 8s reconcile ticker
@@ -52,6 +52,7 @@ REJECTION_REPORT_INTERVAL = 300.0
 _EVENT_DELETE = "delete"
 _EVENT_MODIFY = "modify"
 _EVENT_NUDGE = "nudge"
+_EVENT_PREEMPT = "preempt"
 
 
 def is_retryable_termination_state(s: ContainerStateTerminated) -> bool:
@@ -118,6 +119,17 @@ class TrainingJob:
         # (clock_time, delay_armed_for_the_NEXT_restart) per restart —
         # what the soak asserts spacing from
         self.restart_history: List[Tuple[float, float]] = []
+        # Cluster-scheduler hooks (docs/SCHEDULER.md): the controller
+        # sets on_terminal so a finishing job frees its nodes the tick
+        # it finishes; reconcile_limiter is the shared worker-pool
+        # semaphore bounding concurrent reconcile ticks at O(100) jobs
+        # (None = unbounded, today's behavior); _last_worker_stats is
+        # the freshest heartbeat sweep, kept so preemption_cost() can
+        # price this job's eviction without a new fetch.
+        self.on_terminal: Optional[Callable[["TrainingJob"], None]] = None
+        self.reconcile_limiter = None
+        self._preempt_reason: Optional[str] = None
+        self._last_worker_stats: Optional[Dict[int, dict]] = None
         # Event-driven mode (docs/SCHEDULER.md "Event-driven core"):
         # instead of owning a thread, the job registers a handler with
         # the controller's shared ReconcilerCore; events kick its key,
@@ -415,8 +427,9 @@ class TrainingJob:
     @staticmethod
     def _graft_ckpt(payload: dict) -> Optional[dict]:
         """Extract the obs heartbeat off a healthz payload, grafting
-        the sibling ckpt goodput block on (the JAX package's scheduler
-        prices a preemption from it; the heartbeat keeps its shape)."""
+        the sibling ckpt goodput block on so the scheduler's
+        preemption pricing (progress past ckpt.last_saved_step) sees
+        it (docs/SCHEDULER.md)."""
         hb = payload.get("obs")
         if not isinstance(hb, dict):
             return None
@@ -500,6 +513,9 @@ class TrainingJob:
             stats = self._pushed_worker_stats() or self._http_worker_stats()
         if not stats:
             return None
+        # freshest sweep kept for the cluster scheduler's preemption
+        # pricing (preemption_cost reads step + ckpt.last_saved_step)
+        self._last_worker_stats = stats
         try:
             self._maybe_detect_stragglers(stats)
         except Exception as e:
@@ -978,6 +994,15 @@ class TrainingJob:
                 f"job reached {self.status.state}",
                 etype="Normal" if self.status.state == TpuJobState.SUCCEEDED else "Warning",
             )
+            if self.on_terminal is not None:
+                # frees the nodes in the cluster scheduler the same
+                # tick the job finishes (best-effort: a callback bug
+                # must not wedge the terminal transition)
+                try:
+                    self.on_terminal(self)
+                except Exception as e:
+                    log.error("job %s: on_terminal callback: %s",
+                              self.fullname, e)
 
         self.update_crd_status()
 
@@ -1008,10 +1033,73 @@ class TrainingJob:
     def update(self, new_job: TpuJob) -> None:
         self.send(_EVENT_MODIFY, new_job)
 
+    def preempt(self, reason: str = "") -> None:
+        """Cluster-scheduler eviction (docs/SCHEDULER.md): queues the
+        preempt event; the run loop drives the checkpoint-safe
+        teardown and parks the job back in QUEUED."""
+        self._preempt_reason = reason
+        self.send(_EVENT_PREEMPT)
+
     def nudge(self) -> None:
         """Ask for an immediate reconcile tick (the controller's answer
         to a change of one of this job's Pods or batch Jobs)."""
         self.send(_EVENT_NUDGE)
+
+    def preemption_cost(self) -> int:
+        """Price this job's eviction for the scheduler: gang progress
+        past the last checkpointed step, read from the freshest
+        heartbeat sweep (the ``ckpt`` goodput block riding along). No
+        checkpointing observed ⇒ every completed step is at stake; no
+        heartbeat at all ⇒ 0 (unknown progress is priced cheap — the
+        job is young or unobservable, either way the eviction discards
+        little we can *prove*)."""
+        stats = self._last_worker_stats or {}
+        best, saved = -1, -1
+        for hb in stats.values():
+            if not isinstance(hb, dict):
+                continue
+            try:
+                best = max(best, int(hb.get("step", 0) or 0))
+            except (TypeError, ValueError):
+                pass
+            ck = hb.get("ckpt")
+            if isinstance(ck, dict):
+                try:
+                    saved = max(saved, int(ck.get("last_saved_step", -1)))
+                except (TypeError, ValueError):
+                    pass
+        if best < 0:
+            return 0
+        if saved < 0:
+            return best
+        return max(0, best - saved)
+
+    def _handle_preempt(self) -> None:
+        """The victim side of a preemption: condition + Warning Event
+        naming the preemptor, then the checkpoint-safe teardown —
+        deleting the gang's Jobs/Pods SIGTERMs every process, and the
+        launcher's preemption handler + ``maybe_preempt_exit`` flush a
+        forced two-tier save (gated by the health check, so a NaN step
+        is never flushed) inside the grace period (exit 143). Per-index
+        Services stay, so the re-admitted gang keeps its DNS. The job
+        parks in QUEUED with its checkpoint on disk: it loses steps,
+        never its checkpoint."""
+        if self.finished:
+            return  # raced a terminal transition; nothing to evict
+        reason = (self._preempt_reason
+                  or "preempted by the cluster scheduler")
+        self.status.append_condition("Preempted", reason=reason)
+        log.warning("job %s: preempted: %s", self.fullname, reason)
+        self._record_event("Preempted", reason, etype="Warning")
+        for r in self.replicas:
+            try:
+                r.delete_compute()
+            except Exception as e:
+                log.error("job %s: preemption teardown: %s",
+                          self.fullname, e)
+        self.status.phase = TpuJobPhase.QUEUED
+        self.status.state = TpuJobState.RUNNING
+        self.update_crd_status()
 
     # ------------------------------------------------------------ run loop
 
@@ -1092,6 +1180,13 @@ class TrainingJob:
                               self.fullname, e)
                 self._finish_core()
                 return None
+            if typ == _EVENT_PREEMPT:
+                # checkpoint-safe eviction: flush-teardown, park in
+                # QUEUED, and RETIRE the handler — the controller
+                # registers a fresh one on re-admission
+                self._handle_preempt()
+                self._finish_core()
+                return None
             if typ == _EVENT_MODIFY and _new is not None:
                 self._handle_modify(_new)
             # nudges fall through: the reconcile below is the response
@@ -1165,6 +1260,12 @@ class TrainingJob:
                     self.delete_resources()
                 except Exception as e:
                     log.error("job %s: deleteResources error: %s", self.fullname, e)
+                return
+            if typ == _EVENT_PREEMPT:
+                # checkpoint-safe eviction: flush-teardown, park in
+                # QUEUED, and EXIT the reconciler — the controller
+                # spawns a fresh one on re-admission
+                self._handle_preempt()
                 return
             if typ == _EVENT_NUDGE:
                 self._safe_reconcile(config)

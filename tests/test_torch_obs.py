@@ -274,7 +274,14 @@ def test_port_series_are_documented():
                     "ktpu_controller_workqueue_coalesced_total",
                     "ktpu_controller_requeues_total",
                     "ktpu_controller_http_calls_total",
-                    "ktpu_controller_heartbeats_pushed_total"}
+                    "ktpu_controller_heartbeats_pushed_total",
+                    # the cluster scheduler's series (sched/, the controller)
+                    "ktpu_sched_queue_depth", "ktpu_sched_admitted_total",
+                    "ktpu_sched_preempted_total", "ktpu_sched_quota_used_chips",
+                    "ktpu_sched_slices_free", "ktpu_sched_preempt_lost_steps_total",
+                    "ktpu_sched_tick_seconds", "ktpu_sched_backfill_total",
+                    "ktpu_sched_fragmentation", "ktpu_sched_contiguity_hit_rate",
+                    "ktpu_sched_kicks_total", "ktpu_sched_kicks_coalesced_total"}
     assert ours <= jax_lint.documented_series()
 
 

@@ -326,3 +326,41 @@ def test_operator_local_mode_starts_and_stops_on_sigterm():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_control_plane_starts_without_torch():
+    """The operator, the dev apiserver and kubectl_local import no torch
+    (each of their processes would pay its import, seconds of CPU); the
+    pods that train import it themselves."""
+    import subprocess
+    import sys
+
+    code = ("import sys, k8s_tpu_torch.operator, k8s_tpu_torch.api.apiserver, "
+            "k8s_tpu_torch.tools.kubectl_local; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=DEADLINE_S,
+                         cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_pod_grace_period_and_json_manifests():
+    """A deleted pod gets its spec's ``terminationGracePeriodSeconds``
+    between SIGTERM and SIGKILL (the time a preemption flush has), else
+    the kubelet's default; a JSON manifest loads as its YAML does."""
+    import json
+
+    from k8s_tpu_torch.client.job_client import load_tpu_job_yaml
+    from k8s_tpu_torch.runtime import kubelet as K
+
+    from k8s_tpu_torch.api.objects import Pod
+
+    pod = lambda extra: Pod(spec=PodSpec(extra=extra))  # noqa: E731
+    assert K._grace_seconds(pod({"terminationGracePeriodSeconds": 120})) == 120.0
+    assert K._grace_seconds(pod({})) == K.DEFAULT_GRACE_SECONDS
+    assert K._grace_seconds(pod({"terminationGracePeriodSeconds": "x"})) == \
+        K.DEFAULT_GRACE_SECONDS
+    text = (pathlib.Path(__file__).resolve().parent.parent / "k8s_tpu_torch"
+            / "examples" / "gpu_job_cpu_tiny.yaml").read_text()
+    job = load_tpu_job_yaml(text)
+    assert load_tpu_job_yaml(json.dumps(job.to_dict())).to_dict() == job.to_dict()

@@ -28,8 +28,11 @@ from k8s_tpu_torch.tools.local_world import LocalWorld
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 MANIFEST = REPO / "k8s_tpu_torch" / "examples" / "gpu_job_cpu_tiny.yaml"
-JOB_DEADLINE_S = 60.0
-STEP_DEADLINE_S = 30.0
+# Deadlines for a loaded machine: with 40 busy processes on 8 cores, the
+# lead's first step came 49.6 s after create and SIGTERM -> Succeeded
+# took 40.6 s (6.1 s and 7.2 s on the idle machine).
+JOB_DEADLINE_S = 180.0
+STEP_DEADLINE_S = 120.0
 CPU_ENV = {"KTPU_FORCE_PLATFORM": "cpu", "KTPU_NUM_CPU_DEVICES": "1",
            "OMP_NUM_THREADS": "1"}
 

@@ -13,7 +13,7 @@ Tolerance: exact equality, except the differences each test lists.
 - Admission: the ``llama_train`` options the port's program refuses
   fail at validation, one test each (ROADMAP A5.4, A7, A8, A9, A10,
   A13), and so do the features of later operator slices at controller
-  start (A12.2, A12.3, A12.6, A12.7).
+  start (A12.6, A12.7, and a fleet keyed by a TPU slice type).
 - Materializer: the Services, Jobs, pod templates and ConfigMaps that
   ``TpuReplicaSet.create`` writes for one job, object by object; and no
   object the port writes names the JAX package, over every manifest.
@@ -308,21 +308,31 @@ def test_port_examples_validate(example, capsys):
 
 
 def test_controller_start_refusals(monkeypatch):
+    """What the controller and the operator refuse at start: the native
+    supervisor (A12.7), chaos (A12.6), a fleet keyed by a TPU slice type
+    (refused by naming the port's GPU accelerators), and an operator
+    outside local mode without its pod identity. A fleet of GPU nodes
+    turns the scheduler on, and an apiserver URL gives the REST
+    backend."""
+    from k8s_tpu_torch.api.restcluster import RestCluster
+
     cl = PKubeClient()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.3"):
-        PController(cl, PTpuJobClient(cl.cluster), PS.ControllerConfig(fleet={"h100-80gb": 2}))
+    with pytest.raises(ValueError, match=r"h100-80gb"):
+        PController(cl, PTpuJobClient(cl.cluster), PS.ControllerConfig(fleet={"v5e-8": 2}))
+    with_fleet = PController(cl, PTpuJobClient(cl.cluster),
+                             PS.ControllerConfig(fleet={"h100-80gb": 2}))
+    assert with_fleet.scheduler is not None
+    assert with_fleet.scheduler.inventory.capacity("h100-80gb") == 2
     with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.7"):
         PController(cl, PTpuJobClient(cl.cluster),
                     PS.ControllerConfig(use_native_supervisor=True))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.2"):
-        port_operator.main(["--health-port=-1"])
     with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.6"):
         port_operator.main(["--local", "--chaos-level=0", "--health-port=-1"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.2"):
-        kubectl_local.main(["--server", "http://127.0.0.1:1", "get"])
+    monkeypatch.delenv("MY_POD_NAMESPACE", raising=False)
+    monkeypatch.delenv("MY_POD_NAME", raising=False)
+    assert port_operator.main(["--health-port=-1"]) == 1
     monkeypatch.setenv("KTPU_APISERVER_URL", "http://127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.2"):
-        papi_client.get_cluster_client()
+    assert isinstance(papi_client.get_cluster_client().cluster, RestCluster)
 
 
 # -- exit policy --------------------------------------------------------------
