@@ -87,6 +87,18 @@ order:
   and the device plugin's hand-outs show no two pods holding card 0 at
   once. A runs with a local checkpoint directory only if a save still
   fits the call's disk-write limit after the earlier phases;
+- the elastic gang (``elastic``): a ``LocalWorld`` over the same
+  one-node fleet runs one job of that child with ``training.zeroStage:
+  1`` and ``elastic: {minDpDegree: 1, maxDpDegree: 2,
+  resizeOnPermanentLoss: true}``: (e1) it is admitted at dp 1, its pod
+  carries ``KTPU_ELASTIC_*``, Services exist for both indices of the
+  ``maxDpDegree`` range, the ``mesh`` event says dp 1 and ZeRO stage 1,
+  and over the obs ticks before its first step the resizer holds
+  (attainable nodes = dp); (e2) the pod is SIGKILLed after its first
+  step and the gang restarts in place (no ``GangResized``,
+  ``ktpu_resize_total`` 0), trains its steps from step 0 with K1-K3
+  launched layers x steps times, and the job ends ``Succeeded``; its
+  times are printed beside the ``sched`` phase's;
 - int8 serving, once the bf16 model and the training state are freed:
   the same Llama-3-8B with int8 weights and an int8 KV cache
   (``--quant=int8_serving --kv_quant=int8``), 16 slots of 8192 rows, 16
@@ -224,6 +236,10 @@ REST_FAILOVER_STEPS = 36
 # the sched phase: A's and B's steps; A's re-admission hold-off after
 # its preemption (the scheduler's cooldown)
 SCHED_A_STEPS, SCHED_B_STEPS, SCHED_COOLDOWN_S = 8, 4, 5.0
+# the elastic phase: its job's steps (its pod is SIGKILLed after the
+# first, and the restarted pod trains them all), and the resizer's
+# observations it must see hold before the kill
+ELASTIC_STEPS, ELASTIC_MIN_TICKS = 5, 2
 # a chip call may write 45 GiB (deleted files included); one save of the
 # 2-layer child's state is 17.84 GB. A's flush (sched) needs one save of
 # room, and a pod's terminationGracePeriodSeconds long enough for it
@@ -2665,6 +2681,14 @@ def _pod_launches(log_text):
     return [json.loads(ln.split(" ", 3)[3]) for ln in lines]
 
 
+def _pod_launches_so_far(log_text):
+    """The K1-K3 launch counts the training program printed after each
+    log point (stderr), the record of a pod killed before its end."""
+    prefix = "llama_train: launches so far "
+    return [json.loads(ln[len(prefix):]) for ln in log_text.splitlines()
+            if ln.startswith(prefix)]
+
+
 def _count_events(text, name):
     from k8s_tpu_torch.obs.events import parse_events
 
@@ -3131,7 +3155,7 @@ def tree_bytes(path) -> int:
 def phase_sched(torch, card):
     """See :func:`_phase_sched`; its logs (and A's checkpoint, if any) go
     to a temporary directory that is removed afterwards. Returns the
-    K1-K3 launches the pods counted."""
+    K1-K3 launches the pods counted and the phase's times."""
     tmp = tempfile.mkdtemp(prefix="ktpu-sched-")
     try:
         return _phase_sched(torch, card, tmp)
@@ -3296,7 +3320,171 @@ def _phase_sched(torch, card, tmp):
                             for t, sign, got in holds],
           "card0_max_holders": most, "ktpu_sched": series,
           "seconds": time.perf_counter() - t_phase, "card": card})
-    return launches
+    times = {"b_create_to_b_first_step_s": t_b_step - b.t_create,
+             "a_exit_to_b_first_step_s": t_b_step - t_a_exit,
+             "a_readmitted_to_a_first_step_s": t_a_step - t_a_admit,
+             "a_create_to_succeeded_s": t_a_done - a.t_create}
+    return launches, times
+
+
+def phase_elastic(torch, card, sched_times):
+    """See :func:`_phase_elastic`; its logs go to a temporary directory
+    that is removed afterwards. Returns the K1-K3 launches the pods
+    counted."""
+    tmp = tempfile.mkdtemp(prefix="ktpu-elastic-")
+    try:
+        return _phase_elastic(torch, card, sched_times, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_elastic(torch, card, sched_times, tmp):
+    """The elastic gang on the card: a ``LocalWorld`` whose controller
+    config declares ``fleet: {h100-80gb-x1: 1}`` runs one job of the
+    operator phases' child (obs port, no checkpoint directory) with
+    ``training.zeroStage: 1`` and ``elastic: {minDpDegree: 1,
+    maxDpDegree: 2, resizeOnPermanentLoss: true}``.
+
+    - (e1) the job is admitted at dp 1 (one node charged), its pod's env
+      carries ``KTPU_ELASTIC_*``, the Services of both indices of the
+      ``maxDpDegree`` range exist, the ``mesh`` event prints dp 1 and
+      ZeRO stage 1, the pod's last launch record before the kill shows
+      K1-K3 launched layers x steps times, and the resizer (every ``observe`` of the port's
+      ``ElasticResizer`` recorded) sees at least ``ELASTIC_MIN_TICKS``
+      obs ticks before the kill, each at dp 1 with 1 attainable node and
+      no action;
+    - (e2) the pod is SIGKILLed after its first step: exit 137, one gang
+      restart at the same shape (no ``GangResized``, ``ktpu_resize_total``
+      0 in both directions), the restarted pod trains its steps from
+      step 0 with K1-K3 launched layers x steps times, and the job ends
+      ``Succeeded``.
+
+    The ``elastic`` line holds create -> first step, kill -> the
+    restarted pod's first step and -> ``Succeeded`` beside the ``sched``
+    phase's times of the same call."""
+    from k8s_tpu_torch import spec as S
+    from k8s_tpu_torch.controller import metrics
+    from k8s_tpu_torch.resize.elastic import ElasticResizer
+    from k8s_tpu_torch.tools.local_world import LocalWorld
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = S.ControllerConfig(fleet={"h100-80gb-x1": 1},
+                                scheduler_cooldown_seconds=SCHED_COOLDOWN_S)
+    job = _operator_job("elastic", f"{operator_child_args()} --steps={ELASTIC_STEPS}",
+                        priority=0)
+    job.spec.training = S.TrainingSpec(zero_stage=1)
+    job.spec.elastic = S.ElasticSpec(min_dp_degree=1, max_dp_degree=2,
+                                     resize_on_permanent_loss=True)
+    observed = []  # (time, dp, attainable, action, reason)
+    observe = ElasticResizer.observe
+
+    def recorded(self, *a, **kw):
+        v = observe(self, *a, **kw)
+        observed.append((time.monotonic(), kw.get("dp"), kw.get("attainable"),
+                         v.action, v.reason))
+        return v
+
+    labels = [{"job": "default:elastic", "direction": d} for d in ("shrink", "grow")]
+    resizes_before = [metrics.RESIZE_TOTAL.get(x) for x in labels]
+    world = LocalWorld(subprocess_pods=True, log_dir=tmp, config=config,
+                       reconcile_interval=0.1)
+    ElasticResizer.observe = recorded
+    try:
+        with world:
+            run = OperatorRun(world, "elastic", None, tmp, job=job)
+            t_step = run.wait_log(lambda t: _count_events(t, "compile_phase") >= 1,
+                                  "first step")
+            rid = world.api.get("default", "elastic").spec.runtime_id
+            proc = world.kubelet.executor.procs[run.pod]
+            deadline = time.monotonic() + OPERATOR_DEADLINE_S
+            while len(observed) < ELASTIC_MIN_TICKS and time.monotonic() < deadline:
+                time.sleep(0.05)
+            ticks = list(observed)
+            if proc.poll() is not None:
+                fail(f"elastic e2: the pod exited ({proc.poll()}) before the kill; "
+                     f"log tail {run.log()[-3000:]}")
+            t_kill = time.monotonic()
+            proc.kill()
+            rc = proc.wait(timeout=OPERATOR_DEADLINE_S)
+            first_log = run.log()
+            admitted = world.api.get("default", "elastic")
+            pod_env = world.client.pods.get("default", run.pod).spec.containers[0].env_dict()
+            services = [world.client.services.get("default", f"elastic-worker-{rid}-{i}")
+                        is not None for i in range(2)]
+            # the restarted pod has the same name; its log is appended
+            t_step2 = run.wait_log(
+                lambda t: _count_events(t[len(first_log):], "compile_phase") >= 1,
+                "the restarted pod's first step")
+            done, t_done = run.wait_done()
+            restarted = run.log()[len(first_log):]
+            inv = world.controller.scheduler.inventory
+            high_water = inv.max_used.get("h100-80gb-x1")
+    finally:
+        ElasticResizer.observe = observe
+    from k8s_tpu_torch.obs.events import parse_events
+
+    mesh = [e for ln in (first_log + restarted).splitlines()
+            for e in parse_events(ln) if e["event"] == "mesh"]
+    elastic_env = {k: v for k, v in pod_env.items() if k.startswith("KTPU_ELASTIC_")}
+    if admitted.status.dp_degree not in (0, 1) or admitted.spec.num_nodes() != 1 \
+            or high_water != 1 or elastic_env != {
+                "KTPU_ELASTIC_MIN_DP": "1", "KTPU_ELASTIC_MAX_DP": "2",
+                "KTPU_ELASTIC_RESIZE": "1"} or services != [True, True]:
+        fail(f"elastic e1: dp {admitted.status.dp_degree}, high-water {high_water}, "
+             f"env {elastic_env}, services {services}")
+    if [(e["dp"], e["zero_stage"]) for e in mesh] != [(1, 1), (1, 1)]:
+        fail(f"elastic e1: mesh events {mesh}")
+    held = [t for t in ticks if t[1:4] == (1, 1, None)]
+    if len(ticks) < ELASTIC_MIN_TICKS or len(held) != len(ticks):
+        fail(f"elastic e1: the resizer's observations before the kill {ticks}")
+    resized = [metrics.RESIZE_TOTAL.get(x) - b for x, b in zip(labels, resizes_before)]
+    conditions = [c.type for c in done.status.conditions]
+    if rc != -signal.SIGKILL or done.status.state != S.TpuJobState.SUCCEEDED \
+            or done.status.gang_restarts != 1 or "GangRestart" not in conditions \
+            or "GangResized" in conditions or resized != [0, 0] \
+            or done.status.dp_degree != 0:
+        fail(f"elastic e2: exit {rc}, {done.status.state} after "
+             f"{done.status.gang_restarts} restarts ({done.status.reason}), "
+             f"conditions {conditions}, resizes {resized}, dp {done.status.dp_degree}; "
+             f"log tail {restarted[-3000:]}")
+    steps = _pod_steps(restarted)
+    if steps != list(range(1, ELASTIC_STEPS + 1)):
+        fail(f"elastic e2: the restarted pod ran steps {steps}")
+    launches = _check_pod_launches("elastic e2", _pod_launches(restarted),
+                                   [ELASTIC_STEPS])
+    so_far = _pod_launches_so_far(first_log)
+    first_steps = _pod_steps(first_log)
+    # the kill may land between a step's step_phases event and its record
+    if not so_far or [ln["steps"] for ln in so_far] != first_steps[:len(so_far)] \
+            or first_steps != list(range(1, len(first_steps) + 1)) \
+            or len(first_steps) - len(so_far) not in (0, 1):
+        fail(f"elastic e1: the killed pod's launch records {so_far}, "
+             f"its steps {first_steps}")
+    first_launches = _check_pod_launches("elastic e1", so_far[-1:])
+    emit({"phase": "elastic", "model": "llama3_8b", "layers": LAUNCHER_LAYERS,
+          "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "step_sleep_s": 0.5,
+          "fleet": {"h100-80gb-x1": 1}, "zero_stage": 1,
+          "elastic": {"minDpDegree": 1, "maxDpDegree": 2,
+                      "resizeOnPermanentLoss": True},
+          "e1": {"dp": 1, "mesh": mesh[0], "elastic_env": elastic_env,
+                 "services": services, "inventory_high_water_nodes": high_water,
+                 "resizer_ticks_before_kill": len(ticks),
+                 "resizer_reason": ticks[-1][4],
+                 "killed_pod_steps": so_far[-1]["steps"],
+                 "killed_pod_launches": first_launches},
+          "e2": {"exit_code": rc, "state": done.status.state,
+                 "gang_restarts": done.status.gang_restarts,
+                 "conditions": conditions, "ktpu_resize_total": resized,
+                 "restarted_steps": steps, "pod_launches": launches},
+          "create_to_first_step_s": t_step - run.t_create,
+          "kill_to_restarted_first_step_s": t_step2 - t_kill,
+          "kill_to_succeeded_s": t_done - t_kill,
+          "create_to_succeeded_s": t_done - run.t_create,
+          "sched_same_call": sched_times,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return {k: v + first_launches[k] for k, v in launches.items()}
 
 
 def _profile_train_step(torch, run):
@@ -3407,7 +3595,8 @@ def main() -> None:
     import torch
 
     # ``--only=launcher`` / ``--only=operator`` / ``--only=operator_rest``
-    # / ``--only=sched``: the build and that phase alone (a debugging aid;
+    # / ``--only=sched`` / ``--only=elastic``: the build and that phase
+    # alone (a debugging aid;
     # it ends with a ``partial`` line, not the ``ok`` one)
     only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
 
@@ -3457,7 +3646,11 @@ def main() -> None:
               phase_operator_rest(torch, card, None, None)})
         return
     if only == ["sched"]:
-        emit({"partial": only, "launches_sched_pods": phase_sched(torch, card)})
+        emit({"partial": only, "launches_sched_pods": phase_sched(torch, card)[0]})
+        return
+    if only == ["elastic"]:
+        emit({"partial": only, "launches_elastic_pods":
+              phase_elastic(torch, card, None)})
         return
     if only == ["train"]:
         # the training phases alone (a debugging aid, as above)
@@ -3488,7 +3681,8 @@ def main() -> None:
     restored, child_first_step_s = phase_launcher(torch, attn, card, tracer_ms)
     operator, o1 = phase_operator(torch, card, child_first_step_s)
     operator_rest = phase_operator_rest(torch, card, o1, child_first_step_s)
-    sched = phase_sched(torch, card)
+    sched, sched_times = phase_sched(torch, card)
+    elastic = phase_elastic(torch, card, sched_times)
     serving_int8 = phase_serving_int8(torch, attn, card)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
                 + train_fsdp["flash_fwd"] + train_fsdp_tp["flash_fwd"]
@@ -3514,6 +3708,7 @@ def main() -> None:
                 "launches_operator_pods": operator.get(name, 0),
                 "launches_operator_rest_pods": operator_rest.get(name, 0),
                 "launches_sched_pods": sched.get(name, 0),
+                "launches_elastic_pods": elastic.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -1,7 +1,7 @@
 """The operator controller: CRD registration, watch loop, dispatch
-(the port's copy of ``k8s_tpu/controller/controller.py``, without the
-elastic resize and the chaos monkey's forced preemption of later
-slices, ROADMAP A12.4 and A12.6).
+(the port's copy of ``k8s_tpu/controller/controller.py``, with the
+elastic resize's ledger hooks counted in GPU nodes, and without the
+chaos monkey's forced preemption of a later slice, ROADMAP A12.6).
 
 Analogue of reference ``pkg/controller/controller.go``: holds the live
 job map (:46-61); ``run()`` = init-resource with retry (:86-96) + the
@@ -57,6 +57,16 @@ REQUEUE_POLICY = BackoffPolicy(
 )
 
 
+def _dp_footprint(fp, dp: int):
+    """A gang footprint rescaled to ``dp`` nodes, preserving its own
+    cards-per-node ratio — the ONE way an elastic gang's charge is
+    derived at any width (pricing, re-admission, resize re-charge), so
+    the ledger can never see two inconsistent derivations of the same
+    job (docs/ELASTIC.md)."""
+    per_node = fp.chips // max(1, fp.slices)
+    return type(fp)(fp.accelerator, slices=dp, chips=dp * per_node)
+
+
 class Controller:
     def __init__(
         self,
@@ -107,6 +117,10 @@ class Controller:
                 preemption_cooldown=self.config.scheduler_cooldown_seconds,
                 backfill=policy in ("backfill", "backfill+pack"),
             )
+            # capacity-return tick: a freed node nudges every elastic
+            # gang's reconciler so grow decisions land within a tick,
+            # not a polling interval
+            self.scheduler.inventory.on_capacity(self._on_capacity_return)
         self._sched_lock = threading.RLock()
         self._sched_thread: Optional[threading.Thread] = None
         # key → blocked category last written into its Queued condition
@@ -271,6 +285,11 @@ class Controller:
             tj.attach_core(self.core, self.config.resync_seconds)
         if self.scheduler is not None:
             tj.on_terminal = self._on_job_terminal
+            # elastic resize: the reconciler's inventory view + the
+            # atomic ledger re-charge
+            tj.capacity_fn = (
+                lambda key=job.key: self._attainable_nodes(key))
+            tj.on_resize = self._on_job_resize
         if self.worker_stats_fetcher_factory is not None:
             try:
                 tj.worker_stats_fetcher = \
@@ -311,11 +330,83 @@ class Controller:
             except (TypeError, ValueError):
                 estimate = 0.0
         fp = footprint_of(job.spec)
+        dp = job.status.dp_degree or 0
+        if dp > 0 and job.spec.elastic is not None and not fp.empty:
+            # a resized elastic gang is priced at its CURRENT width
+            # (status.dp_degree), not the gpu block's node count —
+            # re-admission/adoption must charge what the reconciler
+            # will actually materialize
+            fp = _dp_footprint(fp, dp)
         return JobRequest(
             key=job.key, footprint=fp,
             priority=priority, queue=queue, preemptible=preemptible,
             runtime_estimate_s=estimate,
         )
+
+    # -------------------------------------------------------- elastic
+
+    def _attainable_nodes(self, key: str) -> Optional[int]:
+        """Nodes job ``key`` could hold right now = its current charge
+        + the pool's (unclamped) headroom — the elastic resizer's
+        inventory view. A pool driven UNDER its usage by a permanent
+        loss yields attainable < held: the shrink trigger. None when the
+        job holds no accelerator charge."""
+        sched = self.scheduler
+        if sched is None:
+            return None
+        held_fp = sched.inventory.holder(key)
+        if held_fp is None or held_fp.empty:
+            return None
+        free = (sched.inventory.capacity(held_fp.accelerator)
+                - sched.inventory.used(held_fp.accelerator))
+        return max(0, held_fp.slices + free)
+
+    def _on_job_resize(self, tj: TrainingJob, old_dp: int,
+                       new_dp: int, trigger: str = "") -> bool:
+        """The reconciler's ledger re-charge at a resize verdict: swap
+        the job's charge for the reshaped footprint ATOMICALLY (shrink
+        frees nodes, grow re-charges them — the high-water mark never
+        sees both shapes). An INVENTORY-triggered shrink must re-verify
+        the pool deficit inside the ledger's critical section: two
+        elastic gangs sharing a pool both observe one revoked node,
+        and without the check both would surrender a node for it
+        (dead-host shrinks carry their own evidence and skip it). A
+        shrink immediately re-runs the decision core: the freed nodes
+        may admit a queued job this tick."""
+        sched = self.scheduler
+        if sched is None:
+            return True  # no ledger to keep consistent
+        key = tj.job.key
+        req = sched.running_request(key)
+        if req is None or req.footprint.empty:
+            return True  # zero-footprint / unscheduled: nothing charged
+        # scale the RUNNING charge, not a fresh topology lookup: the
+        # charge's own nodes/cards ratio is consistent by construction
+        new_fp = _dp_footprint(req.footprint, new_dp)
+        if not sched.resize_running(
+                key, new_fp,
+                require_pool_deficit=(new_dp < old_dp
+                                      and trigger == "inventory")):
+            return False
+        self._export_sched_metrics()
+        if new_dp < old_dp:
+            self._sched_kick()
+        return True
+
+    def _on_capacity_return(self, accelerator: str) -> None:
+        """Inventory capacity-return listener: wake every running
+        elastic gang's reconciler so the grow hold starts counting NOW
+        (best-effort — the periodic tick remains the backstop)."""
+        for tj in list(self.jobs.values()):
+            try:
+                if tj.job.spec.elastic is None or not tj.is_alive():
+                    continue
+                fp = (self.scheduler.inventory.holder(tj.job.key)
+                      if self.scheduler is not None else None)
+                if fp is not None and fp.accelerator == accelerator:
+                    tj.nudge()
+            except Exception:  # a nudge must never break the ledger path
+                pass
 
     def _preemption_cost(self, key: str) -> int:
         """The scheduler's eviction pricing: steps the victim has run

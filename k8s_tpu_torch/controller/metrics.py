@@ -9,8 +9,9 @@ obs tick's straggler and health verdicts, the work queue). Same names,
 help text and exposition format, so the series catalogue of
 ``docs/OBSERVABILITY.md`` covers them — and the cluster scheduler's
 ``ktpu_sched_*`` series (a node of the port's ledger stands where the
-JAX package's counts a slice, a card where it counts a chip). The
-serving and resize series come with their slices.
+JAX package's counts a slice, a card where it counts a chip) and the
+elastic resize's ``ktpu_resize_*`` series. The serving series come with
+their slice.
 """
 
 from __future__ import annotations
@@ -431,6 +432,25 @@ SCHED_CONTIGUITY_HIT_RATE = REGISTRY.gauge(
     "ktpu_sched_contiguity_hit_rate",
     "Fraction of multi-node gang placements that landed under one leaf "
     "switch since operator start, by accelerator",
+)
+# Elastic gang resize (k8s_tpu_torch/resize): how often gangs change
+# shape, what each shrink put at stake, and the live DP degree per job
+# (in nodes, where the JAX package's help text says slices).
+RESIZE_TOTAL = REGISTRY.counter(
+    "ktpu_resize_total",
+    "Elastic gang resizes performed, by job and direction "
+    "(shrink / grow)",
+)
+RESIZE_LOST_STEPS = REGISTRY.counter(
+    "ktpu_resize_lost_steps_total",
+    "Steps at stake at each shrink decision (gang progress past its "
+    "last checkpoint — the flush usually reduces the realized loss, "
+    "visible in ktpu_ckpt_lost_steps_total), by job",
+)
+RESIZE_DP = REGISTRY.gauge(
+    "ktpu_resize_dp_degree",
+    "Current data-parallel degree (nodes) of each elastic gang after "
+    "its last resize",
 )
 SCHED_KICKS = REGISTRY.counter(
     "ktpu_sched_kicks_total",

@@ -47,7 +47,12 @@ import torch.nn.functional as F
 #: parallel inputs' gradients, backward), ``embed`` (the vocab-parallel
 #: lookup, forward), ``ce_forward`` (the vocab-parallel loss's all-gather
 #: of its per-rank statistics), ``ce_backward`` (its hidden gradient) and
-#: ``logits`` (the whole logits of the unfused loss, forward)
+#: ``logits`` (the whole logits of the unfused loss, forward); and the
+#: ZeRO ladder's collectives over the ``data`` axis
+#: (``train/trainer_lib.py``): ``data_reduce_scatter`` (a sliced leaf's
+#: gradient into its piece), ``data_all_gather`` (the pieces back into a
+#: parameter or FSDP2 shard) and ``data_all_reduce`` (one bucket of the
+#: unsliced gradients)
 COLLECTIVES: Dict[str, int] = {}
 
 

@@ -13,11 +13,12 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
                             of 4, 2 or 1 ranks cut from each slice (the
                             largest that divides it), Megatron-style
                             tensor parallelism inside it
-  --zero_stage=0..3         the ZeRO ladder under dp (or the operator's
-                            KTPU_ZERO_STAGE; --zero1=1 / KTPU_ZERO1 is
-                            stage 1); a no-op under fsdp and fsdp_tp at
-                            one slice, refused with several (ROADMAP
-                            A5.4)
+  --zero_stage=0..3         the ZeRO ladder over the ``data`` axis (or the
+                            operator's KTPU_ZERO_STAGE; --zero1=1 /
+                            KTPU_ZERO1 is stage 1): under dp over every
+                            rank; under fsdp and fsdp_tp over the slices
+                            (nodes) of the HSDP mesh, each rank's moments
+                            1/data of its FSDP2 shard, a no-op at one
   --zero3_leaves=a,b        stage 3's selected parameters: names holding
                             any of these substrings (KTPU_ZERO3_LEAVES)
   --zero3_min_leaf_size=N   ... or of at least N elements
@@ -172,7 +173,7 @@ _UNPORTED = (
 )
 
 
-def _check_unported(extra, num_slices: int = 1, zero_stage: int = 0) -> str:
+def _check_unported(extra) -> str:
     """The strategy of the run config; raises for the options of later
     slices."""
     strategy = extra.get("strategy", "fsdp")
@@ -188,11 +189,6 @@ def _check_unported(extra, num_slices: int = 1, zero_stage: int = 0) -> str:
             raise NotImplementedError(
                 f"{key}={val!r} is not ported to k8s_tpu_torch yet "
                 f"(ROADMAP {item})")
-    if strategy != "dp" and zero_stage >= 1 and num_slices > 1:
-        raise NotImplementedError(
-            f"zero_stage={zero_stage} with {num_slices} slices under "
-            f"strategy={strategy!r} (ZeRO on an HSDP mesh) is not ported to "
-            "k8s_tpu_torch yet (ROADMAP A5.4)")
     return strategy
 
 
@@ -338,6 +334,10 @@ def lm_loss(model: LlamaForCausalLM, ids: torch.Tensor,
     return cross_entropy_loss(logits[:, :-1], labels[:, :-1], z_loss=Z_LOSS)
 
 
+# the stderr prefix of the K1-K3 launches after each log point
+LAUNCHES_SO_FAR = "llama_train: launches so far "
+
+
 def kernel_launches() -> dict:
     """The flash kernels' launch counters (K1-K3): each wrapper ticks
     only where it launches its kernel on the card, so a CPU run counts
@@ -354,7 +354,7 @@ def main(rdzv) -> dict:
     extra = cfg.extra or {}
     num_slices = max(1, int(getattr(rdzv, "num_slices", 1) or 1))
     zero_stage, zero3_leaves, zero3_min_leaf_size = zero_options(rdzv, extra)
-    strategy = _check_unported(extra, num_slices, zero_stage)
+    strategy = _check_unported(extra)
     device = resolve_device(extra.get("device", getattr(rdzv, "device", "cuda")))
     model_name = extra.get("model", default_model(device))
     seq_len = int(extra.get("seq_len", "128" if model_name == "tiny" else "8192"))
@@ -555,6 +555,14 @@ def main(rdzv) -> dict:
                 phases.append(ev)
                 print(json.dumps(ev), flush=True)
             step_s.append(time.perf_counter() - t0)
+            if log_point and lead:
+                # the launches so far, the record of a pod killed before
+                # its end (the elastic phase of chip_smoke.py reads it)
+                print(LAUNCHES_SO_FAR + json.dumps(
+                    {"steps": len(step_s),
+                     **{k: v - launches0[k]
+                        for k, v in kernel_launches().items()}}),
+                    file=sys.stderr, flush=True)
     if lead:
         # the pod log's proof that the steps ran the card's kernels (the
         # operator phase of chip_smoke.py reads it); on stderr, so that

@@ -28,6 +28,7 @@ from k8s_tpu_torch.spec.tpu_job import (  # noqa: F401
     VALID_REPLICA_TYPES,
     CheckpointPolicySpec,
     ChiefSpec,
+    ElasticSpec,
     GpuSpec,
     NotPortedError,
     ObservabilitySpec,

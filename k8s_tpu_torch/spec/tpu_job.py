@@ -19,8 +19,13 @@ serves both packages. Following reference ``pkg/spec/tf_job.go``:
   reference supplied a default gRPC parameter-server template
   (``tf_job.go:236-301`` + ``setDefaultPSPodTemplateSpec``).
 - Admission refuses, by ROADMAP item, what this slice of the port does
-  not run: serving fleets, elastic resize, and the ``llama_train``
-  options its program refuses (:func:`check_program_options`).
+  not run: serving fleets and the ``llama_train`` options its program
+  refuses (:func:`check_program_options`). ZeRO stages 1–3 on a gang of
+  several nodes (ZeRO on the HSDP mesh) run.
+- ``spec.elastic`` (:class:`ElasticSpec`) lets the operator resize a
+  gang when a node is lost for good and grow it back when capacity
+  returns, counting the DP degree in nodes of the ``gpu:`` block's
+  accelerator; ``status.dp_degree`` holds the current width.
 - Phase/State/condition machinery matches the reference semantics
   (phases ``tf_job.go:303-312``, states ``tf_job.go:338-345``,
   10-deep condition ring ``tf_job.go:485-490``, per-replica state
@@ -112,7 +117,6 @@ class NotPortedError(ValidationError, NotImplementedError):
 
 # features refused in this slice, with the ROADMAP item of each
 SERVING_ITEM = "A12.5 (the serving fleet, router and autoscaler, with A15)"
-ELASTIC_ITEM = "A12.4 (elastic resize)"
 # llama_train options of the JAX program that the port's program refuses
 # (k8s_tpu_torch/programs/llama_train.py _check_unported), mirrored here
 # so such a job fails at create instead of as a gang of permanent exits
@@ -619,6 +623,100 @@ class ObservabilitySpec(K8sObject):
 
 @register_type
 @dataclass
+class ElasticSpec(K8sObject):
+    """Elastic gang resize (the JAX package's block, docs/ELASTIC.md):
+    survive PERMANENT capacity loss by re-partitioning the gang to
+    another data-parallel degree instead of restoring the same shape
+    forever.
+
+    ``minDpDegree``/``maxDpDegree`` bound the legal DP degrees in NODES
+    of the ``gpu:`` block's accelerator (where the JAX package counts
+    slices): the gang's worker count at degree k is ``cards_per_node ×
+    k``, one pod per card. 0 on ``maxDpDegree`` defaults to the job's
+    node count, which is the preferred width and must sit inside the
+    range. ``resizeOnPermanentLoss: false`` keeps the observe side but
+    never shrinks; growth back to capacity stays available.
+
+    The windows are the no-flap story: ``deadAfterSeconds`` is how long
+    a host must be heartbeat-silent (while peers answer) before its node
+    is presumed lost, ``growHoldSeconds`` how long returned capacity
+    must hold before growing back, ``cooldownSeconds`` the least spacing
+    between resizes. Each resize is counted against ``maxGangRestarts``,
+    and its restore is health-gated (``KTPU_CKPT_RESTORE_MAX_STEP``).
+    The block reaches the worker pods as ``KTPU_ELASTIC_*``."""
+
+    min_dp_degree: int = 1
+    max_dp_degree: int = 0  # 0 → the job's node count
+    resize_on_permanent_loss: bool = True
+    dead_after_seconds: float = 10.0
+    grow_hold_seconds: float = 10.0
+    cooldown_seconds: float = 30.0
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    def bounds(self, num_nodes: int) -> "tuple[int, int]":
+        lo = self.min_dp_degree or 1
+        hi = self.max_dp_degree or num_nodes
+        return lo, hi
+
+    def validate(self) -> None:
+        for name in ("min_dp_degree", "max_dp_degree"):
+            val = getattr(self, name)
+            if not isinstance(val, int) or isinstance(val, bool):
+                raise ValidationError(f"elastic: {name} must be an integer")
+        if self.min_dp_degree < 1:
+            raise ValidationError("elastic: minDpDegree must be >= 1")
+        if self.max_dp_degree and self.max_dp_degree < self.min_dp_degree:
+            raise ValidationError(
+                f"elastic: need minDpDegree <= maxDpDegree, got "
+                f"min={self.min_dp_degree} max={self.max_dp_degree}")
+        if not isinstance(self.resize_on_permanent_loss, bool):
+            raise ValidationError(
+                "elastic: resizeOnPermanentLoss must be a boolean")
+        for name in ("dead_after_seconds", "grow_hold_seconds",
+                     "cooldown_seconds"):
+            try:
+                val = float(getattr(self, name))
+            except (TypeError, ValueError):
+                raise ValidationError(f"elastic: {name} must be a number")
+            if val < 0:
+                raise ValidationError(f"elastic: {name} must be >= 0")
+
+    def to_env(self) -> Dict[str, str]:
+        """The launcher/program contract (parsed back by
+        :meth:`from_env`)."""
+        return {
+            "KTPU_ELASTIC_MIN_DP": str(self.min_dp_degree),
+            "KTPU_ELASTIC_MAX_DP": str(self.max_dp_degree),
+            "KTPU_ELASTIC_RESIZE":
+                "1" if self.resize_on_permanent_loss else "0",
+        }
+
+    @classmethod
+    def from_env(cls, env=None) -> Optional["ElasticSpec"]:
+        """The terms from the operator-injected env; None when the job
+        carries no elastic contract."""
+        import os
+
+        env = env if env is not None else os.environ
+        if "KTPU_ELASTIC_MIN_DP" not in env:
+            return None
+
+        def num(name, default):
+            try:
+                return int(env.get(name, default) or default)
+            except ValueError:
+                return default
+
+        return cls(
+            min_dp_degree=num("KTPU_ELASTIC_MIN_DP", 1),
+            max_dp_degree=num("KTPU_ELASTIC_MAX_DP", 0),
+            resize_on_permanent_loss=env.get(
+                "KTPU_ELASTIC_RESIZE", "1") in ("1", "true"),
+        )
+
+
+@register_type
+@dataclass
 class TpuJobSpec(K8sObject):
     runtime_id: str = field(default="", metadata={"json": "RuntimeId"})
     tensorboard: Optional[TensorBoardSpec] = None
@@ -651,8 +749,12 @@ class TpuJobSpec(K8sObject):
     # Cluster-scheduler terms (k8s_tpu_torch/sched, when the controller
     # config declares a fleet), passed to the programs as KTPU_SCHED_*.
     scheduling: Optional[SchedulingSpec] = None
-    # the JAX package's tpu:, serving: and elastic: blocks land here
-    # when a manifest carries them; validation refuses each by name
+    # Elastic gang resize: survive the permanent loss of a node by
+    # re-partitioning to a smaller DP degree (and growing back when
+    # capacity returns). None → fixed shape.
+    elastic: Optional[ElasticSpec] = None
+    # the JAX package's tpu: and serving: blocks land here when a
+    # manifest carries them; validation refuses each by name
     extra: Dict[str, Any] = field(default_factory=dict)
 
     # -- normalization ------------------------------------------------------
@@ -669,6 +771,13 @@ class TpuJobSpec(K8sObject):
         package's CRD that this slice does not run, each with its
         ROADMAP item, and for a ``tpu:`` block, naming the ``gpu:``
         block that replaces it."""
+        if self.elastic is not None and "serving" in self.extra:
+            # "DP degree" is a gang concept; a serving fleet scales per
+            # replica
+            raise ValidationError(
+                "elastic: gang resize is a training-gang feature; "
+                "serving fleets scale via spec.serving "
+                "minReplicas/maxReplicas instead")
         if "serving" in self.extra or any(
                 r.replica_type == ROUTER for r in self.replica_specs):
             what = ("serving.disaggregation" if isinstance(
@@ -677,10 +786,6 @@ class TpuJobSpec(K8sObject):
             raise NotPortedError(
                 f"spec.{what}: serving replicas are not ported to the "
                 f"k8s_tpu_torch operator yet (ROADMAP {SERVING_ITEM})")
-        if "elastic" in self.extra:
-            raise NotPortedError(
-                "spec.elastic: gang resize is not ported to the "
-                f"k8s_tpu_torch operator yet (ROADMAP {ELASTIC_ITEM})")
         if "tpu" in self.extra:
             raise ValidationError(
                 "the tpu: block requests TPU slices; a k8s_tpu_torch job "
@@ -734,6 +839,12 @@ class TpuJobSpec(K8sObject):
             self.scheduling.validate()
         if self.observability is not None:
             self.observability.validate()
+        if self.elastic is not None:
+            self.elastic.validate()
+            if self.gpu is None or not self.gpu.accelerator:
+                raise ValidationError(
+                    "elastic: resize needs a gpu block — the DP degree "
+                    "is counted in nodes of spec.gpu.accelerator")
         if self.gpu is not None and self.gpu.accelerator:
             if self.gpu.topology() is None:
                 raise ValidationError(
@@ -748,13 +859,35 @@ class TpuJobSpec(K8sObject):
                     f"gpu.numCards {self.gpu.num_cards} spans several "
                     f"{self.gpu.accelerator} nodes of {t.cards_per_node} "
                     "cards: a multi-node job takes whole nodes")
+            allowed = {self.gpu.num_cards}
+            if self.elastic is not None:
+                if self.gpu.num_cards % t.cards_per_node:
+                    raise ValidationError(
+                        f"elastic: gpu.numCards {self.gpu.num_cards} is not "
+                        f"a whole number of {self.gpu.accelerator} nodes of "
+                        f"{t.cards_per_node} cards (the DP degree counts "
+                        "whole nodes)")
+                nodes = self.gpu.nodes()
+                lo, hi = self.elastic.bounds(nodes)
+                if not 1 <= lo <= nodes <= hi:
+                    raise ValidationError(
+                        f"elastic: need minDpDegree <= nodes <= "
+                        f"maxDpDegree, got [{lo}, {hi}] around "
+                        f"{nodes} node(s) of gpu.numCards="
+                        f"{self.gpu.num_cards}")
+                # a resized gang persists its current width in the spec:
+                # any whole number of nodes inside the range is legal
+                allowed = {t.cards_per_node * k for k in range(lo, hi + 1)}
             for r in self.replica_specs:
                 if r.replica_type == WORKER and r.replicas is not None \
-                        and r.replicas != self.gpu.num_cards:
+                        and r.replicas not in allowed:
                     raise ValidationError(
                         f"WORKER replicas must equal gpu.numCards = "
                         f"{self.gpu.num_cards} (one pod per card; got "
-                        f"{r.replicas})")
+                        f"{r.replicas}"
+                        + (f"; elastic allows {sorted(allowed)}"
+                           if self.elastic is not None else "")
+                        + ")")
         self.check_program_options()
 
     def num_nodes(self) -> int:
@@ -765,9 +898,10 @@ class TpuJobSpec(K8sObject):
     def check_program_options(self) -> None:
         """Admission mirror of ``llama_train``'s refusals (the port's
         ``programs/llama_train.py`` ``_check_unported``): for a WORKER
-        that runs ``llama_train``, the strategies, options and the ZeRO
-        stage on an HSDP mesh that a later slice brings raise
-        :class:`NotPortedError` here, at create."""
+        that runs ``llama_train``, the strategies and options that a
+        later slice brings raise :class:`NotPortedError` here, at
+        create. ZeRO stages 1–3 run on any node count (ZeRO on the HSDP
+        mesh)."""
         w = self.replica_spec(WORKER)
         if w is None or w.template is None or w.template.spec is None:
             return
@@ -799,19 +933,6 @@ class TpuJobSpec(K8sObject):
                     "training.latencyHiding is not ported to k8s_tpu_torch "
                     "yet (ROADMAP A13: XLA's latency-hiding scheduler has no "
                     "counterpart yet)")
-            stage = (self.training.resolved_zero_stage()
-                     if self.training is not None else 0)
-            if "zero_stage" in flags:
-                stage = int(flags["zero_stage"])
-            elif flags.get("zero1") in ("1", "true"):
-                stage = max(stage, 1)
-            nodes = self.num_nodes()
-            if strategy != "dp" and stage >= 1 and nodes > 1:
-                raise NotPortedError(
-                    f"training.zeroStage {stage} with {nodes} nodes (the "
-                    f"data axis of an HSDP mesh) under strategy="
-                    f"{strategy!r} is not ported to k8s_tpu_torch yet "
-                    "(ROADMAP A5.4)")
             return
 
     # -- defaulting (reference SetDefaults(), tf_job.go:236-301) ------------
@@ -849,6 +970,12 @@ class TpuJobSpec(K8sObject):
             self.scheduling.queue = "default"
         if self.training is not None:
             self.training.set_defaults()
+        if self.elastic is not None and self.gpu is not None:
+            # normalize the DP bounds once, so everything downstream
+            # reads concrete numbers
+            lo, hi = self.elastic.bounds(self.gpu.nodes())
+            self.elastic.min_dp_degree = lo
+            self.elastic.max_dp_degree = hi
 
     # -- accelerator config (reference ConfigureAccelerators, tf_job.go:179-233)
 
@@ -969,6 +1096,10 @@ class TpuJobPhase:
     QUEUED = "Queued"
     CREATING = "Creating"
     RUNNING = "Running"
+    # Elastic gangs (spec.elastic): the gang was torn down with a
+    # checkpoint flush and is being re-materialized at a new DP degree
+    # (status.dp_degree); the next tick creates the reshaped pods.
+    RESIZING = "Resizing"
     CLEANUP = "CleanUp"
     FAILED = "Failed"
     DONE = "Done"
@@ -1017,6 +1148,11 @@ class TpuJobStatus(K8sObject):
     state: str = TpuJobState.UNKNOWN
     replica_statuses: List[ReplicaStatus] = field(default_factory=list)
     gang_restarts: int = 0  # whole-gang restarts performed so far
+    # elastic gangs: the CURRENT data-parallel degree in nodes (0 =
+    # never resized — the gpu block's node count is the shape).
+    # Persisted so adoption and re-admission materialize the resized
+    # width, not the original one.
+    dp_degree: int = 0
     extra: Dict[str, Any] = field(default_factory=dict)
 
     def is_failed(self) -> bool:

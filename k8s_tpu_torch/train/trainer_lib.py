@@ -17,22 +17,41 @@ over a mesh (``parallel/mesh.py``), one process per card:
   state and all-reduces the mean gradient;
 - ``dp``, stage 1: as 0, but each rank keeps only its
   :func:`~k8s_tpu_torch.parallel.sharding.zero1_partition_spec` slice
-  ("piece") of each shardable leaf's moments, applies AdamW to that
-  slice, then all-gathers the updated slices into the replicated
-  parameter — after the update, never in the backward;
-- ``dp``, stage 2: as 1, with the gradient sync a reduce-scatter into
-  the slice as each parameter's gradient lands (a post-accumulate-grad
-  hook), so no full-size gradient outlives its own backward;
+  ("piece") of each shardable leaf's moments: the leaf's gradient is
+  reduce-scattered into the slice after the backward (the other leaves'
+  all-reduced), AdamW updates the slice, then the updated slices are
+  all-gathered into the replicated parameter — after the update, never
+  in the backward;
+- ``dp``, stage 2: as 1, with the reduce-scatter into the slice as each
+  parameter's gradient lands (a post-accumulate-grad hook), so no
+  full-size gradient outlives its own backward;
 - ``dp``, stage 3: as 2, and the leaves
   :func:`~k8s_tpu_torch.parallel.sharding.zero3_selected` picks are held
-  as their slice between steps and all-gathered just in time, in a
-  forward pre-hook of the module that owns them;
+  as their slice between steps and all-gathered once per step, in a
+  forward pre-hook on the model that runs before its forward;
 - ``fsdp`` (the ``FSDP`` rules): FSDP2 ``fully_shard`` per
   :class:`~k8s_tpu_torch.models.llama.LlamaBlock` and on the root over
   the mesh's ``fsdp`` axis — HSDP over ``(data, fsdp)`` with several
   slices — each parameter sharded on the dimension the rules give the
   ``fsdp`` axis. A ZeRO stage on top of it is a no-op while ``data`` is
   1, as in the JAX package;
+- ``fsdp`` or ``fsdp_tp`` with ``data`` > 1 at stage 1–3 (ZeRO on the
+  HSDP mesh): FSDP2 over the ``fsdp`` axis alone, and the ``data`` axis
+  is the ZeRO ladder's, as under ``dp`` but on each rank's FSDP2 shard:
+  the piece is the :func:`~k8s_tpu_torch.parallel.sharding.
+  zero1_partition_spec` slice of the local shard (``data`` appended to
+  the leaf's ``fsdp`` dimension, or a later dimension it divides), so a
+  rank's moments are 1/``data`` of its shard; after FSDP2's
+  reduce-scatter over ``fsdp`` the gradient is reduce-scattered over
+  ``data`` into the piece (stage 1 after the backward, stages 2–3 as
+  each FSDP2 unit's gradient lands, dropping the shard's gradient), the
+  unsliced leaves' gradients (rank-1 norms) are all-reduced over
+  ``data``, and after the update the pieces are all-gathered over
+  ``data`` back into the shard (stages 1–2; stage 3 keeps the selected
+  leaves as pieces between steps and gathers them before the root's
+  forward, ahead of every FSDP2 unit's unshard). Every such collective
+  is counted in :data:`~k8s_tpu_torch.parallel.tensor_parallel.COLLECTIVES`
+  (``data_reduce_scatter``, ``data_all_gather``, ``data_all_reduce``);
 - ``fsdp_tp`` (the ``FSDP_TP`` rules): first every parameter becomes a
   ``DTensor`` on the mesh's ``tensor`` axis, split on the dimension the
   rules give ``tensor`` (the norms ``Replicate()``), and the model runs
@@ -43,10 +62,16 @@ over a mesh (``parallel/mesh.py``), one process per card:
   tensor)`` under HSDP).
 
 A sliced leaf appears in :func:`state_tree` as a ``DTensor`` whose local
-tensor is the live slice (``Shard(dim)`` over ``data``), and FSDP2's
-leaves are ``DTensor`` s already, so the checkpoint tiers see each
-rank's shard with its global index. Eager PyTorch updates the state in
-place; ``run`` still returns it, as the JAX step returns the new state.
+tensor is the live slice (``Shard(dim)`` over ``data``; on the HSDP mesh
+over a ``(fsdp, tensor, data)`` view of the mesh, so a dimension split by
+``fsdp`` and then ``data`` is cut fsdp-major as the JAX placement
+``("fsdp", "data")`` cuts it), and FSDP2's leaves are ``DTensor`` s
+already, so the checkpoint tiers see each rank's shard with its global
+index, and a restore at another ``data`` size re-cuts the shards from
+the saved ones (``ckpt.local.union_covering_plan`` /
+``overlap_covering_plan``) with no layout state carried across. Eager
+PyTorch updates the state in place; ``run`` still returns it, as the
+JAX step returns the new state.
 Metric values stay device tensors until the caller reads them; they are
 the gang's global values (the loss over the global batch, the health
 block over every shard), the same on every rank.
@@ -62,6 +87,7 @@ import torch.distributed as dist
 from torch import nn
 
 from k8s_tpu_torch.parallel.mesh import mesh_shape
+from k8s_tpu_torch.parallel.tensor_parallel import _count
 from k8s_tpu_torch.parallel.sharding import (
     LogicalRules,
     param_placement,
@@ -140,11 +166,14 @@ def _to_local(t: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class _ZeroLeaf:
-    """One ZeRO-sliced parameter under ``dp``: the model's parameter,
-    the dimension its slices cut, and ``piece``, this rank's slice — the
-    tensor AdamW updates (a view of the whole parameter at stages 1–2;
-    its own storage at stage 3, where the whole parameter exists only
-    between a forward's gather and the update)."""
+    """One ZeRO-sliced parameter: the model's parameter, the dimension
+    its slices cut, and ``piece``, this rank's slice — the tensor AdamW
+    updates (a view of the parameter at stages 1–2; its own storage at
+    stage 3, where the parameter exists only between a forward's gather
+    and the update). Under ``dp`` the piece is cut from the whole
+    parameter; on the HSDP mesh from the rank's FSDP2 shard, and
+    ``zspec`` is the leaf's placement with ``data`` added (its
+    checkpoint index)."""
 
     name: str
     param: nn.Parameter
@@ -152,6 +181,8 @@ class _ZeroLeaf:
     piece: nn.Parameter
     stage3: bool
     shape: Tuple[int, ...]
+    zspec: Optional[Tuple] = None
+    nbytes: int = 0  # the storage a released stage-3 shard regrows to
 
 
 class ShardedLayout:
@@ -166,6 +197,9 @@ class ShardedLayout:
         self.data_mesh = mesh["data"]
         self.leaves: List[_ZeroLeaf] = []
         self.hooks = []
+        # ZeRO on the HSDP mesh: the mesh as (fsdp, tensor, data), the
+        # sliced leaves' checkpoint view (set by create_sharded_state)
+        self.zero_mesh = None
 
     @property
     def world(self) -> int:
@@ -176,22 +210,28 @@ class ShardedLayout:
         """Whether FSDP2 holds the parameters (``fsdp``, ``fsdp_tp``)."""
         return self.strategy in ("fsdp", "fsdp_tp")
 
+    @property
+    def hsdp_zero(self) -> bool:
+        """Whether ZeRO slices FSDP2's shards over ``data`` (the HSDP
+        mesh at stage >= 1)."""
+        return self.fsdp2 and bool(self.leaves)
+
     def is_sharded(self, q: torch.Tensor) -> bool:
         """Whether optimizer parameter ``q`` is one rank's shard (FSDP2's
         ``DTensor`` s, a ZeRO piece) rather than a replica."""
-        if self.fsdp2:
-            return hasattr(q, "placements")
-        return any(q is z.piece for z in self.leaves)
+        if any(q is z.piece for z in self.leaves):
+            return True
+        return self.fsdp2 and hasattr(q, "placements")
 
-    @staticmethod
-    def replicas(q: torch.Tensor) -> int:
+    def replicas(self, q: torch.Tensor) -> int:
         """How many ranks hold each shard of sharded parameter ``q``: the
         sizes of the mesh dimensions it is not split over (HSDP's
-        ``data``, the ``tensor`` axis of a norm scale), 1 for a ZeRO
-        piece."""
+        ``data``, the ``tensor`` axis of a norm scale; with ZeRO on the
+        HSDP mesh every FSDP2 shard also repeats over ``data``), 1 for a
+        ZeRO piece."""
         if not hasattr(q, "placements"):
             return 1
-        n = 1
+        n = _group_size(self.data_group) if self.hsdp_zero else 1
         for size, place in zip(q.device_mesh.mesh.shape, q.placements):
             if not place.is_shard():
                 n *= int(size)
@@ -199,14 +239,10 @@ class ShardedLayout:
 
     # -- dp ZeRO ---------------------------------------------------------
 
-    def _slice_bounds(self, z: _ZeroLeaf) -> Tuple[int, int]:
-        n = z.shape[z.dim] // _group_size(self.data_group)
-        r = dist.get_rank(self.data_group)
-        return r * n, n
-
     def gather(self, z: _ZeroLeaf) -> torch.Tensor:
-        """The whole parameter from every rank's piece (all-gather over
-        ``data`` along ``z.dim``)."""
+        """The parameter (its FSDP2 shard on the HSDP mesh) from every
+        rank's piece (all-gather over ``data`` along ``z.dim``)."""
+        _count("data_all_gather")
         dp = _group_size(self.data_group)
         local = z.piece.detach().movedim(z.dim, 0).contiguous()
         out = torch.empty((dp * local.shape[0],) + tuple(local.shape[1:]),
@@ -216,6 +252,7 @@ class ShardedLayout:
 
     def reduce_scatter(self, z: _ZeroLeaf, grad: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the sum over ``data`` of ``grad``."""
+        _count("data_reduce_scatter")
         dp = _group_size(self.data_group)
         full = grad.movedim(z.dim, 0).contiguous()
         out = torch.empty((full.shape[0] // dp,) + tuple(full.shape[1:]),
@@ -225,27 +262,45 @@ class ShardedLayout:
 
     def _stage2_hook(self, z: _ZeroLeaf):
         def hook(p: torch.Tensor) -> None:
-            # this microbatch's whole gradient of p landed: reduce it
-            # into the slice, then drop it
-            shard = self.reduce_scatter(z, p.grad)
+            # this microbatch's gradient of p landed (FSDP2 calls the
+            # hook on its shard after its reduce-scatter over fsdp):
+            # reduce it into the slice, then drop it
+            shard = self.reduce_scatter(z, _to_local(p.grad))
             z.piece.grad = (shard if z.piece.grad is None
                             else z.piece.grad.add_(shard))
             p.grad = None
         return hook
 
-    def _stage3_pre_forward(self, leaves: Sequence[_ZeroLeaf]):
-        def hook(module, args):
-            for z in leaves:
-                # gathered once per step: a remat recompute in the
-                # backward finds the parameter whole and gathers nothing
-                if z.param.numel() == 0:
+    def _shard(self, z: _ZeroLeaf) -> torch.Tensor:
+        """The tensor ``z``'s pieces are cut from: the parameter, or its
+        FSDP2 shard's local tensor (the storage FSDP2 gathers from)."""
+        return _to_local(z.param.detach())
+
+    def _stage3_pre_forward(self):
+        def hook(module, *args):
+            for z in self.leaves:
+                if not z.stage3:
+                    continue
+                if self.hsdp_zero:
+                    local = self._shard(z)
+                    storage = local.untyped_storage()
+                    if storage.nbytes() == 0:
+                        storage.resize_(z.nbytes)
+                        local.copy_(self.gather(z))
+                elif z.param.numel() == 0:
                     z.param.data = self.gather(z)
         return hook
 
     def release_stage3(self) -> None:
-        """Drop the whole stage-3 parameters (the pieces hold them)."""
+        """Drop the stage-3 parameters (the pieces hold them): the
+        whole parameter under ``dp``, the FSDP2 shard's storage on the
+        HSDP mesh (refilled by the next forward's gather)."""
         for z in self.leaves:
-            if z.stage3:
+            if not z.stage3:
+                continue
+            if self.hsdp_zero:
+                self._shard(z).untyped_storage().resize_(0)
+            else:
                 z.param.data = z.param.data.new_empty((0,))
 
     def sync_gradients(self, params: Sequence[nn.Parameter],
@@ -253,7 +308,7 @@ class ShardedLayout:
         """After the backward: the mean gradient over the gang, in each
         optimizer parameter's ``.grad`` (the piece's for a sliced
         leaf)."""
-        if self.fsdp2:
+        if self.fsdp2 and not self.hsdp_zero:
             # FSDP2 reduce-scattered (and, under HSDP, all-reduced) the
             # mean already; tensor peers computed the same gradient of
             # their own columns (the model's collectives)
@@ -263,17 +318,20 @@ class ShardedLayout:
                         p.grad.div_(accum_steps)
             return
         dp = _group_size(self.data_group)
-        sliced = {id(z.param): z for z in self.leaves}
+        sliced = {id(z.param) for z in self.leaves}
         if dp > 1:
-            # the whole gradients (stages 2-3: the unsliced leaves')
+            # the unsliced gradients (on the HSDP mesh FSDP2 left each
+            # rank the mean over fsdp of its data replica's, in its shard)
+            # are summed over data; the sliced ones are reduce-scattered
+            # into their pieces (stage 1 here, stages 2-3 in the hook)
             _all_reduce_bucketed(
-                [p.grad for p in params if p.grad is not None and not (
-                    self.zero_stage >= 2 and id(p) in sliced)],
+                [_to_local(p.grad) for p in params
+                 if p.grad is not None and id(p) not in sliced],
                 self.data_group)
         for z in self.leaves:
             if self.zero_stage == 1 and z.param.grad is not None:
-                start, n = self._slice_bounds(z)
-                z.piece.grad = z.param.grad.narrow(z.dim, start, n)
+                z.piece.grad = self.reduce_scatter(z, _to_local(z.param.grad))
+                z.param.grad = None
         if dp * accum_steps > 1:
             for q in self.optimizer_params(params):
                 if q.grad is not None:
@@ -282,7 +340,7 @@ class ShardedLayout:
     def optimizer_params(self, params: Sequence[nn.Parameter]):
         """The tensors AdamW updates, in the model's parameter order:
         each sliced leaf's piece, every other parameter itself."""
-        if self.fsdp2:
+        if self.fsdp2 and not self.hsdp_zero:
             return list(params)
         sliced = {id(z.param): z.piece for z in self.leaves}
         return [sliced.get(id(p), p) for p in params]
@@ -290,25 +348,35 @@ class ShardedLayout:
     def after_update(self) -> None:
         """After AdamW: stages 1–2 all-gather the updated slices into the
         replicated parameters; stage 3 frees its whole parameters."""
-        for z in self.leaves:
-            if z.stage3:
-                continue
-            z.param.data.copy_(self.gather(z))
+        with torch.no_grad():
+            for z in self.leaves:
+                if not z.stage3:
+                    self._shard(z).copy_(self.gather(z))
         self.release_stage3()
 
     def leaf_tensor(self, z: _ZeroLeaf, local: torch.Tensor):
         """``local``, a piece-shaped tensor of ``z`` (the piece or one of
         its moments), as the ``DTensor`` of ``z``'s whole shape whose
-        local shard it is (no copy: a restore into it fills ``local``)."""
-        from torch.distributed.tensor import DTensor, Shard
+        local shard it is (no copy: a restore into it fills ``local``):
+        ``Shard(dim)`` over ``data``, and on the HSDP mesh over the
+        ``(fsdp, tensor, data)`` view, each axis of ``z.zspec`` cutting
+        its dimension in that order."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
 
         stride = []
         acc = 1
         for d in reversed(z.shape):
             stride.append(acc)
             acc *= d
+        mesh, places = self.data_mesh, [Shard(z.dim)]
+        if z.zspec is not None:
+            mesh = self.zero_mesh
+            places = []
+            for axis in ZERO_MESH_AXES:
+                d = shard_dim(z.zspec, axis)
+                places.append(Replicate() if d is None else Shard(d))
         return DTensor.from_local(
-            local, self.data_mesh, [Shard(z.dim)], run_check=False,
+            local, mesh, places, run_check=False,
             shape=torch.Size(z.shape), stride=tuple(reversed(stride)))
 
     def close(self) -> None:
@@ -332,6 +400,7 @@ def _all_reduce_bucketed(tensors: Sequence[torch.Tensor], group) -> None:
         if not bucket:
             return
         flat = torch.cat([t.reshape(-1) for t in bucket])
+        _count("data_all_reduce")
         dist.all_reduce(flat, group=group)
         offset = 0
         for t in bucket:
@@ -350,15 +419,36 @@ def _all_reduce_bucketed(tensors: Sequence[torch.Tensor], group) -> None:
     flush()
 
 
-def _fsdp_wrap(model: nn.Module, mesh, rules: LogicalRules) -> None:
+# the mesh axes of a ZeRO piece's checkpoint view on the HSDP mesh, in
+# the order they cut a dimension: the JAX placement appends ``data`` to a
+# dimension's axes, and no FSDP_TP dimension carries both fsdp and tensor
+ZERO_MESH_AXES = ("fsdp", "tensor", "data")
+
+
+def _zero_mesh(mesh):
+    """The mesh's ranks as a ``(fsdp, tensor, data)`` ``DeviceMesh`` (its
+    stage, expert and seq axes are 1): the mesh a ZeRO piece on the HSDP
+    mesh is a ``DTensor`` of. Every rank calls it (it makes groups)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = mesh.mesh.reshape(mesh.mesh.shape[0], mesh.mesh.shape[1],
+                              mesh.mesh.shape[-1])
+    return DeviceMesh(mesh.device_type, ranks.permute(1, 2, 0).contiguous(),
+                      mesh_dim_names=ZERO_MESH_AXES)
+
+
+def _fsdp_wrap(model: nn.Module, mesh, rules: LogicalRules,
+               over_data: bool = True) -> None:
     """FSDP2 over the ``fsdp`` axis (``(data, fsdp)``, HSDP, with several
-    slices): one unit per block and the root, each parameter sharded on
-    the dimension the rules give ``fsdp``."""
+    slices, unless ``over_data`` is False: then the ``data`` axis is the
+    ZeRO ladder's): one unit per block and the root, each parameter
+    sharded on the dimension the rules give ``fsdp``."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     sizes = mesh_shape(mesh)
-    sub = mesh["fsdp"] if sizes["data"] == 1 else mesh["data", "fsdp"]
+    sub = (mesh["fsdp"] if sizes["data"] == 1 or not over_data
+           else mesh["data", "fsdp"])
     name_of = {id(p): n for n, p in model.named_parameters()}
 
     def placement(p):
@@ -431,25 +521,18 @@ def create_sharded_state(model: nn.Module, lr: float, mesh,
                          "map no parameter to (train with FSDP_TP)")
     strategy = "fsdp_tp" if tensor else ("fsdp" if fsdp else "dp")
     stage = int(zero_stage)
-    if fsdp and stage >= 1 and sizes["data"] > 1:
-        raise NotImplementedError(
-            f"zero_stage >= 1 on an HSDP (data x fsdp) mesh under {strategy} "
-            "is not ported to k8s_tpu_torch yet (ROADMAP A5.4: ZeRO on HSDP)")
     layout = ShardedLayout(strategy, mesh, stage)
+    zero = stage >= 1 and sizes["data"] > 1
     if tensor:
         _tensor_parallel_layout(model, mesh, rules)
     if fsdp:
         # ZeRO on top of fsdp is a no-op at data 1, as in the JAX package
-        _fsdp_wrap(model, mesh, rules)
-    elif stage >= 1 and sizes["data"] > 1:
+        _fsdp_wrap(model, mesh, rules, over_data=not zero)
+        if zero:
+            layout.zero_mesh = _zero_mesh(mesh)
+    if zero:
         dp = sizes["data"]
         r = dist.get_rank(layout.data_group)
-        owner = {}
-        for mod in model.modules():
-            for p in mod._parameters.values():
-                if p is not None:
-                    owner.setdefault(id(p), mod)
-        stage3_by_module: Dict[int, List[_ZeroLeaf]] = {}
         for name, p in model.named_parameters():
             if not p.requires_grad:
                 continue
@@ -458,26 +541,31 @@ def create_sharded_state(model: nn.Module, lr: float, mesh,
             if z is None:
                 continue
             dim = shard_dim(z, "data")
-            n = p.shape[dim] // dp
+            local = _to_local(p.detach())
+            n = local.shape[dim] // dp
             s3 = stage >= 3 and zero3_selected(
                 name, p.shape, placement, sizes,
                 min_leaf_size=zero3_min_leaf_size,
                 leaves=zero3_leaves) is not None
-            view = p.detach().narrow(dim, r * n, n)
+            view = local.narrow(dim, r * n, n)
             piece = nn.Parameter(view.clone() if s3 else view)
-            leaf = _ZeroLeaf(name, p, dim, piece, s3, tuple(p.shape))
+            leaf = _ZeroLeaf(name, p, dim, piece, s3, tuple(p.shape),
+                             z if fsdp else None,
+                             local.untyped_storage().nbytes())
             layout.leaves.append(leaf)
             if stage >= 2:
+                # FSDP2 calls a shard's hooks after its reduce-scatter
                 layout.hooks.append(
                     p.register_post_accumulate_grad_hook(
                         layout._stage2_hook(leaf)))
-            if s3:
-                stage3_by_module.setdefault(id(owner[id(p)]), []).append(leaf)
-        for mod in model.modules():
-            sel = stage3_by_module.get(id(mod))
-            if sel:
-                layout.hooks.append(mod.register_forward_pre_hook(
-                    layout._stage3_pre_forward(sel)))
+        if any(z.stage3 for z in layout.leaves):
+            # every stage-3 leaf refilled before the root's forward, ahead
+            # of FSDP2's own root pre-forward: every unit's unshard (a
+            # block's too) then reads a whole shard. The pieces are
+            # gathered once per step; a remat recompute in the backward
+            # calls no root hook.
+            layout.hooks.append(model.register_forward_pre_hook(
+                layout._stage3_pre_forward(), prepend=True))
         layout.release_stage3()
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
@@ -597,10 +685,10 @@ def load_state_tree(state: TrainState, tree: Dict[str, torch.Tensor]) -> None:
             if key != "step":
                 _copy_into(dst, tree[key])
         if state.layout is not None:
-            # the whole parameters of a ZeRO slice follow its piece
+            # the parameters (shards) of a ZeRO slice follow its piece
             for z in state.layout.leaves:
                 if not z.stage3:
-                    z.param.data.copy_(state.layout.gather(z))
+                    state.layout._shard(z).copy_(state.layout.gather(z))
     state.step = int(tree["step"])
 
 

@@ -163,6 +163,11 @@ class RendezvousSpec:
     # _PREEMPTIBLE — the same spec→env→program round trip as
     # checkpointPolicy, so a program can see the terms it runs under
     sched_env: Optional[Dict[str, str]] = None
+    # elastic-resize terms (spec.elastic): KTPU_ELASTIC_MIN_DP/_MAX_DP/
+    # _RESIZE, the same round trip, so a program can see that its world
+    # may be re-partitioned under it; the CURRENT degree already rides
+    # KTPU_NUM_PROCESSES / GROUP_WORLD_SIZE
+    elastic_env: Optional[Dict[str, str]] = None
 
     def to_env(self) -> Dict[str, str]:
         env = {
@@ -188,6 +193,8 @@ class RendezvousSpec:
             env.update(self.obs_env)
         if self.sched_env:
             env.update(self.sched_env)
+        if self.elastic_env:
+            env.update(self.elastic_env)
         return env
 
 
@@ -279,12 +286,27 @@ class TpuReplicaSet:
         keep independent restart semantics."""
         return self.spec.replica_type == WORKER
 
+    def _service_count(self) -> int:
+        """Elastic gangs get a Service for the WHOLE ``maxDpDegree``
+        range up front (``cards_per_node × maxDpDegree`` indices):
+        resize events never churn DNS, so the checkpoint peer wire and
+        the obs endpoints keep their addresses across shrink and grow."""
+        n = self.spec.replicas or 0
+        spec = self.job.job.spec
+        if (spec.elastic is not None and spec.gpu is not None
+                and self.spec.replica_type == WORKER):
+            t = spec.gpu.topology()
+            if t is not None:
+                hi = spec.elastic.bounds(spec.num_nodes())[1]
+                return max(n, t.cards_per_node * hi)
+        return n
+
     # ------------------------------------------------------------- create
 
     def create(self, config) -> None:
         if self.spec.is_default_launcher:
             self._create_launcher_config_map(config)
-        for index in range(self.spec.replicas or 0):
+        for index in range(self._service_count()):
             self._create_service(index)
         for index in range(self.spec.replicas or 0):
             self._create_job(index, config)
@@ -430,12 +452,19 @@ class TpuReplicaSet:
         """Compute the bootstrap info for replica ``index`` — the
         successor of ``TfConfig`` build-up at reference
         replicas.go:189-203. The gang's "slices" are its nodes: a
-        pod's node is its index over the cards per node."""
+        pod's node is its index over the cards per node. An elastic gang
+        rendezvouses at its CURRENT DP degree (the last resize's
+        target), not the spec's width: the mesh the launcher builds must
+        match the world size."""
         job = self.job
         cluster = job.cluster_spec()
         workers = cluster.get(WORKER.lower(), [])
         num_processes = max(1, len(workers))
         num_slices = job.job.spec.num_nodes()
+        if job.job.spec.elastic is not None:
+            current = getattr(job, "current_dp", None)
+            if callable(current):
+                num_slices = current()
         per_slice = max(1, num_processes // max(1, num_slices))
         if self.spec.replica_type == WORKER:
             process_id = index
@@ -468,6 +497,11 @@ class TpuReplicaSet:
             ),
             obs_env=self._obs_env(index),
             sched_env=self._sched_env(),
+            elastic_env=(
+                job.job.spec.elastic.to_env()
+                if job.job.spec.elastic is not None
+                and self.spec.replica_type == WORKER else None
+            ),
         )
 
     def _sched_env(self) -> Optional[Dict[str, str]]:
@@ -677,7 +711,7 @@ class TpuReplicaSet:
         sel = dict(self.default_labels())
         self.client.jobs.delete_collection(self.namespace, sel)
         self.client.pods.delete_collection(self.namespace, sel)
-        for index in range(self.spec.replicas or 0):
+        for index in range(self._service_count()):
             try:
                 self.client.services.delete(self.namespace, self.job_name(index))
             except errors.NotFoundError:

@@ -1,7 +1,7 @@
 """TrainingJob: the per-job reconciler and state machine (the port's
-copy of ``k8s_tpu/trainer/training.py``, without the serving fleet's
-autoscaling and elastic resize — later slices, ROADMAP A12.4-A12.5;
-validation refuses their spec blocks).
+copy of ``k8s_tpu/trainer/training.py``, with elastic gang resize
+counted in GPU nodes, and without the serving fleet's autoscaling — a
+later slice, ROADMAP A12.5; validation refuses its spec block).
 
 Analogue of reference ``pkg/trainer/training.go``: one worker thread
 per TpuJob with an event queue (cap 100) and an 8s reconcile ticker
@@ -130,6 +130,19 @@ class TrainingJob:
         self.reconcile_limiter = None
         self._preempt_reason: Optional[str] = None
         self._last_worker_stats: Optional[Dict[int, dict]] = None
+        # Elastic gang resize (spec.elastic, docs/ELASTIC.md): the pure
+        # decision core is built lazily from the spec; the capacity
+        # view and the ledger re-charge are controller-wired callbacks
+        # (None without a cluster scheduler — dead-heartbeat shrink
+        # still works, inventory-driven shrink/grow need the ledger).
+        self._resizer = None
+        self.capacity_fn: Optional[Callable[[], Optional[int]]] = None
+        # (job, old_dp, new_dp, trigger) -> ledger accepted; trigger is
+        # the verdict rule that fired ("inventory"/"dead-hosts"/
+        # "capacity-return") so the ledger can re-verify an inventory-
+        # triggered shrink against the live pool deficit
+        self.on_resize: Optional[
+            Callable[["TrainingJob", int, int, str], bool]] = None
         # Event-driven mode (docs/SCHEDULER.md "Event-driven core"):
         # instead of owning a thread, the job registers a handler with
         # the controller's shared ReconcilerCore; events kick its key,
@@ -229,6 +242,12 @@ class TrainingJob:
         an operator upgrade — re-validating there would brick a running
         job or leak its resources."""
         self.job.spec.set_defaults()
+        # a resized elastic gang persists its width in status.dp_degree:
+        # adoption and re-admission must materialize the RESIZED shape,
+        # not the gpu block's node count
+        if self.status.dp_degree > 0 and self.job.spec.elastic is not None:
+            self._apply_dp_to_replicas(self.status.dp_degree,
+                                       sets_exist=False)
         if validate:
             self.job.spec.validate()
         self.replicas = [
@@ -352,6 +371,14 @@ class TrainingJob:
             metrics.GANG_RESTART_BACKOFF.set(
                 self.restart_backoff().remaining(), {"job": self.fullname})
             return None
+        # Elastic pre-check: a degraded gang normally restores in place
+        # — but when the scheduler inventory says the dead pod's node is
+        # PERMANENTLY gone, a same-shape restart can never place. Shrink
+        # to the attainable width instead; restore-in-place stays the
+        # path whenever capacity is intact.
+        resize = self._resize_instead_of_restart()
+        if resize is not None:
+            return resize
         if self.status.gang_restarts >= self.job.spec.max_gang_restarts:
             # budget spent: fail fast — there is no restart left to space
             names = [f"{r.spec.replica_type}{idxs}" for r, idxs in degraded]
@@ -524,7 +551,16 @@ class TrainingJob:
             self._maybe_memory_pressure(stats)
         except Exception as e:
             log.error("job %s: memory-pressure check: %s", self.fullname, e)
-        return self._maybe_monitor_health(stats)
+        action = self._maybe_monitor_health(stats)
+        if action is not None:
+            return action
+        try:
+            # elastic resize rides the SAME sweep: dead-heartbeat hosts,
+            # the inventory view, and the health gate in one observation
+            return self._maybe_resize(stats)
+        except Exception as e:
+            log.error("job %s: resize tick: %s", self.fullname, e)
+            return None
 
     def _maybe_detect_stragglers(self, stats: Dict[int, dict]) -> None:
         """Straggler tick: aggregate per-host step/phase heartbeats,
@@ -850,6 +886,231 @@ class TrainingJob:
         self._teardown_gang("gang restart")
         return "restarted"
 
+    # ------------------------------------------------------------ resize
+
+    def current_dp(self) -> int:
+        """The gang's CURRENT data-parallel degree in nodes: the last
+        resize's target when one happened, else the gpu block's node
+        count."""
+        if self.status.dp_degree > 0:
+            return self.status.dp_degree
+        return self.job.spec.num_nodes()
+
+    def _elastic_resizer(self):
+        """The pure decision core, built lazily from ``spec.elastic``
+        (docs/ELASTIC.md) on the reconciler's injected clock."""
+        el = self.job.spec.elastic
+        if el is None or self.job.spec.gpu is None:
+            return None
+        if self._resizer is None:
+            from k8s_tpu_torch.resize import ElasticResizer
+
+            lo, hi = el.bounds(self.job.spec.num_nodes())
+            self._resizer = ElasticResizer(
+                lo, hi,
+                dead_after_s=el.dead_after_seconds,
+                grow_hold_s=el.grow_hold_seconds,
+                cooldown_s=el.cooldown_seconds,
+                resize_on_permanent_loss=el.resize_on_permanent_loss,
+                clock=self.clock,
+            )
+        return self._resizer
+
+    def _attainable_nodes(self) -> Optional[int]:
+        """Nodes this job could hold right now (held + pool free) per
+        the cluster scheduler's inventory; None without a scheduler —
+        the inventory shrink/grow triggers are then disabled and only
+        dead-heartbeat shrink fires."""
+        if self.capacity_fn is None:
+            return None
+        try:
+            return self.capacity_fn()
+        except Exception as e:
+            log.warning("job %s: capacity view: %s", self.fullname, e)
+            return None
+
+    def _resize_budget_left(self) -> int:
+        return self.job.spec.max_gang_restarts - self.status.gang_restarts
+
+    def _maybe_resize(self, stats: Optional[Dict[int, dict]]
+                      ) -> Optional[str]:
+        """The obs tick's resize check: feed the decision core the
+        heartbeat sweep + the inventory view and act on the verdict.
+        Runs only in RUNNING phase — a gang mid-restart or mid-resize
+        has no heartbeats worth judging."""
+        resizer = self._elastic_resizer()
+        if resizer is None or self.status.phase != TpuJobPhase.RUNNING:
+            return None
+        wset = self._worker_set()
+        hosts = (wset.spec.replicas or 0) if wset is not None else 0
+        verdict = resizer.observe(
+            dp=self.current_dp(), hosts=hosts, stats=stats,
+            attainable=self._attainable_nodes(),
+            budget_left=self._resize_budget_left(),
+            health=self._freshest_health(stats),
+        )
+        return self._act_on_resize(verdict)
+
+    @staticmethod
+    def _freshest_health(stats: Optional[Dict[int, dict]]
+                         ) -> Optional[dict]:
+        """The newest ``step_health`` block off a heartbeat sweep (the
+        values are global/replicated — any host's copy is
+        authoritative); None when no host carried one."""
+        blocks = [hb.get("health") for hb in (stats or {}).values()
+                  if isinstance(hb, dict)
+                  and isinstance(hb.get("health"), dict)]
+        if not blocks:
+            return None
+        return max(blocks, key=lambda b: int(b.get("step", -1) or -1))
+
+    def _resize_instead_of_restart(self) -> Optional[str]:
+        """The gang-restart pre-check: with pods already degraded AND
+        the inventory reporting the capacity gone for good, route the
+        recovery through shrink (the inventory trigger is decisive —
+        no dead-heartbeat window to wait out)."""
+        el = self.job.spec.elastic
+        resizer = self._elastic_resizer()
+        if resizer is None or el is None or not el.resize_on_permanent_loss:
+            return None
+        attainable = self._attainable_nodes()
+        dp = self.current_dp()
+        if attainable is None or attainable >= dp:
+            return None  # capacity intact: restore in place as always
+        wset = self._worker_set()
+        hosts = (wset.spec.replicas or 0) if wset is not None else 0
+        verdict = resizer.observe(
+            dp=dp, hosts=hosts, stats=self._last_worker_stats,
+            attainable=attainable,
+            budget_left=self._resize_budget_left(),
+            # the NaN-crash-plus-revocation case: the degraded-path
+            # shrink must carry the health-gated restore ceiling too,
+            # off the freshest sweep we have (a NaN step is never the
+            # resize restore point on ANY path)
+            health=self._freshest_health(self._last_worker_stats),
+        )
+        return self._act_on_resize(verdict)
+
+    def _act_on_resize(self, verdict) -> Optional[str]:
+        if verdict is None or verdict.action is None:
+            return None
+        if verdict.action == "exhausted":
+            self.status.reason = (
+                f"gang resize budget exhausted "
+                f"({self.job.spec.max_gang_restarts}): {verdict.reason}")
+            # the alive-but-unplaceable remainder must stop burning the
+            # reservation — same contract as the divergence exhaustion
+            self._teardown_gang("resize budget-exhausted")
+            return "exhausted"
+        return self._begin_resize(verdict)
+
+    def _begin_resize(self, verdict) -> Optional[str]:
+        """Drive one resize: ledger re-charge first (atomically frees /
+        re-charges nodes — a grow the fleet cannot back is refused
+        BEFORE anything is torn down), then the budget-counted
+        flush-teardown and the ``Resizing`` transition. The recreated
+        gang re-derives its mesh/ZeRO layouts from the new world size
+        and the restore planner re-plans across the survivors' + the
+        flushed shards (union_covering_plan, docs/CHECKPOINT.md)."""
+        from k8s_tpu_torch.controller import metrics
+
+        old = self.current_dp()
+        target = int(verdict.target_dp)
+        direction = "shrink" if target < old else "grow"
+        if self.status.gang_restarts >= self.job.spec.max_gang_restarts:
+            self.status.reason = (
+                f"gang resize budget exhausted "
+                f"({self.job.spec.max_gang_restarts}) before "
+                f"DP={old} -> DP={target}")
+            self._teardown_gang("resize budget-exhausted")
+            return "exhausted"
+        if self.on_resize is not None:
+            try:
+                ok = self.on_resize(self, old, target,
+                                    getattr(verdict, "trigger", ""))
+            except Exception as e:
+                log.error("job %s: resize ledger callback: %s",
+                          self.fullname, e)
+                ok = False
+            if not ok:
+                # the ledger refused (a grow raced away, the pool is
+                # gone entirely): keep the current shape — the next
+                # tick re-decides against the fresh inventory
+                log.warning(
+                    "job %s: resize DP=%d -> DP=%d refused by the "
+                    "scheduler ledger; keeping shape", self.fullname,
+                    old, target)
+                return None
+        # budget + spacing bookkeeping, exactly the divergence-restart
+        # contract: a fleet that keeps losing nodes must eventually
+        # fail the job, not resize forever
+        self.status.gang_restarts += 1
+        bo = self.restart_backoff()
+        next_delay = bo.note_failure()
+        self.restart_history.append((self.clock(), next_delay))
+        metrics.GANG_RESTART_BACKOFF.set(next_delay, {"job": self.fullname})
+        ceiling_note = ""
+        if verdict.restore_ceiling is not None:
+            # health gate (docs/OBSERVABILITY.md "Training health"):
+            # the freshest numerics are poisoned — the resized gang
+            # carries KTPU_CKPT_RESTORE_MAX_STEP so a NaN step is never
+            # the resize restore point
+            self.restore_ceiling = int(verdict.restore_ceiling)
+            ceiling_note = (f"; restore ceiling = step "
+                            f"{self.restore_ceiling} (last healthy)")
+        cost = self.preemption_cost() if direction == "shrink" else 0
+        reason = (
+            f"DP={old} -> DP={target}: {verdict.reason} "
+            f"(resize {self.status.gang_restarts}/"
+            f"{self.job.spec.max_gang_restarts}, ~{cost} steps since the "
+            f"last checkpoint at stake{ceiling_note})")
+        metrics.RESIZE_TOTAL.inc(
+            {"job": self.fullname, "direction": direction})
+        if cost > 0:
+            metrics.RESIZE_LOST_STEPS.inc(
+                {"job": self.fullname}, by=float(cost))
+        self.status.append_condition("GangResized", reason=reason)
+        log.warning("job %s: gang resize: %s", self.fullname, reason)
+        self._record_event(
+            "GangResized", reason,
+            etype="Warning" if direction == "shrink" else "Normal")
+        # flush-teardown: deleting the gang's Jobs/Pods SIGTERMs every
+        # surviving process, and the launcher's preemption handler +
+        # the program's preemption check flush a forced two-tier save at the
+        # current step (health-gated in-process) inside the grace
+        # window — the contract preemption already rides
+        self._teardown_gang("elastic resize")
+        self.status.dp_degree = target
+        metrics.RESIZE_DP.set(float(target), {"job": self.fullname})
+        self._apply_dp_to_replicas(target)
+        resizer = self._elastic_resizer()
+        if resizer is not None:
+            resizer.note_resized(target)
+        # the host set changed: stale per-host episodes must not carry
+        # into the new world (the health monitor handles the restored
+        # step regression itself)
+        self._straggler_detector = None
+        self.status.phase = TpuJobPhase.RESIZING
+        self.status.state = TpuJobState.RUNNING
+        return "resizing"
+
+    def _apply_dp_to_replicas(self, dp: int, sets_exist: bool = True
+                              ) -> None:
+        """Re-point the WORKER width at ``dp`` nodes (``cards_per_node ×
+        dp`` pods, one per card) — both views: the job spec (persisted
+        by the next status write) and the live replica-set spec
+        (create/snapshot/rendezvous read it)."""
+        gpu = self.job.spec.gpu
+        t = gpu.topology() if gpu is not None else None
+        hosts = (t.cards_per_node if t is not None else 1) * max(1, int(dp))
+        w = self.job.spec.replica_spec(WORKER)
+        if w is not None:
+            w.replicas = hosts
+        if sets_exist:
+            wset = self._worker_set()
+            if wset is not None:
+                wset.spec.replicas = hosts
+
     def _record_event(self, reason: str, message: str,
                       etype: str = "Normal") -> None:
         """Best-effort event write: a transient apiserver error must
@@ -911,7 +1172,8 @@ class TrainingJob:
                 log.error("job %s: delete resources: %s", self.fullname, e)
             return
 
-        if self.status.phase in (TpuJobPhase.CREATING, TpuJobPhase.RUNNING):
+        if self.status.phase in (TpuJobPhase.CREATING, TpuJobPhase.RUNNING,
+                                 TpuJobPhase.RESIZING):
             try:
                 self.create_resources(config)
             except Exception as e:
@@ -933,8 +1195,10 @@ class TrainingJob:
             # 1 on all workers with no retryable index and still fails.
             if state in (TpuJobState.RUNNING, TpuJobState.FAILED):
                 gang = self._maybe_gang_restart(snaps)
-                if gang == "restarted":
-                    # next tick recreates the gang same-shape
+                if gang in ("restarted", "resizing"):
+                    # restart: next tick recreates the gang same-shape;
+                    # resizing: next tick materializes the new DP
+                    # degree's footprint (phase already RESIZING)
                     self.update_crd_status()
                     return
                 if gang == "backoff":
@@ -960,13 +1224,14 @@ class TrainingJob:
                     # observability is best-effort — it must never take
                     # down the reconcile tick
                     log.error("job %s: obs tick: %s", self.fullname, e)
-                if action == "restarted":
+                if action in ("restarted", "resizing"):
                     # divergence restart: next tick recreates the gang
-                    # with the restore ceiling env
+                    # with the restore ceiling env; resizing: next tick
+                    # materializes the new DP degree's footprint
                     self.update_crd_status()
                     return
                 if action in ("halt", "exhausted"):
-                    # health verdict says stop: status.reason set
+                    # health/resize verdict says stop: status.reason set
                     state = TpuJobState.FAILED
             self.status.replica_statuses = replica_statuses
             if state == TpuJobState.FAILED:
@@ -975,7 +1240,8 @@ class TrainingJob:
             elif state == TpuJobState.SUCCEEDED:
                 self.status.phase = TpuJobPhase.DONE
                 self.status.state = TpuJobState.SUCCEEDED
-            elif self.status.phase == TpuJobPhase.CREATING \
+            elif self.status.phase in (TpuJobPhase.CREATING,
+                                       TpuJobPhase.RESIZING) \
                     and state == TpuJobState.RUNNING:
                 running = any(
                     rs.state == ReplicaState.RUNNING for rs in replica_statuses
@@ -1041,8 +1307,10 @@ class TrainingJob:
         self.send(_EVENT_PREEMPT)
 
     def nudge(self) -> None:
-        """Ask for an immediate reconcile tick (the controller's answer
-        to a change of one of this job's Pods or batch Jobs)."""
+        """Ask for an immediate reconcile tick: the controller's answer
+        to a change of one of this job's Pods or batch Jobs, and the
+        capacity-return tick (a freed node should reach a shrunken
+        elastic gang's grow decision now, not next interval)."""
         self.send(_EVENT_NUDGE)
 
     def preemption_cost(self) -> int:
@@ -1205,7 +1473,7 @@ class TrainingJob:
         """The event-driven requeue policy — what replaces the fixed
         ticker. Transitional phases poll fast (pod transitions also
         kick via the informer); jobs with genuine periodic needs
-        (obs sweeps) keep the
+        (obs sweeps, elastic windows) keep the
         reconcile_interval cadence; a quiescent RUNNING job costs
         nothing until the slow resync backstop. A restart held by the
         gang backoff requeues exactly when the hold expires."""
@@ -1216,7 +1484,7 @@ class TrainingJob:
         interval = self._interval
         phase = self.status.phase
         if phase in (TpuJobPhase.NONE, TpuJobPhase.QUEUED,
-                     TpuJobPhase.CREATING):
+                     TpuJobPhase.CREATING, TpuJobPhase.RESIZING):
             return min(interval, 1.0)
         if phase == TpuJobPhase.CLEANUP:
             return interval
@@ -1229,6 +1497,7 @@ class TrainingJob:
             return min(interval, 1.0)
         spec = self.job.spec
         needs_poll = (spec.observability is not None
+                      or spec.elastic is not None
                       or self.worker_stats_fetcher is not None)
         if needs_poll:
             return interval

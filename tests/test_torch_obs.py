@@ -281,7 +281,10 @@ def test_port_series_are_documented():
                     "ktpu_sched_slices_free", "ktpu_sched_preempt_lost_steps_total",
                     "ktpu_sched_tick_seconds", "ktpu_sched_backfill_total",
                     "ktpu_sched_fragmentation", "ktpu_sched_contiguity_hit_rate",
-                    "ktpu_sched_kicks_total", "ktpu_sched_kicks_coalesced_total"}
+                    "ktpu_sched_kicks_total", "ktpu_sched_kicks_coalesced_total",
+                    # the elastic resize's series (the reconciler)
+                    "ktpu_resize_total", "ktpu_resize_lost_steps_total",
+                    "ktpu_resize_dp_degree"}
     assert ours <= jax_lint.documented_series()
 
 

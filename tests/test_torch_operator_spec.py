@@ -9,11 +9,13 @@ Tolerance: exact equality, except the differences each test lists.
   derives, the defaulted image, and the default launcher module. The
   manifests with a ``tpu:`` block are compared with a GPU block in its
   place; the port refuses them as written, and refuses the serving
-  manifests and the ``elastic:`` block with their ROADMAP items.
+  manifests with their ROADMAP item. The ``elastic:`` block validates
+  and defaults alike on a ``gpu:`` block (its DP degree in nodes).
 - Admission: the ``llama_train`` options the port's program refuses
-  fail at validation, one test each (ROADMAP A5.4, A7, A8, A9, A10,
-  A13), and so do the features of later operator slices at controller
-  start (A12.6, A12.7, and a fleet keyed by a TPU slice type).
+  fail at validation, one test each (ROADMAP A7, A8, A9, A10, A13), and
+  so do the features of later operator slices at controller start
+  (A12.6, A12.7, and a fleet keyed by a TPU slice type). ZeRO stages on
+  several nodes (ZeRO on the HSDP mesh) are admitted.
 - Materializer: the Services, Jobs, pod templates and ConfigMaps that
   ``TpuReplicaSet.create`` writes for one job, object by object; and no
   object the port writes names the JAX package, over every manifest.
@@ -54,14 +56,14 @@ PORT_EXAMPLES = REPO / "k8s_tpu_torch" / "examples"
 
 AS_WRITTEN = ["tpu_job.yaml", "tpu_job_cpu_smoke.yaml", "tpu_job_defaults.yaml"]
 # the GPU block that takes each TPU block's place: the same WORKER count
-# where one node holds it (v5e-8: 1 host, v5e-16: 4 hosts); the 32 hosts
-# of 2 x v5p-128 become one 8-card node (32 cards would span 4 nodes,
-# where the manifest's zeroStage 2 is ROADMAP A5.4)
+# where one node holds it (v5e-8: 1 host, v5e-16: 4 hosts); the 2 slices
+# of 32 hosts of 2 x v5p-128 become 2 nodes of 8 cards, the DP degree of
+# its elastic block
 GPU_FOR = {
     "tpu_job_llama_generate.yaml": {"accelerator": "h100-80gb", "numCards": 1},
     "tpu_job_tensorboard_gcs.yaml": {"accelerator": "h100-80gb", "numCards": 4},
     "tpu_job_v5e_mnist.yaml": {"accelerator": "h100-80gb", "numCards": 1},
-    "tpu_job_multislice_llama.yaml": {"accelerator": "h100-80gb", "numCards": 8},
+    "tpu_job_multislice_llama.yaml": {"accelerator": "h100-80gb", "numCards": 16},
 }
 JAX_LAUNCHER = ["python", "-m", "k8s_tpu.launcher.spmd_launcher"]
 PORT_LAUNCHER = ["python", "-m", "k8s_tpu_torch.launcher.spmd_launcher"]
@@ -73,13 +75,12 @@ def _doc(name):
 
 def _gpu_doc(name):
     """The manifest with the GPU block in place of its tpu: block; the
-    multislice one also without its elastic: block and the latency
-    hiding of its training block (ROADMAP A12.4 and A13, refused below)."""
+    multislice one also without the latency hiding of its training
+    block (ROADMAP A13, refused below)."""
     doc = _doc(name)
     del doc["spec"]["tpu"]
     doc["spec"]["gpu"] = dict(GPU_FOR[name])
     if name == "tpu_job_multislice_llama.yaml":
-        del doc["spec"]["elastic"]
         del doc["spec"]["training"]["latencyHiding"]
     return doc
 
@@ -157,7 +158,6 @@ def test_examples_as_written_default_alike(name):
 def test_examples_with_a_gpu_block_default_alike(name):
     jax_doc = _doc(name)
     if name == "tpu_job_multislice_llama.yaml":
-        del jax_doc["spec"]["elastic"]
         del jax_doc["spec"]["training"]["latencyHiding"]
     jax_d, port_d = _check_listed(name, jax_doc, _gpu_doc(name))
     assert port_d["spec"]["gpu"] == {**GPU_FOR[name]}
@@ -166,10 +166,7 @@ def test_examples_with_a_gpu_block_default_alike(name):
 
 @pytest.mark.parametrize("name", sorted(GPU_FOR))
 def test_port_refuses_the_tpu_block_naming_the_gpu_block(name):
-    doc = _doc(name)
-    if name == "tpu_job_multislice_llama.yaml":
-        del doc["spec"]["elastic"]
-    job = PS.TpuJob.from_dict(doc)
+    job = PS.TpuJob.from_dict(_doc(name))
     job.spec.set_defaults()
     with pytest.raises(PS.ValidationError, match=r"tpu: block.*gpu: block"):
         job.spec.validate()
@@ -188,13 +185,29 @@ def test_serving_manifests_refused_with_their_roadmap_item(name, what):
 
 
 def test_elastic_block_refused_with_its_roadmap_item():
-    for doc in (_doc("tpu_job_multislice_llama.yaml"),
-                {**_gpu_doc("tpu_job_multislice_llama.yaml")}):
-        doc["spec"]["elastic"] = {"minDpDegree": 1, "maxDpDegree": 2}
-        job = PS.TpuJob.from_dict(doc)
-        job.spec.set_defaults()
-        with pytest.raises(PS.NotPortedError, match=r"elastic.*ROADMAP A12\.4"):
-            job.spec.validate()
+    """The elastic block runs now: on the GPU block it validates with the
+    DP degree counted in nodes (the multislice manifest's [1, 2] around
+    its 2 nodes), defaults alike with the JAX block, and is refused only
+    where its node range cannot hold the job or without a gpu block."""
+    doc = _gpu_doc("tpu_job_multislice_llama.yaml")
+    job = PS.TpuJob.from_dict(copy.deepcopy(doc))
+    job.spec.set_defaults()
+    job.spec.validate()
+    jax_el = JS.TpuJob.from_dict(_doc("tpu_job_multislice_llama.yaml"))
+    jax_el.spec.set_defaults()
+    assert job.spec.elastic.to_dict() == jax_el.spec.elastic.to_dict()
+    assert job.spec.num_nodes() == 2
+    # 4 nodes outside [1, 2]; no gpu block to count nodes of
+    doc["spec"]["gpu"]["numCards"] = 32
+    job = PS.TpuJob.from_dict(copy.deepcopy(doc))
+    job.spec.set_defaults()
+    with pytest.raises(PS.ValidationError, match=r"elastic: need minDpDegree"):
+        job.spec.validate()
+    del doc["spec"]["gpu"]
+    job = PS.TpuJob.from_dict(doc)
+    job.spec.set_defaults()
+    with pytest.raises(PS.ValidationError, match=r"elastic: resize needs a gpu"):
+        job.spec.validate()
 
 
 # -- admission: what the port's llama_train refuses --------------------------
@@ -221,22 +234,25 @@ def test_zero_on_several_nodes_under_fsdp_refused_a5_4(strategy, stage_from):
     if stage_from == "flag":
         args += " --zero_stage=2"
         training = None
-    # 16 cards of 8-card nodes: 2 nodes, the data axis of an HSDP mesh
-    with pytest.raises(PS.NotPortedError, match=r"2 nodes.*ROADMAP A5\.4"):
-        _llama_gpu(16, args, training).spec.validate()
-    # one node, or the dp strategy, or ZeRO off: accepted
+    # 16 cards of 8-card nodes: 2 nodes, the data axis of an HSDP mesh —
+    # ZeRO on it runs (it was refused until it did)
+    _llama_gpu(16, args, training).spec.validate()
+    # one node, or the dp strategy, or ZeRO off: accepted as before
     _llama_gpu(8, args, training).spec.validate()
     _llama_gpu(16, "--model=llama3-8b --strategy=dp --zero_stage=2").spec.validate()
     _llama_gpu(16, f"--model=llama3-8b --strategy={strategy}").spec.validate()
 
 
 def test_multislice_manifest_on_32_cards_refused_a5_4():
+    """zeroStage 2 on 4 nodes is admitted now (ZeRO on HSDP), its
+    elastic range widened to hold the 4 nodes."""
     doc = _gpu_doc("tpu_job_multislice_llama.yaml")
     doc["spec"]["gpu"]["numCards"] = 32
+    doc["spec"]["elastic"]["maxDpDegree"] = 4
     job = PS.TpuJob.from_dict(doc)
     job.spec.set_defaults()
-    with pytest.raises(PS.NotPortedError, match=r"zeroStage 2 with 4 nodes.*A5\.4"):
-        job.spec.validate()
+    job.spec.validate()
+    assert job.spec.training.zero_stage == 2 and job.spec.num_nodes() == 4
 
 
 @pytest.mark.parametrize("strategy,item", [

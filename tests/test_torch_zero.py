@@ -273,13 +273,14 @@ def test_per_rank_bytes(ranks, name):
 @pytest.mark.parametrize("name", ["dp-zero0", "dp-zero1", "dp-zero2", "dp-zero3"])
 def test_collectives_per_step(ranks, name):
     """One step's collectives by phase. Every stage: one all-reduce of
-    the whole gradients (a flat bucket: the tiny model's fit one), stages
-    2-3 of the unsliced leaves' only, and one more of the loss with the
-    shards' health sums. Stages 1-3: no all-gather inside the backward;
-    stages 2-3 reduce-scatter each sliced leaf's gradient there; 1-2
-    all-gather every slice after the update, 3 gathers its selected
-    leaves in the forward instead (the forward is outside the backward
-    here, so both count as "other")."""
+    the unsliced gradients (a flat bucket: the tiny model's fit one; at
+    stage 0 every gradient), and one more of the loss with the shards'
+    health sums. Stages 1-3: no all-gather inside the backward; each
+    sliced leaf's gradient is reduce-scattered into its piece, at stage 1
+    after the backward, at stages 2-3 inside it; 1-2 all-gather every
+    slice after the update, 3 gathers its selected leaves in the forward
+    instead (the forward is outside the backward here, so both count as
+    "other")."""
     got = ranks[0][name]["collectives"]
     assert ranks[1][name]["collectives"] == got
     sliced = 2 * 7 + 2  # the rank-2 leaves
@@ -290,8 +291,10 @@ def test_collectives_per_step(ranks, name):
         return
     ag = got.get("all_gather_into_tensor:other", 0)
     rs = got.get("reduce_scatter_tensor:backward", 0)
+    rs_after = got.get("reduce_scatter_tensor:other", 0)
     ar = got.get("all_reduce:other", 0)
-    assert (ag, rs, ar) == (sliced, sliced if stage >= 2 else 0, 2)
+    assert (ag, rs, rs_after, ar) == (sliced, sliced if stage >= 2 else 0,
+                                      sliced if stage == 1 else 0, 2)
 
 
 @pytest.mark.parametrize("name", NAMES)
