@@ -106,6 +106,23 @@ order:
   checked against a teacher-forced forward of the same int8 model, the
   compiled chunk checked and timed as above (cache scales included),
   and the bf16 model of the same seed compared for information.
+- ResNet-50 (``resnet``), the headline workload: the tiny ResNet with
+  the same weights on the card and on the CPU (logits and running stats
+  within the CPU tests' bf16 limits); ``programs.resnet_train`` through
+  the launcher's API in process at ``bench.py``'s shape (batch 256,
+  224², conv7 stem, bf16, SGD with Nesterov momentum, one fixed
+  synthetic batch), 5 warm-up steps then 20 timed: step ms, images/s,
+  MFU, peak memory, the losses falling, one profiled step's device ms
+  of the convolutions, BN, the optimizer and the rest, and the step
+  with BN's plain f32 ops (its CPU path) beside PyTorch's fused BN
+  pieces; then 12 record-fed steps (two shards of 224² uint8 images
+  through the native loader, built by g++ at first use, and the device
+  prefetch) with the data wait per step beside the step time; K1-K5
+  launch 0 times on this path (checked);
+- the operator with MNIST (``mnist_operator``): a one-step TpuJob of
+  ``programs.mnist_train`` through the local operator on the card, as
+  ``bench.py --metric startup`` runs the JAX program's: create -> pod
+  Running -> first step -> ``Succeeded``, beside the llama child's.
 
 Before the first K1 check, every SM's shared memory is filled with NaN
 words (``poison_shared_memory``, ROADMAP C4), so that check's launch
@@ -229,6 +246,21 @@ CKPT_LOCAL_EVERY, CKPT_SAVE_BUFFER_BYTES, CKPT_GRACE_S = 1000, 24 << 30, 30
 # deadline of every wait
 OPERATOR_STEPS, OPERATOR_TERM_STEPS, OPERATOR_OBS_PORT = 6, 5, 8790
 OPERATOR_DEADLINE_S = 300
+# ResNet-50 at bench.py's shape (batch 256 at 224², conv7 stem, bf16,
+# SGD with Nesterov momentum): 5 warm-up steps, then 20 timed; the
+# record-fed run loops over 1024 uint8 images (154 MB) in two shards
+RESNET_BATCH, RESNET_WARMUP, RESNET_TIMED = 256, 5, 20
+RESNET_RECORDS, RESNET_RECORD_STEPS = 1024, 12
+# the tiny ResNet on the card against the CPU (tiny_resnet_card_vs_cpu)
+# from these seeds: per config the largest error allowed on the logits
+# (of the largest logit, at least 1), on the running stats (absolute) and
+# on a gradient (relative L2; a BN scale's or bias's sum cancels, so its
+# relative error is the largest). Set from the errors the card showed on
+# these seeds (PERF.md §6), with 3-20x headroom
+RESNET_CARD_SEEDS = range(6)
+RESNET_CARD_TOL = {"f32": {"logits": 1e-5, "stats": 2e-6, "grads": 1e-2},
+                   "bf16": {"logits": 1e-2, "stats": 1e-4, "grads": 2e-1}}
+MNIST_OPERATOR_DEADLINE_S = 180
 # the operator_rest phase: (r2)'s job trains this many steps (~0.87 s
 # each) so that it outlasts the leader's 15 s lease, the standby's 3 s
 # retry and its adoption after the leader is killed at the first step
@@ -2576,10 +2608,12 @@ def operator_child_args():
             "--data=learnable")
 
 
-def _operator_job(name, args, obs=True, priority=None, local_dir=None):
+def _operator_job(name, args, obs=True, priority=None, local_dir=None,
+                  program="llama_train"):
     """A TpuJob of one WORKER on one card (the gpu block of a one-card
-    node: ``nvidia.com/gpu: 1``), running ``llama_train`` with ``args``
-    and one gang restart allowed; with ``obs`` an obs port (its
+    node: ``nvidia.com/gpu: 1``), running ``program`` (a module of
+    ``k8s_tpu_torch.programs``) with ``args`` and one gang restart
+    allowed; with ``obs`` an obs port (its
     heartbeats are read on this machine's loopback, which only the
     in-process ``LocalWorld`` resolves); with ``priority`` a scheduling
     block (preemptible); with ``local_dir`` the local checkpoint tier
@@ -2594,7 +2628,7 @@ def _operator_job(name, args, obs=True, priority=None, local_dir=None):
                 "name": "jax", "image": "local",
                 "command": ["python", "-m", "k8s_tpu_torch.launcher.spmd_launcher"],
                 "env": [{"name": "KTPU_PROGRAM",
-                         "value": "k8s_tpu_torch.programs.llama_train:main"},
+                         "value": f"k8s_tpu_torch.programs.{program}:main"},
                         {"name": "KTPU_PROGRAM_ARGS", "value": args}]}]}}}],
     }
     if obs:
@@ -3487,6 +3521,384 @@ def _phase_elastic(torch, card, sched_times, tmp):
     return {k: v + first_launches[k] for k, v in launches.items()}
 
 
+def kernel_launch_counts(attn) -> dict:
+    """K1-K5's launch counters, by kernel name."""
+    return {"flash_fwd": attn.flash_fwd.launches,
+            "flash_bwd_dq": attn.flash_bwd.launches_dq,
+            "flash_bwd_dkv": attn.flash_bwd.launches_dkv,
+            "decode_attn": attn.decode_attention_update.launches,
+            "decode_attn_q8": attn.decode_attention_update_q8.launches}
+
+
+def resnet_step_flops(torch, model, batch) -> float:
+    """One training step's FLOPs from the layer shapes of an eval-mode
+    forward of one image, times the batch: each convolution's and the
+    head's multiply-adds x 2, three times (the forward, the input gradient
+    and the weight gradient), but the stem's twice (the images need no
+    gradient)."""
+    from k8s_tpu_torch.models import resnet as rn
+
+    flops = []
+
+    def conv_hook(mod, inp, out):
+        cin, k = mod.weight.shape[1], mod.weight.shape[2]
+        passes = 2 if mod is model.conv_init else 3
+        flops.append(passes * 2.0 * out.shape[1] * cin * k * k
+                     * out.shape[2] * out.shape[3])
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, rn.Conv)]
+    from k8s_tpu_torch.programs.resnet_train import prep_images
+
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(prep_images(batch["images"][:1]))
+    finally:
+        model.train()
+        for h in hooks:
+            h.remove()
+    head = 3 * 2.0 * model.head.weight.numel()
+    return (sum(flops) + head) * batch["images"].shape[0]
+
+
+def tiny_resnet_card_vs_cpu(torch, dt: str, seed: int) -> dict:
+    """The tiny ResNet (stages (1, 1), 8 filters, 100 classes, 64², batch
+    8) with the same weights on the card and on the CPU, in the ``f32``
+    config (``dtype`` and ``norm_dtype`` f32, TF32 off) or the ``bf16``
+    one, every BN's scale and bias drawn at random (at init the third BN
+    of a block has scale 0, which hides bn_0-bn_2 and their backward from
+    the logits): one training step's forward and backward on both, the
+    card's BN through PyTorch's fused pieces, the CPU's through plain f32
+    ops. Returns the card's largest errors against the CPU: ``logits``
+    (over the largest CPU logit, at least 1), ``stats`` (the running
+    averages, absolute) and ``grads`` (relative L2, the worst parameter,
+    named in ``worst_grad``)."""
+    from k8s_tpu_torch.models import ResNet
+    from k8s_tpu_torch.models import resnet as rn
+    from k8s_tpu_torch.train import cross_entropy_loss
+
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    kw = dict(stage_sizes=(1, 1), num_classes=100, num_filters=8, dtype=dtype,
+              norm_dtype=dtype, seed=seed)
+    rng = np.random.default_rng(seed)
+    cpu = ResNet(device="cpu", **kw)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, rn.BatchNorm):
+                shape = m.scale.shape
+                m.scale.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, shape)))
+                m.bias.copy_(torch.from_numpy(rng.normal(0.0, 0.2, shape)))
+    dev = ResNet(device="cuda", **kw)
+    dev.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 3)).astype(np.float32))
+    x = x.permute(0, 3, 1, 2)
+    y = torch.from_numpy(rng.integers(0, 100, (8,)))
+
+    def step(model, x, y):
+        model.zero_grad(set_to_none=True)
+        logits = model(x)
+        cross_entropy_loss(logits, y).backward()
+        return (logits.detach().float().cpu(),
+                {n: b.detach().cpu() for n, b in model.named_buffers()},
+                {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref, ref_stats, ref_grads = step(cpu, x, y)
+        out, stats, grads = step(dev, x.cuda(), y.cuda())
+        channels_last = dev.conv_init(x.cuda()).is_contiguous(
+            memory_format=torch.channels_last)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    grad_err = {n: float((grads[n] - g).norm() / g.norm().clamp_min(1e-30))
+                for n, g in ref_grads.items()}
+    return {"finite": bool(torch.isfinite(out).all()),
+            "logits": float((out - ref).abs().max()) / max(1.0, float(ref.abs().max())),
+            "stats": max(float((stats[n] - b).abs().max()) for n, b in ref_stats.items()),
+            "grads": max(grad_err.values()),
+            "worst_grad": max(grad_err, key=grad_err.get),
+            "channels_last": channels_last}
+
+
+def _profile_resnet_step(torch, state, step_fn, batch):
+    """One more ResNet train step under torch.profiler: device time of the
+    convolutions (the kernels under ``aten::cudnn_convolution`` and
+    ``aten::convolution_backward``), of BatchNorm (under the forward's
+    ``batch_norm_fwd`` range, which this profile wraps around
+    ``BatchNorm.forward``, and the backward's ``_SyncBatchNormFnBackward``
+    node), of the optimizer and of the rest, and the device's busy share
+    of the step's wall."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from k8s_tpu_torch.models import resnet as rn
+
+    orig = rn.BatchNorm.forward
+
+    def bn_forward(self, x):
+        with record_function("batch_norm_fwd"):
+            return orig(self, x)
+
+    rn.BatchNorm.forward = bn_forward
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rn.BatchNorm.forward = orig
+    ranges = {e.name for e in prof.events()
+              if getattr(e, "is_user_annotation", False)}
+    kernels = [(e.key, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and e.key not in ranges and not e.key.startswith("Optimizer.")]
+    total = sum(t for _, t in kernels)
+    seen = set()
+
+    def under(match):
+        """Device ms of the kernels of the CPU events whose name
+        ``match`` accepts, and of their children (each event once)."""
+        ms = 0.0
+
+        def walk(ev):
+            nonlocal ms
+            if id(ev) in seen:
+                return
+            seen.add(id(ev))
+            ms += sum(k.duration for k in getattr(ev, "kernels", [])) / 1e3
+            for ch in ev.cpu_children:
+                walk(ch)
+
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CPU and match(ev.name):
+                walk(ev)
+        return ms
+
+    conv = under(lambda n: n.startswith(("aten::cudnn_convolution",
+                                         "aten::convolution_backward")))
+    bn = under(lambda n: n == "batch_norm_fwd" or "_SyncBatchNormFnBackward" in n)
+    opt = under(lambda n: n.startswith("Optimizer.step"))
+    top = sorted(kernels, key=lambda r: -r[1])
+    return {"step_wall_ms": wall_ms, "device_ms": total,
+            "device_busy_share": total / wall_ms if wall_ms else None,
+            "split_ms": {"conv": conv, "batch_norm": bn, "optimizer": opt,
+                         "rest": total - conv - bn - opt},
+            "top": [{"kernel": k[:120], "ms": t} for k, t in top[:12]]}
+
+
+def _plain_bn_step_ms(torch, state, step_fn, batch, warmup=2, reps=10):
+    """The same step with BatchNorm's plain f32 tensor ops (the CPU path)
+    on the card in place of PyTorch's fused BatchNorm pieces: ms per step
+    over ``reps`` steps after ``warmup``, ended by a loss readback, and
+    the device ms of BN in one profiled step."""
+    from k8s_tpu_torch.models import resnet as rn
+
+    fused = rn._fused_bn
+    rn._fused_bn = lambda x: False
+    try:
+        for _ in range(warmup):
+            step_fn(state, batch)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        bn_ms = _profile_resnet_step(torch, state, step_fn, batch)["split_ms"]["batch_norm"]
+    finally:
+        rn._fused_bn = fused
+    return {"step_ms": ms, "batch_norm_device_ms": bn_ms}
+
+
+def phase_resnet(torch, attn, card):
+    """ResNet-50, the headline workload, through the port's
+    ``programs.resnet_train`` (``Rendezvous`` of a dict env +
+    ``run_program``, in process):
+
+    - (a) the tiny ResNet with random BN scales on the card against the
+      CPU, in the f32 and the bf16 config, from each of
+      ``RESNET_CARD_SEEDS`` (:func:`tiny_resnet_card_vs_cpu`): logits,
+      running stats and gradients of one training step within
+      ``RESNET_CARD_TOL``;
+    - (b) ResNet-50 at ``bench.py``'s shape (batch 256, 224², conv7 stem,
+      bf16, SGD with Nesterov momentum) on one fixed synthetic batch: the
+      program's 5 warm-up steps, then 20 timed steps of its step function
+      ended by a loss readback (``bench.py``'s timing): step ms, images/s,
+      MFU against the dense bf16 peak (FLOPs from the layer shapes,
+      :func:`resnet_step_flops`), peak memory, the losses (finite and
+      falling) and one profiled step's device ms of the convolutions, BN,
+      the optimizer and the rest; then the step with BN's plain f32
+      tensor ops (its CPU path) for comparison;
+    - (c) a record-fed run: two shards of 224² uint8 images written to a
+      temporary directory, ``resnet_train --data_dir`` for 12 steps
+      through the native loader (built by g++ at its first use) and the
+      device prefetch, the data wait per step beside the step time.
+
+    K1-K5 launch no time here (the path has no Pallas kernel); their
+    counts are read before and after and printed."""
+    from k8s_tpu_torch.data.records import write_image_shards
+    from k8s_tpu_torch.launcher.spmd_launcher import Rendezvous, run_program
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    k0 = kernel_launch_counts(attn)
+
+    # (a) the card against the CPU
+    card_vs_cpu = {}
+    for dt, tol in RESNET_CARD_TOL.items():
+        runs = [tiny_resnet_card_vs_cpu(torch, dt, seed) for seed in RESNET_CARD_SEEDS]
+        worst = {k: max(r[k] for r in runs) for k in tol}
+        card_vs_cpu[dt] = {"worst": worst, "tol": tol, "per_seed": runs}
+        if not (all(r["finite"] and r["channels_last"] for r in runs)
+                and all(worst[k] <= tol[k] for k in tol)):
+            fail(f"resnet: tiny ResNet ({dt}) on the card vs the CPU: {runs} "
+                 f"(limits {tol})")
+
+    # (b) ResNet-50 at bench.py's shape
+    torch.cuda.reset_peak_memory_stats()
+    rdzv = Rendezvous({
+        "KTPU_PROGRAM": "k8s_tpu_torch.programs.resnet_train:main",
+        "KTPU_PROGRAM_ARGS": f"--batch_size={RESNET_BATCH} "
+                             f"--steps={RESNET_WARMUP} --log_every=1"})
+    if rdzv.device != "cuda":
+        fail(f"resnet: the rendezvous chose device {rdzv.device!r}")
+    t0 = time.perf_counter()
+    run = run_program(rdzv)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    state, step_fn, batch = run["state"], run["step_fn"], run["fixed_batch"]
+    t0 = time.perf_counter()
+    for _ in range(RESNET_TIMED):
+        state, metrics = step_fn(state, batch)
+    last_loss = float(metrics["loss"])
+    timed_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss in run["losses"]] + [last_loss]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"resnet: losses {losses} not finite and falling")
+    step_ms = 1e3 * timed_s / RESNET_TIMED
+    images_per_s = RESNET_BATCH / (step_ms / 1e3)
+    flops = resnet_step_flops(torch, state.model, batch)
+    profile = _profile_resnet_step(torch, state, step_fn, batch)
+    plain_bn = _plain_bn_step_ms(torch, state, step_fn, batch)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    del run, state, step_fn, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) record-fed steps through the native loader and the prefetch
+    tmp = tempfile.mkdtemp(prefix="ktpu-resnet-records-")
+    try:
+        rng = np.random.default_rng(0)
+        images = rng.integers(0, 256, (RESNET_RECORDS, 224, 224, 3), dtype=np.uint8)
+        labels = rng.integers(0, 1000, RESNET_RECORDS)
+        t0 = time.perf_counter()
+        write_image_shards(tmp, images, labels, num_shards=2)
+        write_s = time.perf_counter() - t0
+        written = tree_bytes(tmp)
+        DISK_WRITES.append(("resnet records", written))
+        del images
+        rec = run_program(Rendezvous({
+            "KTPU_PROGRAM": "k8s_tpu_torch.programs.resnet_train:main",
+            "KTPU_PROGRAM_ARGS": f"--batch_size={RESNET_BATCH} "
+                                 f"--steps={RESNET_RECORD_STEPS} --log_every=1 "
+                                 f"--data_dir={tmp}"}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec_losses = [loss for _, loss in rec["losses"]]
+    if len(rec_losses) != RESNET_RECORD_STEPS or not np.all(np.isfinite(rec_losses)):
+        fail(f"resnet: record-fed losses {rec_losses}")
+    wait_ms = [1e3 * t for t in rec["data_wait_s"]]
+    rec_step_ms = [1e3 * t for t in rec["step_s"]]
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1 = kernel_launch_counts(attn)
+    launches = {k: k1[k] - k0[k] for k in k0}
+    emit({"phase": "resnet", "model": "resnet50", "stem": "conv7",
+          "batch": RESNET_BATCH, "image_size": 224, "dtype": "bf16",
+          "optimizer": "SGD lr 0.1, momentum 0.9, Nesterov",
+          "path": "Rendezvous + run_program(resnet_train) (in process), "
+                  "then its step function",
+          "free_gb_before": free / 1e9, "card_vs_cpu_tiny": card_vs_cpu,
+          "n_params": n_params, "warmup_steps": RESNET_WARMUP,
+          "warmup_s": warmup_s, "timed_steps": RESNET_TIMED,
+          "step_ms": step_ms, "images_per_s": images_per_s,
+          "step_flops": flops,
+          "flops_count": "multiply-adds x 2 from the layer shapes, x 3 (forward, "
+                         "input and weight gradients), the stem conv x 2 (no "
+                         "input gradient)",
+          "mfu": flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+          "peak_mem_gb": peak / 1e9, "losses": losses,
+          "profiled_step": profile,
+          "plain_bn": dict(plain_bn, note="the same step with BN's plain f32 "
+                           "tensor ops (the CPU path) on the card"),
+          "records": {"images": RESNET_RECORDS, "shards": 2, "bytes": written,
+                      "write_s": write_s, "steps": RESNET_RECORD_STEPS,
+                      "losses": rec_losses, "data_wait_ms": wait_ms,
+                      "step_ms": rec_step_ms,
+                      "data_wait_ms_median_3_on": statistics.median(wait_ms[2:]),
+                      "step_ms_median_3_on": statistics.median(rec_step_ms[2:]),
+                      "first_step_note": "includes the loader's g++ build"},
+          "launches_k1_k5": launches,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if any(launches.values()):
+        fail(f"resnet: a Pallas-kernel port launched on the ResNet path: {launches}")
+    return launches
+
+
+def phase_mnist_operator(torch, card, llama_o1):
+    """A TpuJob of the port's ``mnist_train`` (one WORKER, one card, 1
+    step, as ``bench.py --metric startup`` runs the JAX program's)
+    through the port's operator in local mode (``LocalWorld`` with
+    subprocess pods) on the card: create -> pod Running -> first step
+    (the program's step-1 metrics line) -> ``Succeeded``, beside the
+    operator phase's llama child (``llama_o1``)."""
+    from k8s_tpu_torch import spec as S
+    from k8s_tpu_torch.tools.local_world import LocalWorld
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ktpu-mnist-operator-")
+    try:
+        world = LocalWorld(subprocess_pods=True, log_dir=tmp, reconcile_interval=0.1)
+        with world:
+            job = _operator_job("mnist-startup", "--steps=1 --batch_size=8 --log_every=1",
+                                obs=False, program="mnist_train")
+            run = OperatorRun(world, "mnist-startup", None, tmp, job=job)
+            t_step = run.wait_log(lambda t: '"run": "mnist"' in t, "first step",
+                                  timeout=MNIST_OPERATOR_DEADLINE_S)
+            done, t_done = run.wait_done(timeout=MNIST_OPERATOR_DEADLINE_S)
+            t_run = run.first("Pod", run.pod, "Running")
+            log = run.log()
+            if done.status.state != S.TpuJobState.SUCCEEDED or done.status.gang_restarts:
+                fail(f"mnist_operator: {done.status.state} after "
+                     f"{done.status.gang_restarts} restarts ({done.status.reason}); "
+                     f"log tail {log[-3000:]}")
+            line = [json.loads(ln) for ln in log.splitlines() if '"run": "mnist"' in ln]
+            if [m["step"] for m in line] != [1] or not np.isfinite(line[0]["loss"]):
+                fail(f"mnist_operator: the pod's metrics lines {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"create_to_running_s": t_run - run.t_create,
+           "running_to_first_step_s": t_step - t_run,
+           "first_step_to_succeeded_s": t_done - t_step,
+           "create_to_first_step_s": t_step - run.t_create,
+           "create_to_succeeded_s": t_done - run.t_create}
+    emit({"phase": "mnist_operator", "program": "k8s_tpu_torch.programs.mnist_train",
+          "steps": 1, "batch": 8, "state": done.status.state, "metrics": line[0],
+          **out,
+          "llama_child_create_to_first_step_s": (llama_o1 or {}).get(
+              "create_to_first_step_s"),
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return out
+
+
 def _profile_train_step(torch, run):
     """One more train step under torch.profiler: device time by kernel
     class (GEMMs outside the loss, K1, K2, K3, the fused CE, the
@@ -3595,8 +4007,8 @@ def main() -> None:
     import torch
 
     # ``--only=launcher`` / ``--only=operator`` / ``--only=operator_rest``
-    # / ``--only=sched`` / ``--only=elastic``: the build and that phase
-    # alone (a debugging aid;
+    # / ``--only=sched`` / ``--only=elastic`` / ``--only=resnet``: the
+    # build and that phase alone (a debugging aid;
     # it ends with a ``partial`` line, not the ``ok`` one)
     only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
 
@@ -3652,6 +4064,11 @@ def main() -> None:
         emit({"partial": only, "launches_elastic_pods":
               phase_elastic(torch, card, None)})
         return
+    if only == ["resnet"]:
+        # the ResNet-50 and MNIST-operator phases alone (a debugging aid)
+        emit({"partial": only, "launches_resnet": phase_resnet(torch, attn, card),
+              "mnist_operator": phase_mnist_operator(torch, card, None)})
+        return
     if only == ["train"]:
         # the training phases alone (a debugging aid, as above)
         attn.poison_shared_memory(torch.device("cuda"), attn.flash_smem_bytes("fwd", 1))
@@ -3684,6 +4101,8 @@ def main() -> None:
     sched, sched_times = phase_sched(torch, card)
     elastic = phase_elastic(torch, card, sched_times)
     serving_int8 = phase_serving_int8(torch, attn, card)
+    resnet = phase_resnet(torch, attn, card)
+    phase_mnist_operator(torch, card, o1)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
                 + train_fsdp["flash_fwd"] + train_fsdp_tp["flash_fwd"]
                 + serving_int8["flash_fwd"] + restored["flash_fwd"],
@@ -3709,6 +4128,8 @@ def main() -> None:
                 "launches_operator_rest_pods": operator_rest.get(name, 0),
                 "launches_sched_pods": sched.get(name, 0),
                 "launches_elastic_pods": elastic.get(name, 0),
+                # the ResNet-50 path runs none of K1-K5 (0, checked)
+                "launches_resnet": resnet.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -3,7 +3,8 @@
 Analogue of reference ``py/tf_job_client.py``: ``create_tf_job`` via
 the custom-objects API (:18-40) and the ``wait_for_job`` poll loop with
 timeout + status callback (:43-96) — here against the framework's CRD
-client (in-memory local mode; the REST backend is ROADMAP A12.2).
+client (the in-memory local mode, or the REST backend against an API
+server).
 PyYAML is imported only to parse a manifest, so the client runs where
 jobs are built as objects.
 """

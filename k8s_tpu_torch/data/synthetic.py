@@ -1,12 +1,40 @@
-"""Synthetic token batches (own copy of the token generators of
-``k8s_tpu/data/synthetic.py``; numpy on the host, no device work in the
-input path — the caller moves each batch to its device)."""
+"""Synthetic image and token batches (own copy of the generators of
+``k8s_tpu/data/synthetic.py``, the same numpy ``default_rng`` calls, so
+both packages yield identical arrays from one seed; numpy on the host,
+no device work in the input path — the caller moves each batch to its
+device)."""
 
 from __future__ import annotations
 
 from typing import Iterator
 
 import numpy as np
+
+
+def synthetic_image_batches(
+    batch_size: int,
+    image_size: int = 224,
+    num_classes: int = 1000,
+    seed: int = 0,
+) -> Iterator[dict]:
+    """One fixed batch of NHWC f32 normal images and int32 labels,
+    forever (pure-throughput benching)."""
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((batch_size, image_size, image_size, 3), np.float32)
+    labels = rng.integers(0, num_classes, (batch_size,), np.int32)
+    while True:
+        yield {"images": images, "labels": labels}
+
+
+def synthetic_mnist(batch_size: int, seed: int = 0) -> Iterator[dict]:
+    """Fresh ``[B, 28, 28, 1]`` f32 normal images and int32 labels of
+    10 classes, every batch."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {
+            "images": rng.standard_normal((batch_size, 28, 28, 1), np.float32),
+            "labels": rng.integers(0, 10, (batch_size,), np.int32),
+        }
 
 
 def synthetic_token_batches(

@@ -1,7 +1,8 @@
-"""Weights for the port's Llama: conversion from a flax param tree, and
-random initialization from a seed.
+"""Weights for the port's models: conversion from flax trees (the Llama,
+the ResNet with its batch stats, the MNIST CNN), and the Llama's random
+initialization from a seed.
 
-Both return a ``{name: tensor}`` dict keyed like
+The Llama's two return a ``{name: tensor}`` dict keyed like
 ``LlamaForCausalLM.named_parameters()``, for
 :meth:`~k8s_tpu_torch.models.llama.LlamaForCausalLM.load_params`.
 Projection weights keep the JAX package's ``[in, out]`` orientation,
@@ -137,4 +138,63 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
                                         generator=gen)
         out[name] = w.to(dtype)
         del w
+    return out
+
+
+def _conv_weight(kernel) -> torch.Tensor:
+    """A flax HWIO conv kernel as an OIHW tensor."""
+    return _to_torch(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def _bn(out: Dict[str, torch.Tensor], name: str, params: Mapping,
+        stats: Mapping) -> None:
+    out[name + ".scale"] = _to_torch(params["scale"])
+    out[name + ".bias"] = _to_torch(params["bias"])
+    out[name + ".mean"] = _to_torch(stats["mean"])
+    out[name + ".var"] = _to_torch(stats["var"])
+
+
+def _linear(out: Dict[str, torch.Tensor], name: str, params: Mapping) -> None:
+    """A flax Dense ``(in, out)`` kernel as a ``[out, in]`` weight, and
+    its bias."""
+    out[name + ".weight"] = _to_torch(np.asarray(params["kernel"]).T)
+    out[name + ".bias"] = _to_torch(params["bias"])
+
+
+def resnet_params_from_jax(params: Mapping,
+                           batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``ResNet``'s ``params`` and ``batch_stats`` trees (numpy)
+    -> the port's ``ResNet`` state dict (parameters and BN buffers), for
+    ``load_state_dict``: ``conv_init``, ``bn_init``,
+    ``BottleneckBlock_<i>/{Conv_0..2, BatchNorm_0..2, conv_proj,
+    norm_proj}`` and ``head`` become ``conv_init``, ``bn_init``,
+    ``blocks.<i>.{conv_0..2, bn_0..2, conv_proj, norm_proj}`` and
+    ``head``; HWIO kernels become OIHW."""
+    out = {"conv_init.weight": _conv_weight(params["conv_init"]["kernel"])}
+    _bn(out, "bn_init", params["bn_init"], batch_stats["bn_init"])
+    n = sum(1 for k in params if k.startswith("BottleneckBlock_"))
+    for i in range(n):
+        p, s = params[f"BottleneckBlock_{i}"], batch_stats[f"BottleneckBlock_{i}"]
+        pre = f"blocks.{i}."
+        for j in range(3):
+            out[pre + f"conv_{j}.weight"] = _conv_weight(p[f"Conv_{j}"]["kernel"])
+            _bn(out, pre + f"bn_{j}", p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"])
+        if "conv_proj" in p:
+            out[pre + "conv_proj.weight"] = _conv_weight(p["conv_proj"]["kernel"])
+            _bn(out, pre + "norm_proj", p["norm_proj"], s["norm_proj"])
+    _linear(out, "head", params["head"])
+    return out
+
+
+def mnist_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``MnistCNN``'s ``params`` tree (numpy) -> the port's state
+    dict: ``Conv_0``/``Conv_1`` (HWIO -> OIHW) and ``Dense_0``/``Dense_1``
+    (``(in, out)`` -> ``[out, in]``; the port flattens in flax's (h, w,
+    c) order, so ``Dense_0``'s rows need no permutation)."""
+    out = {}
+    for j in range(2):
+        conv = params[f"Conv_{j}"]
+        out[f"conv_{j}.weight"] = _conv_weight(conv["kernel"])
+        out[f"conv_{j}.bias"] = _to_torch(conv["bias"])
+        _linear(out, f"dense_{j}", params[f"Dense_{j}"])
     return out

@@ -81,8 +81,7 @@ multi-tier manager, whose goodput block also rides the obs heartbeat as
 Weights are random from seed 0 (f32 masters, bf16 compute), the same
 on every rank before the state is sharded. Options of later slices
 raise ``NotImplementedError`` naming their ROADMAP item: the
-``fsdp_tp_sp``, ``pp`` and ``pp_fsdp`` strategies, ZeRO on several
-slices under ``fsdp``/``fsdp_tp``, ``--latency_hiding``,
+``fsdp_tp_sp``, ``pp`` and ``pp_fsdp`` strategies, ``--latency_hiding``,
 ``--num_experts``, ``--quant``.
 
 The loop runs the JAX program's runtime: every step inside a

@@ -11,6 +11,8 @@ from k8s_tpu_torch.train.trainer_lib import (  # noqa: F401
     init_optimizer_state,
     load_state_tree,
     make_batch_sharder,
+    make_eval_step,
     make_train_step,
+    sgd,
     state_tree,
 )

@@ -6,9 +6,17 @@ over a :class:`TrainState` (step count, module, optimizer and, for a
 sharded state, its :class:`ShardedLayout`): forward and backward through
 ``loss_fn``, optional gradient accumulation over microbatches, the
 gradient sync of the state's strategy, one optimizer update, and
-optionally the in-step health block. The optimizer is :func:`adamw`,
-``optax.adamw(lr, weight_decay=0.1)``'s semantics in
-``torch.optim.AdamW``.
+optionally the in-step health block. The optimizer comes from the
+caller, as the JAX ``create_sharded_state`` takes an optax transform: a
+learning rate means :func:`adamw` (``optax.adamw(lr,
+weight_decay=0.1)``'s semantics in ``torch.optim.AdamW``, the Llama
+trainer's), or a function from the parameter list to an optimizer, e.g.
+``functools.partial(sgd, lr=0.1)`` (``optax.sgd(0.1, momentum=0.9,
+nesterov=True)``) or ``functools.partial(adamw, lr=1e-3,
+weight_decay=1e-4)`` (``optax.adamw(1e-3)``). A model's buffers are its
+batch statistics (the JAX ``TrainState.batch_stats``: the ResNet's BN
+running averages), updated in place by the training forward.
+:func:`make_eval_step` runs the model in eval mode without gradients.
 
 :func:`create_sharded_state` is the one place that lays the state out
 over a mesh (``parallel/mesh.py``), one process per card:
@@ -80,7 +88,7 @@ block over every shard), the same on every rank.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -98,6 +106,9 @@ from k8s_tpu_torch.parallel.sharding import (
 
 LossFn = Callable[["TrainState", Dict[str, torch.Tensor]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+# the optimizer of a state: AdamW's learning rate, or a function from the
+# parameter list to the optimizer
+OptimizerSpec = Union[float, Callable[[list], torch.optim.Optimizer]]
 
 
 @dataclasses.dataclass
@@ -125,14 +136,38 @@ def adamw(params, lr: float, weight_decay: float = 0.1) -> torch.optim.AdamW:
                              weight_decay=weight_decay, foreach=False)
 
 
-def create_train_state(model: nn.Module, lr: float,
-                       weight_decay: float = 0.1) -> TrainState:
+def sgd(params, lr: float, momentum: float = 0.9,
+        nesterov: bool = True) -> torch.optim.SGD:
+    """``optax.sgd(lr, momentum=momentum, nesterov=nesterov)``: the same
+    update (optax's trace starts at zeros, torch's momentum buffer at the
+    first gradient — the same first step), no weight decay, one tensor at
+    a time."""
+    return torch.optim.SGD(params, lr=lr, momentum=momentum,
+                           nesterov=nesterov, foreach=False)
+
+
+def _optimizer(spec: OptimizerSpec, params, weight_decay: float):
+    if callable(spec):
+        return spec(params)
+    return adamw(params, float(spec), weight_decay)
+
+
+def _trainable(model: nn.Module):
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
         raise ValueError("the model has no trainable parameters "
                          "(a decode config?)")
+    return params
+
+
+def create_train_state(model: nn.Module, optimizer: OptimizerSpec,
+                       weight_decay: float = 0.1) -> TrainState:
+    """One replica's state: ``optimizer`` is AdamW's learning rate (with
+    ``weight_decay``) or a function from the parameters to the
+    optimizer."""
+    params = _trainable(model)
     return TrainState(step=0, model=model,
-                      optimizer=adamw(params, lr, weight_decay))
+                      optimizer=_optimizer(optimizer, params, weight_decay))
 
 
 # ---------------------------------------------------------------------------
@@ -496,15 +531,26 @@ def _tensor_parallel_layout(model: nn.Module, mesh,
     model.use_tensor_parallel(mesh)
 
 
-def create_sharded_state(model: nn.Module, lr: float, mesh,
+def create_sharded_state(model: nn.Module, optimizer: OptimizerSpec, mesh,
                          rules: LogicalRules, zero_stage: int = 0,
                          zero3_min_leaf_size: int = 0,
                          zero3_leaves: Optional[Sequence[str]] = None,
                          weight_decay: float = 0.1) -> TrainState:
     """The state of ``model`` (its parameters loaded) laid out over
     ``mesh`` by ``rules`` (``LogicalRules.DP``, ``.FSDP`` or
-    ``.FSDP_TP``) and the ZeRO stage, with its optimizer. Every rank
-    calls it with the same parameters."""
+    ``.FSDP_TP``) and the ZeRO stage, with its optimizer (AdamW's
+    learning rate, or a function from the parameters to the optimizer).
+    Every rank calls it with the same parameters. The ZeRO ladder slices
+    AdamW's moments, so a stage above 0 takes AdamW's learning rate and
+    refuses an optimizer function (its state would be dropped). A
+    model with synchronized BatchNorm (``use_sync_batch_norm``) gets the
+    ``data`` group, so its statistics cover the global batch; it trains
+    under ``dp`` only."""
+    stage = int(zero_stage)
+    if stage > 0 and callable(optimizer):
+        raise ValueError(
+            f"zero_stage={stage} slices AdamW's moments: give AdamW's learning "
+            "rate, not an optimizer function (its state would be dropped)")
     sizes = mesh_shape(mesh)
     if any(sizes[a] != 1 for a in ("stage", "expert", "seq")):
         raise NotImplementedError(
@@ -520,8 +566,13 @@ def create_sharded_state(model: nn.Module, lr: float, mesh,
         raise ValueError(f"mesh {sizes} has a tensor axis that the rules "
                          "map no parameter to (train with FSDP_TP)")
     strategy = "fsdp_tp" if tensor else ("fsdp" if fsdp else "dp")
-    stage = int(zero_stage)
     layout = ShardedLayout(strategy, mesh, stage)
+    if hasattr(model, "use_sync_batch_norm"):
+        if strategy != "dp":
+            raise NotImplementedError(
+                f"a model with synchronized BatchNorm trains under dp only, "
+                f"not {strategy} (its statistics would cover one rank's rows)")
+        model.use_sync_batch_norm(layout.data_group)
     zero = stage >= 1 and sizes["data"] > 1
     if tensor:
         _tensor_parallel_layout(model, mesh, rules)
@@ -567,11 +618,8 @@ def create_sharded_state(model: nn.Module, lr: float, mesh,
             layout.hooks.append(model.register_forward_pre_hook(
                 layout._stage3_pre_forward(), prepend=True))
         layout.release_stage3()
-    params = [p for p in model.parameters() if p.requires_grad]
-    if not params:
-        raise ValueError("the model has no trainable parameters "
-                         "(a decode config?)")
-    opt = adamw(layout.optimizer_params(params), lr, weight_decay)
+    opt = _optimizer(optimizer, layout.optimizer_params(_trainable(model)),
+                     weight_decay)
     return TrainState(step=0, model=model, optimizer=opt, layout=layout)
 
 
@@ -603,30 +651,39 @@ def make_batch_sharder(mesh) -> Callable[[Dict], Dict]:
 
 
 def init_optimizer_state(state: TrainState) -> None:
-    """Create AdamW's per-parameter state as its first step would — a
-    float32 ``step`` scalar on the CPU, and ``exp_avg``/``exp_avg_sq``
-    zeros like the parameter — for every parameter that has none yet.
-    The first update is the same either way; a checkpoint template needs
-    the tensors before any step has run."""
+    """Create the optimizer's per-parameter state as its first step
+    would, for every parameter that has none yet: AdamW's float32
+    ``step`` scalar on the CPU and ``exp_avg``/``exp_avg_sq`` zeros like
+    the parameter; SGD's ``momentum_buffer`` zeros (its first step then
+    sets it to ``0.9 * 0 + g = g``, as torch's first step and optax's
+    trace do). The first update is the same either way; a checkpoint
+    template needs the tensors before any step has run."""
     opt = state.optimizer
+    adam = isinstance(opt, torch.optim.AdamW)
     for group in opt.param_groups:
+        if not adam and not group.get("momentum"):
+            continue  # plain SGD keeps no state
         for p in group["params"]:
             st = opt.state[p]
-            if not st:
+            if st:
+                continue
+            zeros = torch.zeros_like(p, memory_format=torch.preserve_format)
+            if adam:
                 st["step"] = torch.tensor(0.0, dtype=torch.float32)
-                st["exp_avg"] = torch.zeros_like(
-                    p, memory_format=torch.preserve_format)
-                st["exp_avg_sq"] = torch.zeros_like(
-                    p, memory_format=torch.preserve_format)
+                st["exp_avg"] = zeros
+                st["exp_avg_sq"] = torch.zeros_like(zeros)
+            else:
+                st["momentum_buffer"] = zeros
 
 
 def state_tree(state: TrainState) -> Dict[str, torch.Tensor]:
     """The state as the flat tree the checkpoint tiers save and restore:
     ``step`` (an int64 scalar), ``params/<name>`` (the model's
-    ``named_parameters`` names) and ``opt/<name>/{exp_avg,exp_avg_sq,
-    step}``. Every tensor but ``step`` IS the live state (a detached
-    view of it), so a restore into this tree updates the model and the
-    optimizer in place. A sharded leaf is a ``DTensor`` whose local
+    ``named_parameters`` names), ``batch_stats/<name>`` (its buffers:
+    BN running averages) and ``opt/<name>/{exp_avg,exp_avg_sq,step}``
+    (AdamW) or ``opt/<name>/momentum_buffer`` (SGD). Every tensor but
+    ``step`` IS the live state (a detached view of it), so a restore into
+    this tree updates the model and the optimizer in place. A sharded leaf is a ``DTensor`` whose local
     shard is this rank's live slice (FSDP2's parameters and moments; a
     ZeRO slice's moments, and its parameter at stage 3). Call
     :func:`init_optimizer_state` first on a state that has not stepped."""
@@ -645,9 +702,11 @@ def state_tree(state: TrainState) -> Dict[str, torch.Tensor]:
         names[id(z.piece)] = (name, z)
         tree[f"params/{name}"] = (lay.leaf_tensor(z, z.piece.detach())
                                   if z.stage3 else p.detach())
+    for name, b in state.model.named_buffers():
+        tree[f"batch_stats/{name}"] = b.detach()
     for q, st in state.optimizer.state.items():
         name, z = names[id(q)]
-        for key in ("exp_avg", "exp_avg_sq", "step"):
+        for key in ("exp_avg", "exp_avg_sq", "step", "momentum_buffer"):
             if key in st:
                 v = st[key]
                 tree[f"opt/{name}/{key}"] = (
@@ -760,6 +819,22 @@ def _split(batch: Dict[str, torch.Tensor], accum_steps: int):
     return [{key: parts[key][i] for key in batch} for i in range(accum_steps)]
 
 
+def _mean_over_ranks(loss, aux, extra, world: int):
+    """One all-reduce over the world: ``loss`` and every ``aux`` value
+    averaged (each rank's is the mean over its equal share of the global
+    batch), ``extra`` (a vector, or None) summed."""
+    keys = list(aux)
+    vec = torch.stack([loss.reshape(()).float()]
+                      + [aux[k].reshape(()).to(loss.device) for k in keys])
+    if extra is not None:
+        vec = torch.cat([vec, extra])
+    dist.all_reduce(vec)
+    n = 1 + len(keys)
+    means = vec[:n] / world
+    return (means[0], {k: means[1 + i] for i, k in enumerate(keys)},
+            vec[n:] if extra is not None else None)
+
+
 def make_train_step(loss_fn: LossFn, accum_steps: int = 1,
                     health: bool = False):
     """Build the train step.
@@ -782,8 +857,8 @@ def make_train_step(loss_fn: LossFn, accum_steps: int = 1,
     A state with a :class:`ShardedLayout` runs its collectives: the
     gradient sync of its strategy and stage after the backward, the
     slices' all-gather after the update, and one ``all_reduce`` of the
-    loss with the sharded leaves' health sums, so the metrics are the
-    gang's (none of them in a world of one).
+    loss and ``aux`` with the sharded leaves' health sums, so the metrics
+    are the gang's (none of them in a world of one).
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -842,22 +917,46 @@ def make_train_step(loss_fn: LossFn, accum_steps: int = 1,
                 h = _health_sums([old[i] for i in idx], [new[i] for i in idx],
                                  [grads[i] for i in idx], loss.device) / r
                 part = h if part is None else part + h
+        aux = {k: v / accum_steps for k, v in aux_sum.items()}
         if lay is not None and lay.world > 1:
-            # one all-reduce: the ranks' losses (the global batch's loss
-            # is the mean of their means) and the shards' health sums
-            vec = loss.reshape(1).to(torch.float32)
-            if part is not None:
-                vec = torch.cat([vec, part])
-            dist.all_reduce(vec)
-            loss = vec[0] / lay.world
-            if part is not None:
-                part = vec[1:]
+            # one all-reduce: the ranks' losses and aux metrics (the
+            # global batch's are the means of their means) and the
+            # shards' health sums
+            loss, aux, part = _mean_over_ranks(loss, aux, part, lay.world)
         if part is not None:
             sums = sums + part
-        metrics = {"loss": loss,
-                   **{k: v / accum_steps for k, v in aux_sum.items()}}
+        metrics = {"loss": loss, **aux}
         if health:
             metrics.update(_health_metrics(sums))
         return state, metrics
+
+    return run
+
+
+def make_eval_step(loss_fn: LossFn):
+    """Build the eval step (port of the JAX ``make_eval_step``):
+    ``run(state, batch) -> metrics``, ``loss_fn`` under ``torch.no_grad``
+    with the model in eval mode (BatchNorm normalizes by its running
+    averages and leaves them as they are), the model's mode restored
+    after. The metrics are ``loss`` and ``aux`` without a
+    ``batch_stats`` key; with a sharded state, averaged over the gang
+    (one ``all_reduce``)."""
+
+    def run(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                loss, aux = loss_fn(state, batch)
+        finally:
+            model.train(was_training)
+        aux = {k: torch.as_tensor(v).detach().float()
+               for k, v in (aux or {}).items() if k != "batch_stats"}
+        loss = loss.detach().float()
+        lay = state.layout
+        if lay is not None and lay.world > 1:
+            loss, aux, _ = _mean_over_ranks(loss, aux, None, lay.world)
+        return {"loss": loss, **aux}
 
     return run

@@ -314,7 +314,8 @@ def test_gpu_block_checks():
     assert _llama_gpu(3, accelerator="h100-80gb-x1").spec.num_nodes() == 3
 
 
-@pytest.mark.parametrize("example", ["gpu_job_llama.yaml", "gpu_job_cpu_tiny.yaml"])
+@pytest.mark.parametrize("example", ["gpu_job_llama.yaml", "gpu_job_cpu_tiny.yaml",
+                                     "gpu_job_mnist.yaml"])
 def test_port_examples_validate(example, capsys):
     assert kubectl_local.main(["validate", "-f", str(PORT_EXAMPLES / example)]) == 0
     assert "valid TpuJob" in capsys.readouterr().out
@@ -520,23 +521,35 @@ def _all_manifests():
     """Every manifest of the spec tests, as the port accepts it."""
     docs = {n: _doc(n) for n in AS_WRITTEN}
     docs.update({n: _gpu_doc(n) for n in GPU_FOR})
-    for n in ("gpu_job_llama.yaml", "gpu_job_cpu_tiny.yaml"):
+    for n in ("gpu_job_llama.yaml", "gpu_job_cpu_tiny.yaml", "gpu_job_mnist.yaml"):
         docs[n] = yaml.safe_load((PORT_EXAMPLES / n).read_text())
     docs["materializer"] = _materializer_job("gpu")
+    # a program the port does not have yet (bert_train, ROADMAP A9.2)
+    unported = _gpu_doc("tpu_job_v5e_mnist.yaml")
+    c = unported["spec"]["replicaSpecs"][0]["template"]["spec"]["containers"][0]
+    c["env"] = [{"name": "KTPU_PROGRAM",
+                 "value": "k8s_tpu.programs.bert_train:main"}]
+    docs["unported_program"] = unported
+    # resnet_train, ported with mnist_train: admitted and materialized
+    resnet = _gpu_doc("tpu_job_v5e_mnist.yaml")
+    c = resnet["spec"]["replicaSpecs"][0]["template"]["spec"]["containers"][0]
+    c["env"] = [{"name": "KTPU_PROGRAM",
+                 "value": "k8s_tpu.programs.resnet_train:main"}]
+    docs["resnet_program"] = resnet
     return docs
 
 
 @pytest.mark.parametrize("name", sorted(_all_manifests()))
 def test_no_object_the_operator_writes_names_the_jax_package(name):
     doc = _all_manifests()[name]
-    if name == "tpu_job_v5e_mnist.yaml":
-        # mnist_train is not in the port: setup fails it by name instead
+    if name == "unported_program":
+        # bert_train is not in the port: setup fails it by name instead
         cl = PKubeClient()
         jc = PTpuJobClient(cl.cluster)
         tj = PTrainingJob(cl, jc, jc.create(PS.TpuJob.from_dict(doc)))
         tj.setup(PS.ControllerConfig())
         assert tj.status.phase == PS.TpuJobPhase.FAILED
-        assert re.search(r"mnist_train.*ROADMAP A9", tj.status.reason)
+        assert re.search(r"bert_train.*ROADMAP A9", tj.status.reason)
         return
     objs, _ = _materialize(PORT_SIDE, doc)
     assert objs["Job"]
