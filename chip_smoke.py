@@ -124,6 +124,20 @@ order:
   ``bench.py --metric startup`` runs the JAX program's: create -> pod
   Running -> first step -> ``Succeeded``, beside the llama child's.
 
+- BERT-base (``bert``): ``programs.bert_train`` in process at its full
+  width and defaults (12 x 768, 12 heads of 64, batch 32, sequence 512,
+  masked positions through the fused CE) for BERT_STEPS steps — step ms,
+  sequences/s, MFU, peak memory, the losses falling, K1-K3 once per layer
+  and step, one profiled step's device ms by class — then BERT-base with
+  a padding mask against each row run alone, and one backward through it
+  against the plain attention (``_bert_padded_check``).
+
+After the K1-K3 checks at Llama's head dim, ``flash_segments`` holds
+K1-K3 with segment ids and at head dim 64 (BERT-base's attention with a
+padding mask and without, causal packed documents at D 128, ragged
+lengths) against their plain versions, timed beside SDPA with the same
+mask.
+
 Before the first K1 check, every SM's shared memory is filled with NaN
 words (``poison_shared_memory``, ROADMAP C4), so that check's launch
 meets no bytes an earlier launch left.
@@ -187,6 +201,9 @@ DECODE_Q8_REL_TOL = DECODE_REL_TOL
 # against a floor of this share of the tensor's largest row norm.
 FLASH_BWD_REL_TOL = 1e-2
 FLASH_BWD_ROW_FLOOR = 1e-3
+# the BERT padded-model check's limit on a real token's MLM logit row
+# (see BERT_PAD_LENGTHS)
+BERT_PAD_ROW_TOL = 2 * FLASH_REL_TOL * 12 ** 0.5
 # each limit must sit below the error of a planted fault: the longest
 # row with its last FAULT_ROWS keys dropped (8 are reported beside it)
 FAULT_ROWS = 1
@@ -261,6 +278,17 @@ RESNET_CARD_SEEDS = range(6)
 RESNET_CARD_TOL = {"f32": {"logits": 1e-5, "stats": 2e-6, "grads": 1e-2},
                    "bf16": {"logits": 1e-2, "stats": 1e-4, "grads": 2e-1}}
 MNIST_OPERATOR_DEADLINE_S = 180
+# BERT-base MLM pretraining (bert_train's defaults: batch 32, sequence
+# 512) for this many steps; the step time is the median of steps 3 on
+BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_LAYERS = 32, 512, 20, 12
+# the padded-model check: BERT-base at B 2, S 512, rows with these real
+# lengths. The real tokens' MLM logits of the padded batch against each
+# row run alone, unpadded: the masked keys add exact zeros to K1's sums,
+# so what differs is bf16 rounding at other points (the GEMMs' tilings at
+# another row count) — at most K1's row limit per layer in each of the
+# two runs, independent over the layers: 2 x FLASH_REL_TOL x sqrt(layers)
+# of a row's norm (FLASH_REL_TOL is defined below)
+BERT_PAD_LENGTHS = (384, 448)
 # the operator_rest phase: (r2)'s job trains this many steps (~0.87 s
 # each) so that it outlasts the leader's 15 s lease, the standby's 3 s
 # retry and its adoption after the leader is killed at the first step
@@ -277,9 +305,18 @@ ELASTIC_STEPS, ELASTIC_MIN_TICKS = 5, 2
 # room, and a pod's terminationGracePeriodSeconds long enough for it
 WRITE_LIMIT_BYTES, CHILD_SAVE_BYTES, SCHED_FLUSH_GRACE_S = 45 << 30, 17.9e9, 180
 REPO = pathlib.Path(__file__).resolve().parent
-# K1's tile config -> its kernel instance (csrc/flash_fwd.cu, templated on
-# the number of consumer warpgroups), as torch.profiler names it
-K1_INSTANCES = {0: "flash_fwd_kernel<2>", 1: "flash_fwd_kernel<1>"}
+
+
+def k1_instance(d: int, config: int, seg: bool = False) -> str:
+    """K1's kernel instance at head dim ``d`` and tile config ``config``,
+    with or without segment ids (csrc/flash_fwd.cu, templated on the head
+    dim, the number of consumer warpgroups and the segment flag), as
+    torch.profiler names it."""
+    return f"flash_fwd_kernel<{d}, {2 if config == 0 else 1}, {str(seg).lower()}>"
+
+
+# K1's tile config -> its instance at head dim 128 (Llama-3-8B)
+K1_INSTANCES = {0: k1_instance(128, 0), 1: k1_instance(128, 1)}
 # the decode kernels' two launches per call (split, merge), by library
 DECODE_KERNELS = {
     "decode_attn": ("decode_attn_split_kernel", "decode_attn_merge_kernel"),
@@ -356,15 +393,22 @@ def call_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 def kernel_ms(torch, fn, names, reps: int = 5):
     """Device time per call of each kernel whose name contains one of
-    ``names`` (torch.profiler over ``reps`` calls of ``fn``)."""
-    out = {n: 0.0 for n in names}
-    for e in _profiled(torch, fn, reps):
-        for n in names:
-            if n in e.key:
-                out[n] += e.self_device_time_total / 1e3 / reps
-    if not all(out.values()):
-        fail(f"torch.profiler recorded no device time for {out}")
-    return out
+    ``names`` (torch.profiler over ``reps`` calls of ``fn``). A session
+    that recorded some of the kernels and not the others is taken again,
+    up to three sessions: one came back without the K5 merge kernel while
+    it held the split kernel (PR 17)."""
+    for attempt in range(3):
+        out = {n: 0.0 for n in names}
+        for e in _profiled(torch, fn, reps):
+            for n in names:
+                if n in e.key:
+                    out[n] += e.self_device_time_total / 1e3 / reps
+        if all(out.values()):
+            return out
+        print(f"chip_smoke: torch.profiler session held no device time for some "
+              f"of {out}; taking it again", file=sys.stderr, flush=True)
+        time.sleep(attempt + 1)
+    fail(f"torch.profiler recorded no device time for {out}")
 
 
 def bound(nbytes: float, flops: float):
@@ -516,8 +560,8 @@ def phase_flash(torch, attn, kernels, gen):
     ptxas = [ln.strip() for ln in log.splitlines() if "flash_fwd_kernel" in ln
              or "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
     spill_bytes = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
-    smem = {str(c): kernels.lib("flash_fwd").k8s_flash_fwd_smem_bytes(c)
-            for c in attn.FLASH_FWD_TILES}
+    smem = {f"D{d}_config{c}": attn.flash_smem_bytes("fwd", c, d)
+            for d in attn.KERNEL_HEAD_DIMS for c in attn.FLASH_FWD_TILES}
     emit({"phase": "flash_fwd", "shape": "Hq=32 Hkv=8 D=128 bf16",
           "rel_tol": FLASH_REL_TOL, "lse_tol": FLASH_LSE_TOL,
           "planted_faults_S2048": faults, "rows_B1_causal": rows,
@@ -624,8 +668,8 @@ def phase_flash_bwd(torch, attn, kernels, gen):
     ptxas = [ln.strip() for ln in log.splitlines() if "flash_bwd_d" in ln
              or "registers" in ln or "spill" in ln]
     spill_bytes = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
-    smem = {name: kernels.lib("flash_bwd").k8s_flash_bwd_smem_bytes(i)
-            for i, name in enumerate(("dq", "dkv"))}
+    smem = {f"{name}_D{d}": attn.flash_smem_bytes(name, d=d)
+            for name in ("dq", "dkv") for d in attn.KERNEL_HEAD_DIMS}
 
     # the training shape: one layer's attention, B 8, S 2048, causal
     b, s = TRAIN_BATCH, TRAIN_SEQ
@@ -666,7 +710,7 @@ def phase_flash_bwd(torch, attn, kernels, gen):
     del q, k, v, do, out, lse, qt, kt, vt, o_sdpa, dot
     torch.cuda.empty_cache()
     common = {"shape": train["shape"] + " (errors: worst over B=2 S 128,1000,2048 causal, "
-                                        "777 non-causal and the edges)",
+                                        "777 non-causal, the edges and flash_segments)",
               "plain_ms": plain_ms, "library_ms": library_ms}
     return {
         "flash_bwd_dq": dict(common, max_abs_err=worst_abs["dq"], rel_err=worst["dq"],
@@ -753,6 +797,170 @@ def phase_flash_head_split(torch, attn, gen):
           "rel_tol": FLASH_REL_TOL, "lse_tol": FLASH_LSE_TOL,
           "bwd_rel_tol": FLASH_BWD_REL_TOL, "row_floor": FLASH_BWD_ROW_FLOOR,
           "rows": rows})
+    return rows
+
+
+def segment_rows(kind: str, b: int, s: int, gen):
+    """[B, S] int32 segment ids on the CPU: ``"pad"`` a padding mask (1
+    real, 0 pad) with each row's real length drawn from 64..S; ``"packed"``
+    3-5 documents per row (ids 1, 2, ...; a document at least 16 tokens),
+    the tail after the last one padding (0)."""
+    import torch
+
+    rows = torch.zeros(b, s, dtype=torch.int32)
+    for i in range(b):
+        if kind == "pad":
+            n = int(torch.randint(64, s + 1, (1,), generator=gen))
+            rows[i, :n] = 1
+            continue
+        docs = int(torch.randint(3, 6, (1,), generator=gen))
+        cuts = sorted(torch.randperm(s // 16 - 1, generator=gen)[:docs].add(1)
+                      .mul(16).tolist())
+        start = 0
+        for j, end in enumerate(cuts):
+            rows[i, start:end] = j + 1
+            start = end
+    return rows
+
+
+def visible_pairs(seg, b: int, s: int, causal: bool) -> int:
+    """The (query, key) pairs one head's attention computes over a batch
+    of ``b`` rows of ``s``: per row, the pairs of equal segment ids (every
+    pair without ids), and only key <= query when causal — the work this
+    run's data needs (the kernels mask the rest)."""
+    if seg is None:
+        return b * (s * (s + 1) // 2 if causal else s * s)
+    total = 0
+    for row in seg.tolist():
+        counts = {}
+        for x in row:
+            counts[x] = counts.get(x, 0) + 1
+            if causal:
+                total += counts[x]  # this query's keys <= it with its id
+        if not causal:
+            total += sum(n * n for n in counts.values())
+    return total
+
+
+def visible_mask(torch, seg, s: int, causal: bool, device):
+    """The boolean [B, 1, S, S] mask (True: attend) of segment ids and
+    the causal diagonal, SDPA's ``attn_mask`` for the same function."""
+    mask = (seg[:, :, None] == seg[:, None, :]).to(device)
+    if causal:
+        mask &= torch.ones(s, s, dtype=torch.bool, device=device).tril()
+    return mask[:, None]
+
+
+# (name, B, S, Hq, Hkv, D, causal, segment ids): BERT-base's attention
+# with a padding mask and without one, causal packed documents at D 128,
+# and ragged lengths with ids at both head dims
+SEGMENT_CASES = (
+    ("bert_base_pad", BERT_BATCH, BERT_SEQ, 12, 12, 64, False, "pad"),
+    ("bert_base_nomask", BERT_BATCH, BERT_SEQ, 12, 12, 64, False, None),
+    ("packed_causal_d128", 2, 2048, 32, 8, 128, True, "packed"),
+    ("ragged_packed_causal_d128", 2, 777, 32, 8, 128, True, "packed"),
+    ("ragged_pad_d64", 2, 777, 12, 12, 64, False, "pad"),
+)
+
+
+def phase_flash_segments(torch, attn, gen):
+    """K1, K2 and K3 with segment ids and at head dim 64 (R8's two
+    features, BERT's path) against their plain versions in f32 on the same
+    bf16 inputs, at the limits of the other checks (K1 rows 8e-3 and lse
+    1e-4; K2/K3 rows 1e-2 with the row floor): BERT-base's attention (B
+    32, S 512, Hq = Hkv = 12, D 64, non-causal) with a padding mask of
+    real lengths 64..512 and without one; causal packed documents (3-5
+    per row) at B 2, S 2048, Hq/Hkv 32/8, D 128; and ragged S 777 with
+    ids at both head dims. The limits must see a fault: the BERT-shape
+    output with the mask dropped. Each case is timed — K1, K2 and K3 by
+    kernel name in one profiler session; the plain versions, and SDPA
+    forward and forward + backward with the equivalent boolean mask (the
+    yardstick, never the path), with CUDA events over back-to-back calls
+    (no more profiler sessions in this process: they came back partial
+    once too many were opened) — beside their bounds, which count the
+    pairs this data makes visible."""
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    cpu_gen = torch.Generator().manual_seed(17)
+    names = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    rows, fault = [], None
+    for name, b, s, hq, hkv, d, causal, kind in SEGMENT_CASES:
+        scale = 1.0 / d ** 0.5
+        q, k, v, do = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        seg = None if kind is None else segment_rows(kind, b, s, cpu_gen).cuda()
+        config = attn._flash_fwd_config(b, s, hq)
+        out, lse = attn.flash_fwd(q, k, v, causal, scale, with_lse=True, segment_ids=seg)
+        ref, ref_lse = attn.flash_fwd_plain(q.float(), k.float(), v.float(), causal,
+                                            scale, seg)
+        got = attn.flash_bwd(q, k, v, out, lse, do, causal, scale, segment_ids=seg)
+        gref = attn.flash_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                    do.float(), causal, scale, seg)
+        torch.cuda.synchronize()
+        row = {"case": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
+               "causal": causal, "segment_ids": kind, "config": config,
+               "k1_rel_err": row_rel_err(out, ref),
+               "k1_max_abs_err": (out.float() - ref).abs().max().item(),
+               "lse_err": (lse - ref_lse).abs().max().item()}
+        if seg is not None:
+            row["segments_per_row"] = [len(set(r)) for r in seg.tolist()][:8]
+        for n, x, r in zip(("dq", "dk", "dv"), got, gref):
+            row[n + "_rel_err"] = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR)
+            row[n + "_max_abs_err"] = (x.float() - r).abs().max().item()
+        if not (row["k1_rel_err"] <= FLASH_REL_TOL and row["lse_err"] <= FLASH_LSE_TOL):
+            fail(f"flash_segments {name}: K1 {row} (tol {FLASH_REL_TOL}, lse "
+                 f"{FLASH_LSE_TOL}); rows off: {rows_off(out, ref)}")
+        if max(row[n + "_rel_err"] for n in ("dq", "dk", "dv")) > FLASH_BWD_REL_TOL:
+            fail(f"flash_segments {name}: K2/K3 {row} (tol {FLASH_BWD_REL_TOL})")
+        if name == "bert_base_pad":
+            # a planted fault: the padding mask dropped (pad keys leak into
+            # the real rows)
+            leak, _ = attn.flash_fwd_plain(q.float(), k.float(), v.float(), causal, scale)
+            fault = row_rel_err(leak.to(torch.bfloat16), ref)
+            if not fault > FLASH_REL_TOL:
+                fail(f"flash_segments: the K1 limit does not see the mask dropped ({fault})")
+        del ref, gref, got
+        pairs = visible_pairs(seg.cpu() if seg is not None else None, b, s, causal)
+        qo, kv, rowb = 2 * b * s * hq * d, 2 * b * s * hkv * d, 4 * b * hq * s
+        segb = 4 * b * s if seg is not None else 0
+        row["visible_pairs_per_head"] = pairs
+        row["k1_bound_ms"], row["k1_bound_by"] = bound(2 * qo + 2 * kv + rowb + segb,
+                                                       4 * hq * d * pairs)
+        row["k2_bound_ms"], row["k2_bound_by"] = bound(3 * qo + 2 * kv + 2 * rowb + segb,
+                                                       6 * hq * d * pairs)
+        row["k3_bound_ms"], row["k3_bound_by"] = bound(2 * qo + 4 * kv + 2 * rowb + segb,
+                                                       8 * hq * d * pairs)
+        inst = k1_instance(d, config, seg is not None)
+        t = kernel_ms(torch, lambda: (
+            attn.flash_fwd(q, k, v, causal, scale, segment_ids=seg),
+            attn.flash_bwd(q, k, v, out, lse, do, causal, scale, segment_ids=seg)),
+            [inst, *names], reps=10)
+        row["k1_ms"], row["k2_ms"], row["k3_ms"] = t[inst], t[names[0]], t[names[1]]
+        row["k1_plain_ms"] = call_ms(torch, lambda: attn.flash_fwd_plain(
+            q, k, v, causal, scale, seg), reps=3, warmup=1)
+        row["bwd_plain_ms"] = call_ms(torch, lambda: attn.flash_bwd_plain(
+            q, k, v, out, lse, do, causal, scale, seg), reps=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = (visible_mask(torch, seg, s, causal, q.device) if seg is not None
+                else None)
+        sd_kw = ({"attn_mask": mask} if mask is not None else {"is_causal": causal})
+        row["k1_sdpa_ms"] = call_ms(torch, sdpa(torch, qt, kt, vt, **sd_kw))
+        qg, kg, vg = (x.requires_grad_() for x in (qt.clone(), kt.clone(), vt.clone()))
+        o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, enable_gqa=True, **sd_kw)
+        dot = do.transpose(1, 2).contiguous()
+        row["bwd_sdpa_ms"] = call_ms(torch, lambda: torch.autograd.grad(
+            o_sdpa, (qg, kg, vg), dot, retain_graph=True))
+        del qt, kt, vt, qg, kg, vg, o_sdpa, dot, mask
+        rows.append(row)
+        del q, k, v, do, out, lse, seg
+        torch.cuda.empty_cache()
+    emit({"phase": "flash_segments", "rel_tol": FLASH_REL_TOL, "lse_tol": FLASH_LSE_TOL,
+          "bwd_rel_tol": FLASH_BWD_REL_TOL, "row_floor": FLASH_BWD_ROW_FLOOR,
+          "planted_fault_mask_dropped_k1_rel_err": fault, "rows": rows,
+          "note": "bounds count the visible (query, key) pairs of this data; "
+                  "k*_ms are device ms per call of the kernel by name "
+                  "(torch.profiler); the plain and SDPA times are CUDA-event "
+                  "walls per call of back-to-back calls; bwd_plain_ms and "
+                  "bwd_sdpa_ms compute dq, dk and dv together"})
     return rows
 
 
@@ -3853,6 +4061,301 @@ def phase_resnet(torch, attn, card):
     return launches
 
 
+def bert_step_flops(cfg, batch: int, seq: int, n_pred: int) -> float:
+    """One BERT training step's FLOPs from the layer shapes: per layer the
+    q/k/v/o and MLP products (2 x tokens x weights) and the attention's
+    two S x S products (4 x B x H x S^2 x D, non-causal), plus the MLM
+    head on the gathered positions (2 x B x n_pred x E x V); all x 3 (the
+    forward, the input and the weight gradients; the attention's
+    backward counted as twice its forward)."""
+    e, f, h, d = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads, cfg.head_dim
+    tokens = batch * seq
+    per_layer = 2 * tokens * (4 * e * e + 2 * e * f) + 4 * batch * h * seq * seq * d
+    head = 2 * batch * n_pred * e * cfg.vocab_size
+    return 3.0 * (cfg.num_layers * per_layer + head)
+
+
+def _profile_bert_step(torch, state, step_fn, batch):
+    """One more BERT train step under torch.profiler: device ms of the
+    attention kernels (K1-K3 by name), the GEMMs outside the loss, the
+    LayerNorms and GELUs (the kernels under ``bert_layer_norm`` and
+    ``bert_gelu`` ranges this profile wraps around them in the forward,
+    and those of the backward nodes whose forward op ran inside one: the
+    autograd ``sequence_nr`` links them), the fused CE (its
+    ``fused_ce_fwd``/``fused_ce_bwd`` ranges), the optimizer
+    (``Optimizer.step``) and the rest, and the device's busy share of the
+    step's wall."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from k8s_tpu_torch.models import bert as bm
+
+    ln_orig, gelu_orig = bm.layer_norm, bm._gelu
+
+    def ln(*a, **kw):
+        with record_function("bert_layer_norm"):
+            return ln_orig(*a, **kw)
+
+    def gelu(*a, **kw):
+        with record_function("bert_gelu"):
+            return gelu_orig(*a, **kw)
+
+    bm.layer_norm, bm._gelu = ln, gelu
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        bm.layer_norm, bm._gelu = ln_orig, gelu_orig
+
+    def is_gemm(name):
+        n = name.lower()
+        return any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
+
+    ranges = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+    ranges |= {"fused_ce_fwd", "fused_ce_bwd", "bert_layer_norm", "bert_gelu"}
+    kernels = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and e.key not in ranges and not e.key.startswith("Optimizer.")]
+    total = sum(t for _, t in kernels)
+    attention = sum(t for k, t in kernels if "flash_fwd_kernel" in k
+                    or "flash_bwd_d" in k)
+    gemm = sum(t for k, t in kernels if is_gemm(k))
+    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def walk(ev, seen, acc, seqs=None):
+        """Add the device ms (and GEMM ms) of ``ev``'s kernels and its
+        children's to ``acc``, each event once; collect their autograd
+        sequence numbers into ``seqs``."""
+        if id(ev) in seen:
+            return
+        seen.add(id(ev))
+        for kern in getattr(ev, "kernels", []):
+            acc[0] += kern.duration / 1e3
+            if is_gemm(kern.name):
+                acc[1] += kern.duration / 1e3
+        if seqs is not None and getattr(ev, "sequence_nr", -1) >= 0:
+            seqs.add(ev.sequence_nr)
+        for ch in ev.cpu_children:
+            walk(ch, seen, acc, seqs)
+
+    def under(pred, seqs=None):
+        acc, seen = [0.0, 0.0], set()
+        for ev in cpu:
+            if pred(ev.name):
+                walk(ev, seen, acc, seqs)
+        return acc
+
+    ce = under(lambda n: n in ("fused_ce_fwd", "fused_ce_bwd"))
+    opt = under(lambda n: n.startswith("Optimizer.step"))
+    fwd_seqs = set()
+    ln_fwd = under(lambda n: n in ("bert_layer_norm", "bert_gelu"), fwd_seqs)
+    # the backward nodes of the ops that ran inside those ranges
+    acc, seen = [0.0, 0.0], set()
+    for ev in cpu:
+        if (getattr(ev, "sequence_nr", -1) in fwd_seqs
+                and ("Backward" in ev.name or ev.name.startswith("autograd::"))):
+            walk(ev, seen, acc)
+    ln_bwd = acc[0]
+    split = {"attention_k1_k3": attention, "gemm_outside_ce": gemm - ce[1],
+             "layer_norm_gelu_fwd": ln_fwd[0], "layer_norm_gelu_bwd": ln_bwd,
+             "fused_ce": ce[0], "optimizer": opt[0]}
+    split["rest"] = total - sum(split.values())
+    top = sorted(kernels, key=lambda r: -r[1])
+    top_other = [r for r in top if not is_gemm(r[0]) and "flash_" not in r[0]]
+    return {"step_wall_ms": wall_ms, "device_ms": total,
+            "device_busy_share": total / wall_ms if wall_ms else None,
+            "split_ms": split,
+            "top": [{"kernel": k[:120], "ms": t} for k, t in top[:10]],
+            "top_other": [{"kernel": k[:160], "ms": t} for k, t in top_other[:12]]}
+
+
+def _bert_padded_check(torch, attn):
+    """BERT-base on the card (random weights, seed 1) at B 2, S 512 with
+    ``attention_mask`` rows of BERT_PAD_LENGTHS real tokens: (1) each real
+    token's MLM logit row against the same row run alone without padding
+    (the JAX package's own property, tests/test_dataplane.py), within
+    BERT_PAD_ROW_TOL of the row's norm; (2) one backward of a loss over
+    the real tokens: every parameter gradient finite, the first layer's
+    K2/K3 results (dq, dk, dv, captured with the layer's q/k/v, segment
+    ids and output gradient) against the plain backward in f32 on the
+    same tensors within the K2/K3 row limit, and every parameter gradient
+    against the same model run with the plain attention on the card,
+    within the training gradient oracle's limit (GRAD_ORACLE_TOL,
+    relative L2) — but the k projections' biases: their gradient is zero
+    in exact math (softmax ignores a score shift that every key of a row
+    shares), so each run's must be rounding noise, below 1e-4 of the
+    largest gradient's norm."""
+    from k8s_tpu_torch.models import BertConfig, BertForPretraining
+    from k8s_tpu_torch.models import bert as bm
+
+    b, s = len(BERT_PAD_LENGTHS), BERT_SEQ
+    model = BertForPretraining(BertConfig.base(), device="cuda", seed=1)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ids = torch.randint(0, model.config.vocab_size, (b, s), generator=g, device="cuda")
+    mask = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(BERT_PAD_LENGTHS):
+        mask[i, :n] = 1
+    n0 = attn.flash_fwd.launches
+    with torch.no_grad():
+        padded, _ = model(ids, attention_mask=mask)
+        alone = [model(ids[i:i + 1, :n])[0][0] for i, n in enumerate(BERT_PAD_LENGTHS)]
+    if attn.flash_fwd.launches - n0 != BERT_LAYERS * (1 + b):
+        fail(f"bert padded check: K1 launched {attn.flash_fwd.launches - n0} times, "
+             f"expected {BERT_LAYERS * (1 + b)}")
+    logit_err = max(row_rel_err(padded[i, :n], alone[i])
+                    for i, n in enumerate(BERT_PAD_LENGTHS))
+    del padded, alone
+
+    captured = {}
+    orig = bm.flash_attention
+
+    def capture_first(q, k, v, causal=True, segment_ids=None, **kw):
+        out = orig(q, k, v, causal=causal, segment_ids=segment_ids, **kw)
+        if "q" not in captured:
+            captured.update(q=q, k=k, v=v, seg=segment_ids)
+            for name, x in (("dq", q), ("dk", k), ("dv", v), ("dout", out)):
+                x.register_hook(lambda grad, name=name: captured.__setitem__(name, grad))
+        return out
+
+    real = mask.bool()
+
+    def grads(attention):
+        model.zero_grad(set_to_none=True)
+        bm.flash_attention = attention
+        try:
+            logits, _ = model(ids, attention_mask=mask)
+            loss = torch.nn.functional.cross_entropy(logits[real], ids[real])
+            loss.backward()
+        finally:
+            bm.flash_attention = orig
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    def plain(q, k, v, causal=True, segment_ids=None, **kw):
+        return attn.mha_reference(q, k, v, causal=causal, segment_ids=segment_ids)
+
+    launches = (attn.flash_bwd.launches_dq, attn.flash_bwd.launches_dkv)
+    kernel_grads = grads(capture_first)
+    if (attn.flash_bwd.launches_dq - launches[0],
+            attn.flash_bwd.launches_dkv - launches[1]) != (BERT_LAYERS, BERT_LAYERS):
+        fail("bert padded check: K2/K3 did not run once per layer in the backward")
+    plain_grads = grads(plain)
+    finite = all(torch.isfinite(x).all().item() for x in kernel_grads.values())
+    q, k, v, seg = (captured[n] for n in ("q", "k", "v", "seg"))
+    scale = q.shape[-1] ** -0.5
+    ref_out, ref_lse = attn.flash_fwd_plain(q.float(), k.float(), v.float(), False,
+                                            scale, seg)
+    ref = attn.flash_bwd_plain(q.float(), k.float(), v.float(), ref_out, ref_lse,
+                               captured["dout"].float(), False, scale, seg)
+    layer0 = {n: row_rel_err(captured[n], r, floor=FLASH_BWD_ROW_FLOOR)
+              for n, r in zip(("dq", "dk", "dv"), ref)}
+    top = max(g.norm().item() for g in plain_grads.values())
+    zero = [n for n in plain_grads if n.endswith("k_proj.bias")]
+    zero_norm = max(max(kernel_grads[n].norm().item(), plain_grads[n].norm().item())
+                    for n in zero) / top
+    rel = {n: ((kernel_grads[n] - plain_grads[n]).norm()
+               / plain_grads[n].norm().clamp_min(1e-30)).item()
+           for n in plain_grads if n not in zero}
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    out = {"B": b, "S": s, "real_lengths": list(BERT_PAD_LENGTHS),
+           "logit_row_rel_err": logit_err, "logit_row_tol": BERT_PAD_ROW_TOL,
+           "grads_finite": finite, "layer0_bwd_rel_err": layer0,
+           "layer0_bwd_tol": FLASH_BWD_REL_TOL,
+           "grad_vs_plain_attention_worst": {"param": worst[0], "rel_l2": worst[1]},
+           "grad_tol": GRAD_ORACLE_TOL,
+           "grad_vs_plain_attention_median": statistics.median(rel.values()),
+           "k_proj_bias_grad_norm_over_largest": zero_norm}
+    del model, kernel_grads, plain_grads, captured, ref, ref_out
+    if not logit_err <= BERT_PAD_ROW_TOL:
+        fail(f"bert padded check: real-token logits differ from the unpadded run: {out}")
+    if not (finite and max(layer0.values()) <= FLASH_BWD_REL_TOL
+            and worst[1] <= GRAD_ORACLE_TOL and zero_norm <= 1e-4):
+        fail(f"bert padded check: the backward through the padded model: {out}")
+    return out
+
+
+def phase_bert(torch, attn, card):
+    """BERT-base MLM pretraining through the port's ``programs.bert_train``
+    (``Rendezvous`` of a dict env + ``run_program``, in process) at its
+    full width and defaults: 12 layers x 768, 12 heads of 64, batch 32,
+    sequence 512, the default loss path (masked positions through the
+    fused CE), AdamW 1e-4, for BERT_STEPS steps with a loss readback per
+    step: step ms (median of steps 3 on), sequences/s, MFU from the layer
+    shapes (:func:`bert_step_flops`), peak memory, the losses (finite and
+    falling on the fixed batch), K1, K2 and K3 launched once per layer
+    and step each (counted from 0 around the run; K4/K5 none), and one
+    profiled step's device ms by class (:func:`_profile_bert_step`); then
+    the padded-model check (:func:`_bert_padded_check`)."""
+    from k8s_tpu_torch.launcher.spmd_launcher import Rendezvous, run_program
+    from k8s_tpu_torch.models import BertConfig
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rdzv = Rendezvous({
+        "KTPU_PROGRAM": "k8s_tpu_torch.programs.bert_train:main",
+        "KTPU_PROGRAM_ARGS": f"--batch_size={BERT_BATCH} --steps={BERT_STEPS} "
+                             "--log_every=1"})
+    if rdzv.device != "cuda":
+        fail(f"bert: the rendezvous chose device {rdzv.device!r}")
+    attn.flash_fwd.launches = 0
+    attn.flash_bwd.launches_dq = attn.flash_bwd.launches_dkv = 0
+    attn.decode_attention_update.launches = 0
+    attn.decode_attention_update_q8.launches = 0
+    t0 = time.perf_counter()
+    run = run_program(rdzv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launch_counts(attn)
+    peak = torch.cuda.max_memory_allocated()
+    want = BERT_LAYERS * BERT_STEPS
+    if any(launches[k] != want for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")) \
+            or launches["decode_attn"] or launches["decode_attn_q8"]:
+        fail(f"bert: kernel launches {launches}, expected {want} each of K1-K3")
+    losses = [loss for _, loss in run["losses"]]
+    if not (len(losses) == BERT_STEPS and np.all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        fail(f"bert: losses {losses} not finite and falling")
+    step_ms = [1e3 * t for t in run["step_s"]]
+    med = statistics.median(step_ms[2:])
+    cfg = BertConfig.base()
+    n_pred = run["batch"]["masked_pos"].shape[1]
+    flops = bert_step_flops(cfg, BERT_BATCH, BERT_SEQ, n_pred)
+    profile = _profile_bert_step(torch, run["state"], run["step_fn"], run["batch"])
+    n_params = sum(p.numel() for p in run["state"].model.parameters())
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    padded = _bert_padded_check(torch, attn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "bert", "model": "bert-base (12 x 768, 12 heads of 64, "
+                                     "intermediate 3072, vocab 30522)",
+          "batch": BERT_BATCH, "seq": BERT_SEQ, "n_pred": n_pred,
+          "dtype": "bf16 compute, f32 masters, f32 LayerNorm outputs and head",
+          "loss_path": "masked positions through the fused LM-head CE",
+          "optimizer": "AdamW lr 1e-4, weight decay 1e-4",
+          "path": "Rendezvous + run_program(bert_train) (in process)",
+          "n_params": n_params, "steps": BERT_STEPS, "run_s": wall,
+          "step_ms": step_ms, "step_ms_median_3_on": med,
+          "sequences_per_s": BERT_BATCH / (med / 1e3),
+          "step_flops": flops, "mfu": flops / (med / 1e3) / PEAK_BF16_FLOPS,
+          "flops_count": "2 x tokens x weights per projection, 4 B H S^2 D per "
+                         "attention, 2 B n_pred E V for the head; x 3",
+          "peak_mem_gb": peak / 1e9, "losses": losses,
+          "launches": launches, "launches_per_step": {
+              k: launches[k] / BERT_STEPS for k in ("flash_fwd", "flash_bwd_dq",
+                                                    "flash_bwd_dkv")},
+          "profiled_step": profile, "padded_check": padded,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return launches
+
+
 def phase_mnist_operator(torch, card, llama_o1):
     """A TpuJob of the port's ``mnist_train`` (one WORKER, one card, 1
     step, as ``bench.py --metric startup`` runs the JAX program's)
@@ -4003,12 +4506,19 @@ def _profile_train_step(torch, run):
             "top_other": [{"kernel": k[:160], "ms": t} for k, t in top_other[:15]]}
 
 
+def segment_rows_of(rows, kernel: str, keys) -> list:
+    """The ``flash_segments`` rows as a kernel's entry of the ``kernels``
+    line: each case's shape and ``keys`` (the timed ones' times)."""
+    shape = ("case", "B", "S", "Hq", "Hkv", "D", "causal", "segment_ids")
+    return [{k: r[k] for k in shape + tuple(keys) if k in r} for r in rows]
+
+
 def main() -> None:
     import torch
 
     # ``--only=launcher`` / ``--only=operator`` / ``--only=operator_rest``
-    # / ``--only=sched`` / ``--only=elastic`` / ``--only=resnet``: the
-    # build and that phase alone (a debugging aid;
+    # / ``--only=sched`` / ``--only=elastic`` / ``--only=resnet`` /
+    # ``--only=bert``: the build and that phase alone (a debugging aid;
     # it ends with a ``partial`` line, not the ``ok`` one)
     only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
 
@@ -4069,6 +4579,15 @@ def main() -> None:
         emit({"partial": only, "launches_resnet": phase_resnet(torch, attn, card),
               "mnist_operator": phase_mnist_operator(torch, card, None)})
         return
+    if only == ["bert"]:
+        # the segment-id / head-dim-64 kernel checks and the BERT phase
+        # alone (a debugging aid, as above)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        attn.poison_shared_memory(torch.device("cuda"), attn.flash_smem_bytes("fwd", 1))
+        phase_flash_segments(torch, attn, gen)
+        emit({"partial": only, "launches_bert": phase_bert(torch, attn, card)})
+        return
     if only == ["train"]:
         # the training phases alone (a debugging aid, as above)
         attn.poison_shared_memory(torch.device("cuda"), attn.flash_smem_bytes("fwd", 1))
@@ -4089,6 +4608,7 @@ def main() -> None:
     k1 = phase_flash(torch, attn, _kernels, gen)
     bwd = phase_flash_bwd(torch, attn, _kernels, gen)
     head_split = phase_flash_head_split(torch, attn, gen)
+    segments = phase_flash_segments(torch, attn, gen)
     k4 = phase_decode(torch, attn, _kernels, gen)
     k5 = phase_decode_q8(torch, attn, _kernels, gen)
     serving = phase_serving(torch, attn, card)
@@ -4102,16 +4622,27 @@ def main() -> None:
     elastic = phase_elastic(torch, card, sched_times)
     serving_int8 = phase_serving_int8(torch, attn, card)
     resnet = phase_resnet(torch, attn, card)
+    bert = phase_bert(torch, attn, card)
     phase_mnist_operator(torch, card, o1)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
                 + train_fsdp["flash_fwd"] + train_fsdp_tp["flash_fwd"]
-                + serving_int8["flash_fwd"] + restored["flash_fwd"],
+                + serving_int8["flash_fwd"] + restored["flash_fwd"] + bert["flash_fwd"],
                 "decode_attn": serving["decode_attn"] + restored["decode_attn"],
                 "decode_attn_q8": serving_int8["decode_attn_q8"],
                 "flash_bwd_dq": train["flash_bwd_dq"] + train_fsdp["flash_bwd_dq"]
-                + train_fsdp_tp["flash_bwd_dq"],
+                + train_fsdp_tp["flash_bwd_dq"] + bert["flash_bwd_dq"],
                 "flash_bwd_dkv": train["flash_bwd_dkv"] + train_fsdp["flash_bwd_dkv"]
-                + train_fsdp_tp["flash_bwd_dkv"]}
+                + train_fsdp_tp["flash_bwd_dkv"] + bert["flash_bwd_dkv"]}
+
+    # the errors of each kernel row: the worst over its checks, the
+    # segment-id / head-dim-64 ones included
+    k1 = dict(k1, max_abs_err=max([k1["max_abs_err"]] + [r["k1_max_abs_err"] for r in segments]),
+              rel_err=max([k1["rel_err"]] + [r["k1_rel_err"] for r in segments]))
+    for kernel, keys in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
+        bwd[kernel] = dict(bwd[kernel], max_abs_err=max(
+            [bwd[kernel]["max_abs_err"]] + [r[k + "_max_abs_err"] for r in segments for k in keys]),
+            rel_err=max([bwd[kernel]["rel_err"]] + [r[k + "_rel_err"] for r in segments
+                                                    for k in keys]))
 
     def entry(name, src, replaces, row):
         return {"name": name, "route": "cuda", "source": src,
@@ -4130,6 +4661,8 @@ def main() -> None:
                 "launches_elastic_pods": elastic.get(name, 0),
                 # the ResNet-50 path runs none of K1-K5 (0, checked)
                 "launches_resnet": resnet.get(name, 0),
+                # BERT-base training: K1-K3 once per layer and step
+                "launches_bert": bert.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -4140,7 +4673,7 @@ def main() -> None:
         dict(entry("flash_fwd", "k8s_tpu_torch/csrc/flash_fwd.cu",
                    "k8s_tpu/ops/attention.py:185", k1),
              shape="B=1 S=256 Hq=32 Hkv=8 D=128 causal (errors: worst over B=1 S in "
-                   "16..2048, B=8 S=2048 and the B=2 edges)",
+                   "16..2048, B=8 S=2048, the B=2 edges and flash_segments)",
              train_shape_ms=k1["train"]["ms"],
              train_shape_bound_ms=k1["train"]["bound_ms"],
              train_shape_library_ms=k1["train"]["library_ms"],
@@ -4148,14 +4681,21 @@ def main() -> None:
              head_split=[{key: r[key] for key in (
                  "Hq", "Hkv", "tensor", "config", "k1_ms", "k1_bound_ms",
                  "k1_bound_by", "k1_plain_ms", "k1_sdpa_ms", "k1_rel_err", "lse_err")}
-                 for r in head_split]),
+                 for r in head_split],
+             segments=segment_rows_of(segments, "k1", ("config", "k1_ms", "k1_bound_ms",
+                                                       "k1_bound_by", "k1_plain_ms",
+                                                       "k1_sdpa_ms", "k1_rel_err",
+                                                       "lse_err"))),
         entry("flash_bwd_dq", "k8s_tpu_torch/csrc/flash_bwd.cu",
               "k8s_tpu/ops/attention.py:354", bwd["flash_bwd_dq"])
         | {"shape": bwd["flash_bwd_dq"]["shape"],
            "note": "plain_ms and library_ms compute dq, dk and dv together",
            "head_split": [{key: r[key] for key in (
                "Hq", "Hkv", "tensor", "k2_ms", "k2_bound_ms", "k2_bound_by",
-               "bwd_plain_ms", "bwd_sdpa_ms", "dq_rel_err")} for r in head_split]},
+               "bwd_plain_ms", "bwd_sdpa_ms", "dq_rel_err")} for r in head_split],
+           "segments": segment_rows_of(segments, "k2", (
+               "k2_ms", "k2_bound_ms", "k2_bound_by", "bwd_plain_ms", "bwd_sdpa_ms",
+               "dq_rel_err"))},
         entry("flash_bwd_dkv", "k8s_tpu_torch/csrc/flash_bwd.cu",
               "k8s_tpu/ops/attention.py:414", bwd["flash_bwd_dkv"])
         | {"shape": bwd["flash_bwd_dkv"]["shape"],
@@ -4163,7 +4703,10 @@ def main() -> None:
            "head_split": [{key: r[key] for key in (
                "Hq", "Hkv", "tensor", "k3_ms", "k3_bound_ms", "k3_bound_by",
                "bwd_plain_ms", "bwd_sdpa_ms", "dk_rel_err", "dv_rel_err")}
-               for r in head_split]},
+               for r in head_split],
+           "segments": segment_rows_of(segments, "k3", (
+               "k3_ms", "k3_bound_ms", "k3_bound_by", "bwd_plain_ms", "bwd_sdpa_ms",
+               "dk_rel_err", "dv_rel_err"))},
         dict(entry("decode_attn", "k8s_tpu_torch/csrc/decode_attn.cu",
                    "k8s_tpu/ops/attention.py:875", k4),
              shape="B=8 S=2048 Hq=32 Hkv=8 D=128 ragged pos",

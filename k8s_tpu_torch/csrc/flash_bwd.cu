@@ -72,7 +72,24 @@
 // ptxas then serialises the wgmma chain, and both orders timed slower
 // than this one on an H100.)
 //
-// Both: any Sq, Sk (causal needs Sq == Sk), G taken at run time, D 128.
+// Segment ids (optional, a null pointer means none): one int32 row per
+// batch for queries and keys (self-attention, Sq == Sk), rows
+// `row_stride` apart like lse and D; P is zeroed where a query's and a
+// key's ids differ (the Pallas _segment_mask), in both kernels and on
+// every tile. Each consumer thread reads the ids of its two owned rows
+// once; the producers stage each streamed tile's ids in shared memory
+// with the tile (a rank-2 TMA box, zeros past the end): K2 its 64 keys',
+// K3 its 64 queries' beside their lse and D rows. So no consumer holds
+// ids across the products (16 ids held in registers made ptxas spill K3
+// at D 128), and no thread loads them from global memory per tile (that
+// made K1 2.2x slower at BERT-base's shape).
+//
+// Both: any Sq, Sk (causal needs Sq == Sk), G taken at run time, D 128 or
+// 64 (instances of one template: a 64-wide row is one swizzled half, so
+// the recomputes take 4 k-steps instead of 8 and the gradient products
+// are m64n64 instead of m64n128), with or without segment ids (a template
+// flag: the instance without them holds no mask code; a run-time test
+// made K2 ~22% slower at Llama's training shape on an H100).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,35 +101,43 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 128;    // head dim: two 64-wide swizzled halves
 constexpr int TILE = 64;  // rows per streamed tile: keys (K2), queries (K3)
 constexpr int TILE_HALF_BYTES = TILE * 128;  // one 64-column half of a tile
-constexpr int TILE_BYTES = 2 * TILE_HALF_BYTES;
 constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int NC = 2;  // consumer warpgroups, 64 owned rows each
 constexpr int THREADS = 128 * (NC + 1);
 constexpr int OWN_ROWS = 64 * NC;  // rows a block owns
 constexpr int OWN_HALF_BYTES = OWN_ROWS * 128;
-constexpr int OWN_BYTES = 2 * OWN_HALF_BYTES;
 
 // The streamed-tile ring depths are the fastest of 2, 3 and 4 on an H100
-// at B 8, S 2048: K2 gains from a deeper ring (its block's key loop is
-// short and each tile feeds one product), K3 from a shallower one.
+// at B 8, S 2048, D 128: K2 gains from a deeper ring (its block's key loop
+// is short and each tile feeds one product), K3 from a shallower one.
+template <int D>  // head dim: D / 64 swizzled halves per row
 struct DqCfg {
+  static constexpr int HALVES = D / 64;
+  static constexpr int TILE_BYTES = HALVES * TILE_HALF_BYTES;
+  static constexpr int OWN_BYTES = HALVES * OWN_HALF_BYTES;
   static constexpr int STAGES = 4;
   static constexpr int OFF_Q = 0;
   static constexpr int OFF_DO = OWN_BYTES;
   static constexpr int OFF_K = 2 * OWN_BYTES;
   static constexpr int OFF_V = OFF_K + STAGES * TILE_BYTES;
-  static constexpr int OFF_BAR = OFF_V + STAGES * TILE_BYTES;
+  static constexpr int IDS_BYTES = TILE * 4;  // one key tile's segment ids
+  static constexpr int OFF_IDS = OFF_V + STAGES * TILE_BYTES;
+  static constexpr int OFF_BAR = OFF_IDS + STAGES * IDS_BYTES;
   // Q/dO barrier, full[STAGES], empty[STAGES]; + slack to align to 1024
   static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
 
+template <int D>
 struct DkvCfg {
+  static constexpr int HALVES = D / 64;
+  static constexpr int TILE_BYTES = HALVES * TILE_HALF_BYTES;
+  static constexpr int OWN_BYTES = HALVES * OWN_HALF_BYTES;
   static constexpr int STAGES = 2;
-  static constexpr int ROWS_BYTES = 2 * TILE * 4;  // one tile's lse and D
+  // one tile's lse, D and segment ids
+  static constexpr int ROWS_BYTES = 3 * TILE * 4;
   static constexpr int OFF_K = 0;
   static constexpr int OFF_V = OWN_BYTES;
   static constexpr int OFF_Q = 2 * OWN_BYTES;
@@ -146,9 +171,10 @@ __device__ __forceinline__ void pack_tile(uint32_t (&pk)[16], const float (&x)[3
   }
 }
 
-// X[64 x 64] = A[64 rows] B[64 rows]^T over D = 128: both operands
-// K-major swizzled tiles (A's rows `a` in a tile of half size
+// X[64 x 64] = A[64 rows] B[64 rows]^T over the head dim D: both
+// operands K-major swizzled tiles (A's rows `a` in a tile of half size
 // `a_half`, B a streamed 64-row tile)
+template <int D>
 __device__ __forceinline__ void product_nt(float (&x)[32], uint32_t a,
                                            uint32_t a_half, uint32_t b) {
 #pragma unroll
@@ -160,33 +186,35 @@ __device__ __forceinline__ void product_nt(float (&x)[32], uint32_t a,
   }
 }
 
-// ACC[64 x 128] += X[64 x 64] (packed bf16 in registers) B[64 x 128],
-// B a streamed 64-row tile read MN-major
-__device__ __forceinline__ void product_acc(float (&acc)[64],
+// ACC[64 x D] += X[64 x 64] (packed bf16 in registers) B[64 x D], B a
+// streamed 64-row tile read MN-major (N = D: m64n128 or m64n64)
+template <int D>
+__device__ __forceinline__ void product_acc(float (&acc)[D / 2],
                                             const uint32_t (&pk)[16],
                                             uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < TILE / 16; ++kk) {
     const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
                            pk[4 * kk + 3]};
-    wgmma_m64n128k16_rs<1>(acc, a, desc_mnmajor(b + kk * 16 * 128, TILE_HALF_BYTES),
-                           1);
+    wgmma_rs<1>(acc, a, desc_mnmajor(b + kk * 16 * 128, TILE_HALF_BYTES), 1);
   }
 }
 
-// A warpgroup's 64 x 128 f32 accumulator times `mul`, in bf16, through
-// its 64 rows of a two-half swizzled shared tile (`half_bytes` apart, no
-// longer read) to rows row0 .. row0 + 63 of a strided output; rows at or
-// past `rows` are dropped.
-__device__ __forceinline__ void store_rows(const float (&acc)[64], float mul,
+// A warpgroup's 64 x D f32 accumulator times `mul`, in bf16, through its
+// 64 rows of a swizzled shared tile (halves `half_bytes` apart, no longer
+// read) to rows row0 .. row0 + 63 of a strided output; rows at or past
+// `rows` are dropped.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float mul,
                                            uint8_t* tile, int half_bytes,
                                            __nv_bfloat16* out, long long stride,
                                            int row0, int rows, int bar_id) {
+  constexpr int NJ = D / 8;  // 8-column groups of a row
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int rl0 = warp * 16 + g;  // rl0 % 8 == (rl0 + 8) % 8 == g
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     uint8_t* chunk = tile + (j / 8) * half_bytes + (((j % 8) ^ g) * 16) + t * 4;
     *reinterpret_cast<uint32_t*>(chunk + rl0 * 128) =
         pack_f32(acc[4 * j] * mul, acc[4 * j + 1] * mul);
@@ -194,8 +222,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[64], float mul,
         pack_f32(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
   named_bar_sync(bar_id, 128);
-  for (int i = tid; i < 64 * 16; i += 128) {
-    const int rl = i / 16, j = i % 16;
+  for (int i = tid; i < 64 * NJ; i += 128) {
+    const int rl = i / NJ, j = i % NJ;
     if (row0 + rl < rows)
       *reinterpret_cast<uint4*>(out + (row0 + rl) * stride + j * 8) =
           *reinterpret_cast<const uint4*>(
@@ -203,17 +231,20 @@ __device__ __forceinline__ void store_rows(const float (&acc)[64], float mul,
   }
 }
 
+template <int D, bool SEG>  // head dim; whether segment ids mask P
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_seg,
                     const float* __restrict__ lse, const float* __restrict__ dd,
+                    const int* __restrict__ seg,
                     __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq,
                     int groups, long long row_stride, long long dq_sb,
                     long long dq_ss, long long dq_sh, float scale,
                     int causal) {
-  using C = DqCfg;
+  using C = DqCfg<D>;
   extern __shared__ uint8_t smem_raw[];
   // 128B-swizzled tiles start on 1024-byte boundaries
   const uint32_t raw = smem_u32(smem_raw);
@@ -244,23 +275,27 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       const int hk = h / groups;
-      mbar_arrive_expect_tx(bar_qd, 2 * OWN_BYTES);
-      tma_load_4d(sbase + C::OFF_Q, &tm_q, bar_qd, 0, h, q0, b);
-      tma_load_4d(sbase + C::OFF_Q + OWN_HALF_BYTES, &tm_q, bar_qd, 64, h, q0, b);
-      tma_load_4d(sbase + C::OFF_DO, &tm_do, bar_qd, 0, h, q0, b);
-      tma_load_4d(sbase + C::OFF_DO + OWN_HALF_BYTES, &tm_do, bar_qd, 64, h, q0, b);
+      mbar_arrive_expect_tx(bar_qd, 2 * C::OWN_BYTES);
+#pragma unroll
+      for (int hh = 0; hh < C::HALVES; ++hh) {
+        tma_load_4d(sbase + C::OFF_Q + hh * OWN_HALF_BYTES, &tm_q, bar_qd, 64 * hh, h, q0, b);
+        tma_load_4d(sbase + C::OFF_DO + hh * OWN_HALF_BYTES, &tm_do, bar_qd, 64 * hh, h, q0, b);
+      }
       for (int it = 0; it < n_tiles; ++it) {
         const int stage = it % C::STAGES;
         if (it >= C::STAGES) mbar_wait(bar_empty + 8 * stage, (it / C::STAGES - 1) & 1);
         const uint32_t full = bar_full + 8 * stage;
-        const uint32_t ks = sbase + C::OFF_K + stage * TILE_BYTES;
-        const uint32_t vs = sbase + C::OFF_V + stage * TILE_BYTES;
+        const uint32_t ks = sbase + C::OFF_K + stage * C::TILE_BYTES;
+        const uint32_t vs = sbase + C::OFF_V + stage * C::TILE_BYTES;
         const int k0 = it * TILE;
-        mbar_arrive_expect_tx(full, 2 * TILE_BYTES);
-        tma_load_4d(ks, &tm_k, full, 0, hk, k0, b);
-        tma_load_4d(ks + TILE_HALF_BYTES, &tm_k, full, 64, hk, k0, b);
-        tma_load_4d(vs, &tm_v, full, 0, hk, k0, b);
-        tma_load_4d(vs + TILE_HALF_BYTES, &tm_v, full, 64, hk, k0, b);
+        mbar_arrive_expect_tx(full, 2 * C::TILE_BYTES + (SEG ? C::IDS_BYTES : 0));
+#pragma unroll
+        for (int hh = 0; hh < C::HALVES; ++hh) {
+          tma_load_4d(ks + hh * TILE_HALF_BYTES, &tm_k, full, 64 * hh, hk, k0, b);
+          tma_load_4d(vs + hh * TILE_HALF_BYTES, &tm_v, full, 64 * hh, hk, k0, b);
+        }
+        if constexpr (SEG)
+          tma_load_2d(sbase + C::OFF_IDS + stage * C::IDS_BYTES, &tm_seg, full, k0, b);
       }
     }
   } else {
@@ -283,26 +318,33 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float scale_log2 = scale * LOG2E;
     // causal: this warpgroup's rows see no key past its last row
     const int my_tiles = ((causal ? min(Sk, wg_row0 + 64) : Sk) + TILE - 1) / TILE;
+    // this batch's segment ids (self-attention: one row for both sides)
+    int sg0 = 0, sg1 = 0;
+    if constexpr (SEG) {
+      const int* sg = seg + static_cast<long long>(b) * row_stride;
+      sg0 = r0 < Sq ? sg[r0] : 0;
+      sg1 = r1 < Sq ? sg[r1] : 0;
+    }
 
-    float acc[64];
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     uint32_t pk[16];
 
     mbar_wait(bar_qd, 0);
     for (int it = 0; it < my_tiles; ++it) {
       const int stage = it % C::STAGES;
       const int k0 = it * TILE;
-      const uint32_t ks = sbase + C::OFF_K + stage * TILE_BYTES;
-      const uint32_t vs = sbase + C::OFF_V + stage * TILE_BYTES;
+      const uint32_t ks = sbase + C::OFF_K + stage * C::TILE_BYTES;
+      const uint32_t vs = sbase + C::OFF_V + stage * C::TILE_BYTES;
       mbar_wait(bar_full + 8 * stage, (it / C::STAGES) & 1);
 
       // S = Q K^T and dP = dO V^T: 64 rows x 64 keys each
       float s[32], dp[32];
       wgmma_fence();
-      product_nt(s, opaque(sq), OWN_HALF_BYTES, ks);
+      product_nt<D>(s, opaque(sq), OWN_HALF_BYTES, ks);
       wgmma_commit();
-      product_nt(dp, opaque(sdo), OWN_HALF_BYTES, vs);
+      product_nt<D>(dp, opaque(sdo), OWN_HALF_BYTES, vs);
       wgmma_commit();
       wgmma_wait<1>();  // S, and the previous tile's dS K, are done
       fence_operands(s);
@@ -310,11 +352,16 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (it > 0 && tid % 128 == 0)
         mbar_arrive(bar_empty + 8 * ((it - 1) % C::STAGES));
 
-      // P = exp(scale S - lse) in base 2; masked only on a tile that
-      // crosses the diagonal or the sequence end
+      // P = exp(scale S - lse) in base 2; masked on a tile that crosses
+      // the diagonal or the sequence end, and on every tile under
+      // segment ids
       const bool edge = k0 + TILE > Sk || (causal && k0 + TILE - 1 > wg_row0);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        int2 kid = make_int2(0, 0);  // this tile's key ids, staged by the producer
+        if constexpr (SEG)
+          kid = *reinterpret_cast<const int2*>(smem + C::OFF_IDS + stage * C::IDS_BYTES +
+                                               4 * (8 * j + 2 * t));
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float p = fast_exp2(fmaf(s[4 * j + e], scale_log2, e < 2 ? -l0 : -l1));
@@ -322,6 +369,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int key = k0 + 8 * j + 2 * t + (e & 1);
             if (key >= Sk || (causal && key > (e < 2 ? r0 : r1))) p = 0.f;
           }
+          if constexpr (SEG)
+            if (((e & 1) ? kid.y : kid.x) != (e < 2 ? sg0 : sg1)) p = 0.f;
           s[4 * j + e] = p;
         }
       }
@@ -341,7 +390,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_operands(acc);
       fence_operands(pk);
       wgmma_fence();
-      product_acc(acc, pk, ks);
+      product_acc<D>(acc, pk, ks);
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -350,11 +399,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // ---------------- epilogue ----------------
     // dQ * scale over this warpgroup's Q rows (no longer read)
-    store_rows(acc, scale, smem + C::OFF_Q + cw * 64 * 128, OWN_HALF_BYTES,
-               dq + b * dq_sb + h * dq_sh, dq_ss, wg_row0, Sq, 1 + cw);
+    store_rows<D>(acc, scale, smem + C::OFF_Q + cw * 64 * 128, OWN_HALF_BYTES,
+                  dq + b * dq_sb + h * dq_sh, dq_ss, wg_row0, Sq, 1 + cw);
   }
 }
 
+template <int D, bool SEG>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -362,12 +412,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_do,
                      const __grid_constant__ CUtensorMap tm_lse,
                      const __grid_constant__ CUtensorMap tm_dd,
+                     const __grid_constant__ CUtensorMap tm_seg,
+                     const int* __restrict__ seg, long long row_stride,
                      __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int Hq,
                      int groups, long long dk_sb, long long dk_ss,
                      long long dk_sh, long long dv_sb, long long dv_ss,
                      long long dv_sh, float scale, int causal) {
-  using C = DkvCfg;
+  using C = DkvCfg<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
@@ -397,11 +449,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---------------- producer warpgroup ----------------
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(bar_kv, 2 * OWN_BYTES);
-      tma_load_4d(sbase + C::OFF_K, &tm_k, bar_kv, 0, hk, k0, b);
-      tma_load_4d(sbase + C::OFF_K + OWN_HALF_BYTES, &tm_k, bar_kv, 64, hk, k0, b);
-      tma_load_4d(sbase + C::OFF_V, &tm_v, bar_kv, 0, hk, k0, b);
-      tma_load_4d(sbase + C::OFF_V + OWN_HALF_BYTES, &tm_v, bar_kv, 64, hk, k0, b);
+      mbar_arrive_expect_tx(bar_kv, 2 * C::OWN_BYTES);
+#pragma unroll
+      for (int hh = 0; hh < C::HALVES; ++hh) {
+        tma_load_4d(sbase + C::OFF_K + hh * OWN_HALF_BYTES, &tm_k, bar_kv, 64 * hh, hk, k0, b);
+        tma_load_4d(sbase + C::OFF_V + hh * OWN_HALF_BYTES, &tm_v, bar_kv, 64 * hh, hk, k0, b);
+      }
       int it = 0;
       for (int j = 0; j < groups; ++j) {  // the query heads of this kv head
         const int h = hk * groups + j;
@@ -409,17 +462,19 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int stage = it % C::STAGES;
           if (it >= C::STAGES) mbar_wait(bar_empty + 8 * stage, (it / C::STAGES - 1) & 1);
           const uint32_t full = bar_full + 8 * stage;
-          const uint32_t qs = sbase + C::OFF_Q + stage * TILE_BYTES;
-          const uint32_t dos = sbase + C::OFF_DO + stage * TILE_BYTES;
+          const uint32_t qs = sbase + C::OFF_Q + stage * C::TILE_BYTES;
+          const uint32_t dos = sbase + C::OFF_DO + stage * C::TILE_BYTES;
           const uint32_t rows = sbase + C::OFF_ROWS + stage * C::ROWS_BYTES;
           const int q0 = q_begin + i * TILE;
-          mbar_arrive_expect_tx(full, 2 * TILE_BYTES + C::ROWS_BYTES);
-          tma_load_4d(qs, &tm_q, full, 0, h, q0, b);
-          tma_load_4d(qs + TILE_HALF_BYTES, &tm_q, full, 64, h, q0, b);
-          tma_load_4d(dos, &tm_do, full, 0, h, q0, b);
-          tma_load_4d(dos + TILE_HALF_BYTES, &tm_do, full, 64, h, q0, b);
+          mbar_arrive_expect_tx(full, 2 * C::TILE_BYTES + (SEG ? 3 : 2) * TILE * 4);
+#pragma unroll
+          for (int hh = 0; hh < C::HALVES; ++hh) {
+            tma_load_4d(qs + hh * TILE_HALF_BYTES, &tm_q, full, 64 * hh, h, q0, b);
+            tma_load_4d(dos + hh * TILE_HALF_BYTES, &tm_do, full, 64 * hh, h, q0, b);
+          }
           tma_load_2d(rows, &tm_lse, full, q0, b * Hq + h);
           tma_load_2d(rows + TILE * 4, &tm_dd, full, q0, b * Hq + h);
+          if constexpr (SEG) tma_load_2d(rows + 2 * TILE * 4, &tm_seg, full, q0, b);
         }
       }
     }
@@ -436,10 +491,17 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t skw = sbase + C::OFF_K + cw * 64 * 128;  // its keys in half 0
     const uint32_t svw = sbase + C::OFF_V + cw * 64 * 128;
     const float scale_log2 = scale * LOG2E;
+    // this batch's segment ids (self-attention: one row for both sides)
+    int sg0 = 0, sg1 = 0;
+    if constexpr (SEG) {
+      const int* sg = seg + static_cast<long long>(b) * row_stride;
+      sg0 = key0 < Sk ? sg[key0] : 0;
+      sg1 = key1 < Sk ? sg[key1] : 0;
+    }
 
-    float dka[64], dva[64];
+    float dka[D / 2], dva[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
     uint32_t pp[16], pd[16];  // P^T and dS^T packed to bf16
 
     mbar_wait(bar_kv, 0);
@@ -454,24 +516,26 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (tid % 128 == 0) mbar_arrive(bar_empty + 8 * stage);
           continue;
         }
-        const uint32_t qs = sbase + C::OFF_Q + stage * TILE_BYTES;
-        const uint32_t dos = sbase + C::OFF_DO + stage * TILE_BYTES;
+        const uint32_t qs = sbase + C::OFF_Q + stage * C::TILE_BYTES;
+        const uint32_t dos = sbase + C::OFF_DO + stage * C::TILE_BYTES;
         const float* ls = reinterpret_cast<const float*>(
             smem + C::OFF_ROWS + stage * C::ROWS_BYTES);  // the tile's lse
-        const float* ds = ls + TILE;                      // and its D
+        const float* ds = ls + TILE;                      // its D
+        const int* si = reinterpret_cast<const int*>(ds + TILE);  // its ids
 
         // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each
         float s[32], dp[32];
         wgmma_fence();
-        product_nt(s, opaque(skw), OWN_HALF_BYTES, qs);
-        product_nt(dp, opaque(svw), OWN_HALF_BYTES, dos);
+        product_nt<D>(s, opaque(skw), OWN_HALF_BYTES, qs);
+        product_nt<D>(dp, opaque(svw), OWN_HALF_BYTES, dos);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(s);
         fence_operands(dp);
 
         // P^T = exp(scale S^T - lse) in base 2, each column its query's
-        // lse, masked only on a tile that crosses the diagonal or an end;
+        // lse, masked on a tile that crosses the diagonal or an end, and on
+        // every tile under segment ids;
         // dS^T = P^T (dP^T - D) from the f32 P^T; both packed to bf16 as
         // they are formed, so the f32 tiles die as the packed ones grow
         const bool edge = q0 + TILE > Sq || kw0 + 64 > Sk ||
@@ -480,6 +544,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int jn = 0; jn < 8; ++jn) {
           const float2 l = *reinterpret_cast<const float2*>(ls + 8 * jn + 2 * t);
           const float2 dc = *reinterpret_cast<const float2*>(ds + 8 * jn + 2 * t);
+          int2 qi = make_int2(0, 0);
+          if constexpr (SEG) qi = *reinterpret_cast<const int2*>(si + 8 * jn + 2 * t);
           float p[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -490,6 +556,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
               const int key = e < 2 ? key0 : key1;
               if (q >= Sq || key >= Sk || (causal && key > q)) p[e] = 0.f;
             }
+            if constexpr (SEG)
+              if (((e & 1) ? qi.y : qi.x) != (e < 2 ? sg0 : sg1)) p[e] = 0.f;
           }
           pp[2 * jn] = pack_f32(p[0], p[1]);
           pp[2 * jn + 1] = pack_f32(p[2], p[3]);
@@ -504,8 +572,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_operands(pp);
         fence_operands(pd);
         wgmma_fence();
-        product_acc(dva, pp, dos);
-        product_acc(dka, pd, qs);
+        product_acc<D>(dva, pp, dos);
+        product_acc<D>(dka, pd, qs);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dva);
@@ -518,11 +586,75 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // ---------------- epilogue ----------------
     // dK * scale and dV over this warpgroup's K and V rows (no longer read)
-    store_rows(dka, scale, smem + C::OFF_K + cw * 64 * 128, OWN_HALF_BYTES,
-               dk + b * dk_sb + hk * dk_sh, dk_ss, kw0, Sk, 1 + cw);
-    store_rows(dva, 1.f, smem + C::OFF_V + cw * 64 * 128, OWN_HALF_BYTES,
-               dv + b * dv_sb + hk * dv_sh, dv_ss, kw0, Sk, 1 + cw);
+    store_rows<D>(dka, scale, smem + C::OFF_K + cw * 64 * 128, OWN_HALF_BYTES,
+                  dk + b * dk_sb + hk * dk_sh, dk_ss, kw0, Sk, 1 + cw);
+    store_rows<D>(dva, 1.f, smem + C::OFF_V + cw * 64 * 128, OWN_HALF_BYTES,
+                  dv + b * dv_sb + hk * dv_sh, dv_ss, kw0, Sk, 1 + cw);
   }
+}
+
+template <int D, bool SEG>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* dd, const int* seg, void* dq, int B,
+              int Sq, int Sk, int Hq, int Hkv, long long q_sb, long long q_ss,
+              long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+              long long v_sb, long long v_ss, long long v_sh, long long do_sb,
+              long long do_ss, long long do_sh, long long dq_sb, long long dq_ss,
+              long long dq_sh, long long row_stride, float scale, int causal,
+              cudaStream_t stream) {
+  using C = DqCfg<D>;
+  CUtensorMap tq, tk, tv, tdo, tsg = {};
+  int err = make_bshd_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, OWN_ROWS);
+  if (!err) err = make_bshd_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, TILE);
+  if (!err) err = make_bshd_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, TILE);
+  if (!err) err = make_bshd_map(&tdo, dout, B, Sq, Hq, D, do_sb, do_ss, do_sh, OWN_ROWS);
+  if (!err && seg != nullptr)
+    err = make_rows_map(&tsg, seg, B, Sk, row_stride, TILE, CU_TENSOR_MAP_DATA_TYPE_INT32);
+  if (err) return err;
+  static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
+  const cudaError_t attr =
+      hopper::set_smem_limit_once(flash_bwd_dq_kernel<D, SEG>, C::SMEM, smem_set);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(Hq, B, (Sq + OWN_ROWS - 1) / OWN_ROWS);
+  flash_bwd_dq_kernel<D, SEG><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, tsg, static_cast<const float*>(lse),
+      static_cast<const float*>(dd), seg, static_cast<__nv_bfloat16*>(dq), Sq,
+      Sk, Hq, Hq / Hkv, row_stride, dq_sb, dq_ss, dq_sh, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool SEG>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* dd, const int* seg, void* dk,
+               void* dv, int B, int Sq, int Sk, int Hq, int Hkv, long long q_sb,
+               long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+               long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+               long long do_sb, long long do_ss, long long do_sh,
+               long long dk_sb, long long dk_ss, long long dk_sh,
+               long long dv_sb, long long dv_ss, long long dv_sh,
+               long long row_stride, float scale, int causal,
+               cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  CUtensorMap tq, tk, tv, tdo, tl, tdd, tsg = {};
+  int err = make_bshd_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, TILE);
+  if (!err) err = make_bshd_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, OWN_ROWS);
+  if (!err) err = make_bshd_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, OWN_ROWS);
+  if (!err) err = make_bshd_map(&tdo, dout, B, Sq, Hq, D, do_sb, do_ss, do_sh, TILE);
+  if (!err) err = make_rows_map(&tl, lse, B * Hq, Sq, row_stride, TILE);
+  if (!err) err = make_rows_map(&tdd, dd, B * Hq, Sq, row_stride, TILE);
+  if (!err && seg != nullptr)
+    err = make_rows_map(&tsg, seg, B, Sq, row_stride, TILE, CU_TENSOR_MAP_DATA_TYPE_INT32);
+  if (err) return err;
+  static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
+  const cudaError_t attr =
+      hopper::set_smem_limit_once(flash_bwd_dkv_kernel<D, SEG>, C::SMEM, smem_set);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((Sk + OWN_ROWS - 1) / OWN_ROWS, Hkv, B);
+  flash_bwd_dkv_kernel<D, SEG><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, tl, tdd, tsg, seg, row_stride, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Sq, Sk, Hq, Hq / Hkv, dk_sb, dk_ss,
+      dk_sh, dv_sb, dv_ss, dv_sh, scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -531,82 +663,67 @@ extern "C" const char* k8s_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// the dynamic shared memory of one block: kernel 0 = K2 (dq), 1 = K3
-extern "C" int k8s_flash_bwd_smem_bytes(int kernel) {
-  return kernel == 0 ? DqCfg::SMEM : DkvCfg::SMEM;
+// the dynamic shared memory of one block at head dim `d`: kernel 0 = K2
+// (dq), 1 = K3 (bytes; 0 for a head dim with no instance)
+extern "C" int k8s_flash_bwd_smem_bytes(int kernel, int d) {
+  if (d == 128) return kernel == 0 ? DqCfg<128>::SMEM : DkvCfg<128>::SMEM;
+  if (d == 64) return kernel == 0 ? DqCfg<64>::SMEM : DkvCfg<64>::SMEM;
+  return 0;
 }
 
 // K2. q/dout/dq [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (bf16, strided: unit
 // stride on D, other strides multiples of 8 elements, q/k/v/dout bases
 // 16-byte aligned — TMA's rules); lse and dd [B, Hq, Sq] f32 with rows
-// `row_stride` (a multiple of 4, >= Sq) elements apart. Causal requires
-// Sq == Sk. Built for D = 128; anything else returns
+// `row_stride` (a multiple of 4, >= Sq) elements apart; seg [B, Sq]
+// int32 with rows `row_stride` apart too, or null, which needs Sq == Sk.
+// Causal requires
+// Sq == Sk. Built for D = 128 and D = 64; anything else returns
 // cudaErrorInvalidValue.
 extern "C" int k8s_flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* dd, void* dq, int B, int Sq, int Sk, int Hq,
-    int Hkv, int D_, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long do_sb, long long do_ss,
-    long long do_sh, long long dq_sb, long long dq_ss, long long dq_sh,
-    long long row_stride, float scale, int causal, void* stream) {
-  using C = DqCfg;
-  if (D_ != D || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-      row_stride % 4 || row_stride < Sq)
+    const void* lse, const void* dd, const void* seg, void* dq, int B, int Sq,
+    int Sk, int Hq, int Hkv, int D_, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long do_sb,
+    long long do_ss, long long do_sh, long long dq_sb, long long dq_ss,
+    long long dq_sh, long long row_stride, float scale, int causal,
+    void* stream) {
+  if ((D_ != 128 && D_ != 64) || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
+      row_stride % 4 || row_stride < Sq || (seg != nullptr && Sq != Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  CUtensorMap tq, tk, tv, tdo;
-  int err = make_bshd_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, OWN_ROWS);
-  if (!err) err = make_bshd_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, TILE);
-  if (!err) err = make_bshd_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, TILE);
-  if (!err) err = make_bshd_map(&tdo, dout, B, Sq, Hq, D, do_sb, do_ss, do_sh, OWN_ROWS);
-  if (err) return err;
-  static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
-  const cudaError_t attr =
-      hopper::set_smem_limit_once(flash_bwd_dq_kernel, C::SMEM, smem_set);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(Hq, B, (Sq + OWN_ROWS - 1) / OWN_ROWS);
-  flash_bwd_dq_kernel
-      <<<grid, THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
-          tq, tk, tv, tdo, static_cast<const float*>(lse),
-          static_cast<const float*>(dd), static_cast<__nv_bfloat16*>(dq), Sq,
-          Sk, Hq, Hq / Hkv, row_stride, dq_sb, dq_ss, dq_sh, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  const int* sg = static_cast<const int*>(seg);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool s_ = sg != nullptr;
+  return (D_ == 128 ? (s_ ? launch_dq<128, true> : launch_dq<128, false>)
+                    : (s_ ? launch_dq<64, true> : launch_dq<64, false>))(
+      q, k, v, dout, lse, dd, sg, dq, B, Sq, Sk, Hq, Hkv, q_sb, q_ss, q_sh,
+      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss,
+      dq_sh, row_stride, scale, causal, s);
 }
 
 // K3. Shapes and rules as K2; dk/dv [B, Sk, Hkv, D] bf16 (strided), each
 // written once with the sum over the Hq / Hkv query heads of its group.
 extern "C" int k8s_flash_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* dd, void* dk, void* dv, int B, int Sq, int Sk,
-    int Hq, int Hkv, int D_, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long do_sb, long long do_ss,
-    long long do_sh, long long dk_sb, long long dk_ss, long long dk_sh,
-    long long dv_sb, long long dv_ss, long long dv_sh, long long row_stride,
-    float scale, int causal, void* stream) {
-  using C = DkvCfg;
-  if (D_ != D || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-      row_stride % 4 || row_stride < Sq)
+    const void* lse, const void* dd, const void* seg, void* dk, void* dv,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D_, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long do_sb, long long do_ss, long long do_sh, long long dk_sb,
+    long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
+    long long dv_sh, long long row_stride, float scale, int causal,
+    void* stream) {
+  if ((D_ != 128 && D_ != 64) || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
+      row_stride % 4 || row_stride < Sq || (seg != nullptr && Sq != Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  CUtensorMap tq, tk, tv, tdo, tl, tdd;
-  int err = make_bshd_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, TILE);
-  if (!err) err = make_bshd_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, OWN_ROWS);
-  if (!err) err = make_bshd_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, OWN_ROWS);
-  if (!err) err = make_bshd_map(&tdo, dout, B, Sq, Hq, D, do_sb, do_ss, do_sh, TILE);
-  if (!err) err = make_rows_map(&tl, lse, B * Hq, Sq, row_stride, TILE);
-  if (!err) err = make_rows_map(&tdd, dd, B * Hq, Sq, row_stride, TILE);
-  if (err) return err;
-  static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
-  const cudaError_t attr =
-      hopper::set_smem_limit_once(flash_bwd_dkv_kernel, C::SMEM, smem_set);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((Sk + OWN_ROWS - 1) / OWN_ROWS, Hkv, B);
-  flash_bwd_dkv_kernel
-      <<<grid, THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
-          tq, tk, tv, tdo, tl, tdd, static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), Sq, Sk, Hq, Hq / Hkv, dk_sb, dk_ss,
-          dk_sh, dv_sb, dv_ss, dv_sh, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  const int* sg = static_cast<const int*>(seg);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool s_ = sg != nullptr;
+  return (D_ == 128 ? (s_ ? launch_dkv<128, true> : launch_dkv<128, false>)
+                    : (s_ ? launch_dkv<64, true> : launch_dkv<64, false>))(
+      q, k, v, dout, lse, dd, sg, dk, dv, B, Sq, Sk, Hq, Hkv, q_sb, q_ss,
+      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dk_sb,
+      dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, row_stride, scale, causal, s);
 }

@@ -34,10 +34,26 @@
 //   16-byte stores, rows past Sq dropped; lse = (m2 + log2 l) * ln 2, the
 //   natural-log value the backward kernels (flash_bwd.cu) read.
 //
-// Two instances, chosen per call by the wrapper (ops/attention.py
+// - Segment ids (optional: a null pointer means none): one int32 row per
+//   batch (rows `seg_stride` apart, a multiple of 4), shared by queries
+//   and keys (self-attention, Sq == Sk). Query row i sees key j only when
+//   their ids are equal — the Pallas _segment_mask (packed documents;
+//   BERT's padding mask, 1 real, 0 pad). Each consumer thread reads its
+//   two rows' ids once; the producer stages each key tile's 128 ids in
+//   shared memory with the tile (a rank-2 TMA box, zeros past Sk), and
+//   every tile is masked, not only the edge ones. (Per-thread loads of
+//   the 32 column ids from global memory made K1 2.2x slower at
+//   BERT-base's shape on an H100.) A tile may hide every key from some
+//   rows: their running max stays where it was (or -inf), and the guard
+//   on the max keeps the rescale finite.
+//
+// Instances: the head dim D (128: two 64-wide swizzled halves per row;
+// 64: one half, so half the Q K^T k-steps and an N-64 P V product), with
+// or without segment ids (the instance without holds no mask code), and
+// two tile configs, chosen per call by the wrapper (ops/attention.py
 // _flash_fwd_config): two consumer warpgroups (BLOCK_M 128, 384 threads,
-// 160 KB of shared memory) for long sequences, one (BLOCK_M 64, 256
-// threads) when 128-row tiles would leave SMs idle.
+// 160 KB of shared memory at D 128) for long sequences, one (BLOCK_M 64,
+// 256 threads) when 128-row tiles would leave SMs idle.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,22 +66,24 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 128;        // head dim: two 64-wide swizzled halves
 constexpr int BLOCK_N = 128;  // keys per K/V tile
 constexpr int STAGES = 2;     // K/V ring depth
 constexpr int KV_HALF_BYTES = BLOCK_N * 128;  // one 64-column half of a tile
-constexpr int KV_TILE_BYTES = 2 * KV_HALF_BYTES;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int NC>  // consumer warpgroups
+template <int D, int NC>  // head dim (64 or 128), consumer warpgroups
 struct Cfg {
+  static constexpr int HALVES = D / 64;  // 64-column swizzled halves per row
+  static constexpr int KV_TILE_BYTES = HALVES * KV_HALF_BYTES;
   static constexpr int BLOCK_M = 64 * NC;
   static constexpr int THREADS = 128 * (NC + 1);
   static constexpr int Q_HALF_BYTES = BLOCK_M * 128;
-  static constexpr int Q_BYTES = 2 * Q_HALF_BYTES;
+  static constexpr int Q_BYTES = HALVES * Q_HALF_BYTES;
   static constexpr int OFF_K = Q_BYTES;
   static constexpr int OFF_V = OFF_K + STAGES * KV_TILE_BYTES;
-  static constexpr int OFF_BAR = OFF_V + STAGES * KV_TILE_BYTES;
+  static constexpr int IDS_BYTES = BLOCK_N * 4;  // one key tile's segment ids
+  static constexpr int OFF_IDS = OFF_V + STAGES * KV_TILE_BYTES;
+  static constexpr int OFF_BAR = OFF_IDS + STAGES * IDS_BYTES;
   // q barrier, full[STAGES], empty[STAGES]; + slack to align to 1024
   static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
@@ -75,16 +93,19 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int NC>
-__global__ void __launch_bounds__(Cfg<NC>::THREADS, 1)
+template <int D, int NC, bool SEG>  // + whether segment ids mask S
+__global__ void __launch_bounds__(Cfg<D, NC>::THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_seg,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int Sq, int Sk, int Hq, int groups, long long o_sb,
-                 long long o_ss, long long o_sh, float scale_log2,
-                 int causal) {
-  using C = Cfg<NC>;
+                 const int* __restrict__ seg, long long seg_stride, int Sq,
+                 int Sk, int Hq,
+                 int groups, long long o_sb, long long o_ss, long long o_sh,
+                 float scale_log2, int causal) {
+  using C = Cfg<D, NC>;
+  constexpr int NJ = D / 8;  // 8-column groups of an output row
   extern __shared__ uint8_t smem_raw[];
   // 128B-swizzled tiles start on 1024-byte boundaries
   const uint32_t raw = smem_u32(smem_raw);
@@ -116,20 +137,24 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       const int hk = h / groups;
       mbar_arrive_expect_tx(bar_q, C::Q_BYTES);
-      tma_load_4d(sbase, &tm_q, bar_q, 0, h, q0, b);
-      tma_load_4d(sbase + C::Q_HALF_BYTES, &tm_q, bar_q, 64, h, q0, b);
+#pragma unroll
+      for (int hh = 0; hh < C::HALVES; ++hh)
+        tma_load_4d(sbase + hh * C::Q_HALF_BYTES, &tm_q, bar_q, 64 * hh, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int stage = it % STAGES;
         if (it >= STAGES) mbar_wait(bar_empty + 8 * stage, (it / STAGES - 1) & 1);
         const uint32_t full = bar_full + 8 * stage;
-        const uint32_t ks = sbase + C::OFF_K + stage * KV_TILE_BYTES;
-        const uint32_t vs = sbase + C::OFF_V + stage * KV_TILE_BYTES;
+        const uint32_t ks = sbase + C::OFF_K + stage * C::KV_TILE_BYTES;
+        const uint32_t vs = sbase + C::OFF_V + stage * C::KV_TILE_BYTES;
         const int k0 = it * BLOCK_N;
-        mbar_arrive_expect_tx(full, 2 * KV_TILE_BYTES);
-        tma_load_4d(ks, &tm_k, full, 0, hk, k0, b);
-        tma_load_4d(ks + KV_HALF_BYTES, &tm_k, full, 64, hk, k0, b);
-        tma_load_4d(vs, &tm_v, full, 0, hk, k0, b);
-        tma_load_4d(vs + KV_HALF_BYTES, &tm_v, full, 64, hk, k0, b);
+        mbar_arrive_expect_tx(full, 2 * C::KV_TILE_BYTES + (SEG ? C::IDS_BYTES : 0));
+#pragma unroll
+        for (int hh = 0; hh < C::HALVES; ++hh) {
+          tma_load_4d(ks + hh * KV_HALF_BYTES, &tm_k, full, 64 * hh, hk, k0, b);
+          tma_load_4d(vs + hh * KV_HALF_BYTES, &tm_v, full, 64 * hh, hk, k0, b);
+        }
+        if constexpr (SEG)
+          tma_load_2d(sbase + C::OFF_IDS + stage * C::IDS_BYTES, &tm_seg, full, k0, b);
       }
     }
   } else {
@@ -143,10 +168,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r0 = wg_row0 + warp * 16 + g;  // d[4j + 0, 1]; r0 + 8: d[4j + 2, 3]
     const int r1 = r0 + 8;
     const uint32_t sq = sbase + cw * 64 * 128;  // its Q rows in half 0
+    // this batch's segment ids (self-attention: one row for both sides)
+    int sg0 = 0, sg1 = 0;
+    if constexpr (SEG) {
+      const int* sg = seg + static_cast<long long>(b) * seg_stride;
+      sg0 = r0 < Sq ? sg[r0] : 0;
+      sg1 = r1 < Sq ? sg[r1] : 0;
+    }
 
-    float acc[64];
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY;  // running max of the raw scores
     float l0 = 0.f, l1 = 0.f;  // running sums over this thread's columns
 
@@ -154,11 +186,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int it = 0; it < n_tiles; ++it) {
       const int stage = it % STAGES;
       const int k0 = it * BLOCK_N;
-      const uint32_t ks = sbase + C::OFF_K + stage * KV_TILE_BYTES;
-      const uint32_t vs = sbase + C::OFF_V + stage * KV_TILE_BYTES;
+      const uint32_t ks = sbase + C::OFF_K + stage * C::KV_TILE_BYTES;
+      const uint32_t vs = sbase + C::OFF_V + stage * C::KV_TILE_BYTES;
       mbar_wait(bar_full + 8 * stage, (it / STAGES) & 1);
 
-      // S = Q K^T: 64 rows x 128 keys, 8 k steps over the head dim
+      // S = Q K^T: 64 rows x 128 keys, D / 16 k steps over the head dim
       float s[64];
       wgmma_fence();
 #pragma unroll
@@ -172,15 +204,22 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_operands(s);
 
-      // mask only a tile that crosses the diagonal or the sequence end
-      if (k0 + BLOCK_N > Sk || (causal && k0 + BLOCK_N - 1 > wg_row0)) {
+      // mask a tile that crosses the diagonal or the sequence end, and
+      // every tile under segment ids
+      if (SEG || k0 + BLOCK_N > Sk || (causal && k0 + BLOCK_N - 1 > wg_row0)) {
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
+          int2 kid = make_int2(0, 0);  // this tile's key ids, staged by the producer
+          if constexpr (SEG)
+            kid = *reinterpret_cast<const int2*>(smem + C::OFF_IDS + stage * C::IDS_BYTES +
+                                                 4 * (8 * j + 2 * t));
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * j + 2 * t + (e & 1);
             const int row = e < 2 ? r0 : r1;
-            if (key >= Sk || (causal && key > row)) s[4 * j + e] = -INFINITY;
+            bool hide = key >= Sk || (causal && key > row);
+            if constexpr (SEG) hide = hide || ((e & 1) ? kid.y : kid.x) != (e < 2 ? sg0 : sg1);
+            if (hide) s[4 * j + e] = -INFINITY;
           }
         }
       }
@@ -220,7 +259,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       l0 = l0 * corr0 + ls0;
       l1 = l1 * corr1 + ls1;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         acc[4 * j] *= corr0;
         acc[4 * j + 1] *= corr0;
         acc[4 * j + 2] *= corr1;
@@ -235,8 +274,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                p[4 * kk + 3]};
-        wgmma_m64n128k16_rs<1>(
-            acc, a, desc_mnmajor(vs + kk * 16 * 128, KV_HALF_BYTES), 1);
+        wgmma_rs<1>(acc, a, desc_mnmajor(vs + kk * 16 * 128, KV_HALF_BYTES), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -254,11 +292,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     l1 = fmaxf(l1, 1e-30f);
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     // O in bf16 over this warpgroup's Q rows (no longer read), in the
-    // same swizzled two-half layout
+    // same swizzled layout
     uint8_t* so = smem + cw * 64 * 128;
     const int rl0 = warp * 16 + g;  // rl0 % 8 == (rl0 + 8) % 8 == g
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       uint8_t* chunk = so + (j / 8) * C::Q_HALF_BYTES + (((j % 8) ^ g) * 16) + t * 4;
       *reinterpret_cast<uint32_t*>(chunk + rl0 * 128) =
           pack_f32(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
@@ -267,8 +305,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     named_bar_sync(1 + cw, 128);
     __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
-    for (int i = tid % 128; i < 64 * 16; i += 128) {
-      const int rl = i / 16, j = i % 16;
+    for (int i = tid % 128; i < 64 * NJ; i += 128) {
+      const int rl = i / NJ, j = i % NJ;
       const int row = wg_row0 + rl;
       if (row < Sq)
         *reinterpret_cast<uint4*>(ob + row * o_ss + j * 8) =
@@ -283,20 +321,30 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int NC>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* o, void* lse, int B, int Sq, int Sk, int Hq, int groups,
-           long long o_sb, long long o_ss, long long o_sh, float scale_log2,
-           int causal, cudaStream_t stream) {
-  using C = Cfg<NC>;
+template <int D, int NC, bool SEG>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           const int* seg, long long seg_stride, int B, int Sq, int Sk, int Hq,
+           int Hkv,
+           long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+           long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+           long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+           float scale_log2, int causal, cudaStream_t stream) {
+  using C = Cfg<D, NC>;
+  CUtensorMap tq, tk, tv, tsg = {};
+  int err = make_bshd_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, C::BLOCK_M);
+  if (!err) err = make_bshd_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, BLOCK_N);
+  if (!err) err = make_bshd_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, BLOCK_N);
+  if (!err && seg != nullptr)
+    err = make_rows_map(&tsg, seg, B, Sk, seg_stride, BLOCK_N, CU_TENSOR_MAP_DATA_TYPE_INT32);
+  if (err) return err;
   static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
   const cudaError_t attr =
-      hopper::set_smem_limit_once(flash_fwd_kernel<NC>, C::SMEM, smem_set);
+      hopper::set_smem_limit_once(flash_fwd_kernel<D, NC, SEG>, C::SMEM, smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(Hq, B, (Sq + C::BLOCK_M - 1) / C::BLOCK_M);
-  flash_fwd_kernel<NC><<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      Sq, Sk, Hq, groups, o_sb, o_ss, o_sh, scale_log2, causal);
+  flash_fwd_kernel<D, NC, SEG><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tsg, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      seg, seg_stride, Sq, Sk, Hq, Hq / Hkv, o_sb, o_ss, o_sh, scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,39 +354,48 @@ extern "C" const char* k8s_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// the dynamic shared memory of one block of tile config `config` (bytes)
-extern "C" int k8s_flash_fwd_smem_bytes(int config) {
-  return config == 0 ? Cfg<2>::SMEM : Cfg<1>::SMEM;
+// the dynamic shared memory of one block of tile config `config` at head
+// dim `d` (bytes; 0 for a head dim with no instance)
+extern "C" int k8s_flash_fwd_smem_bytes(int config, int d) {
+  if (d == 128) return config == 0 ? Cfg<128, 2>::SMEM : Cfg<128, 1>::SMEM;
+  if (d == 64) return config == 0 ? Cfg<64, 2>::SMEM : Cfg<64, 1>::SMEM;
+  return 0;
 }
 
 // q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (bf16, strided: unit stride on D,
 // other strides multiples of 8 elements, bases 16-byte aligned — TMA's
-// rules), o like q, lse [B, Hq, Sq] f32 or null. Causal requires
-// Sq == Sk; scale > 0. config 0: 128-row query tiles (two consumer
-// warpgroups), 1: 64-row tiles (one). Built for D = 128 (Llama-3-8B);
-// anything else returns cudaErrorInvalidValue.
+// rules), o like q, lse [B, Hq, Sq] f32 or null, seg [B, Sq] int32 with
+// rows `seg_stride` (a multiple of 4, >= Sq) elements apart, or null;
+// segment ids need Sq == Sk. Causal requires Sq == Sk;
+// scale > 0. config 0: 128-row query tiles (two consumer warpgroups), 1:
+// 64-row tiles (one). Built for D = 128 (Llama-3-8B) and D = 64
+// (BERT-base); anything else returns cudaErrorInvalidValue.
 extern "C" int k8s_flash_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int Sq, int Sk, int Hq, int Hkv, int D_, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, float scale, int causal, int config,
-    void* stream) {
-  if (D_ != D || Hkv <= 0 || Hq % Hkv || !(scale > 0.f) || Sk <= 0 ||
-      (config != 0 && config != 1))
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* seg, long long seg_stride, int B, int Sq, int Sk, int Hq,
+    int Hkv, int D_,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    float scale, int causal, int config, void* stream) {
+  if ((D_ != 128 && D_ != 64) || Hkv <= 0 || Hq % Hkv || !(scale > 0.f) ||
+      Sk <= 0 || (config != 0 && config != 1) ||
+      (seg != nullptr && (Sq != Sk || seg_stride % 4 || seg_stride < Sq)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return 0;
-  const int block_m = config == 0 ? Cfg<2>::BLOCK_M : Cfg<1>::BLOCK_M;
-  CUtensorMap tq, tk, tv;
-  int err = make_bshd_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, block_m);
-  if (!err) err = make_bshd_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, BLOCK_N);
-  if (!err) err = make_bshd_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, BLOCK_N);
-  if (err) return err;
   const float scale_log2 = scale * 1.4426950408889634f;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return config == 0
-             ? launch<2>(tq, tk, tv, o, lse, B, Sq, Sk, Hq, Hq / Hkv, o_sb, o_ss,
-                         o_sh, scale_log2, causal, s)
-             : launch<1>(tq, tk, tv, o, lse, B, Sq, Sk, Hq, Hq / Hkv, o_sb, o_ss,
-                         o_sh, scale_log2, causal, s);
+  const int* sg = static_cast<const int*>(seg);
+#define K8S_FLASH_FWD_LAUNCH(DD, NC)                                         \
+  (sg != nullptr ? K8S_FLASH_FWD_LAUNCH_SEG(DD, NC, true)                    \
+                 : K8S_FLASH_FWD_LAUNCH_SEG(DD, NC, false))
+#define K8S_FLASH_FWD_LAUNCH_SEG(DD, NC, SG)                                 \
+  launch<DD, NC, SG>(q, k, v, o, lse, sg, seg_stride, B, Sq, Sk, Hq, Hkv,    \
+                     q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,   \
+                     o_sb, o_ss, o_sh, scale_log2, causal, s)
+  if (D_ == 128)
+    return config == 0 ? K8S_FLASH_FWD_LAUNCH(128, 2) : K8S_FLASH_FWD_LAUNCH(128, 1);
+  return config == 0 ? K8S_FLASH_FWD_LAUNCH(64, 2) : K8S_FLASH_FWD_LAUNCH(64, 1);
+#undef K8S_FLASH_FWD_LAUNCH
+#undef K8S_FLASH_FWD_LAUNCH_SEG
 }

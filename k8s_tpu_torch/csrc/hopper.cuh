@@ -7,7 +7,8 @@
 // Shared-memory layout used throughout: a tile of rows x 64 bf16 that
 // TMA loads with CU_TENSOR_MAP_SWIZZLE_128B — each row 128 bytes, its
 // 16-byte chunks XOR-ed with (row % 8), the tile starting on a 1024-byte
-// boundary. A 128-wide row (head dim 128) is two such tiles ("halves").
+// boundary. A 128-wide row (head dim 128) is two such tiles ("halves"),
+// a 64-wide row (head dim 64) one.
 // wgmma reads it through a descriptor (layout type 128B swizzle):
 //
 // - K-major (the contraction dim contiguous, e.g. Q and K for Q K^T):
@@ -15,7 +16,8 @@
 //   into the 128-byte row, and the next 64 columns are the next half.
 // - MN-major (the output dim contiguous, e.g. V for P V, with the
 //   transpose flag on B): 8 k-rows per 1024-byte group (SBO 1024), the
-//   two 64-wide output halves LBO bytes apart (the half's size).
+//   two 64-wide output halves LBO bytes apart (the half's size); a
+//   64-wide output is one half, and its product (N 64) reads no LBO.
 //
 // Everything here is host- or device-inline; a kernel source includes
 // it, and _kernels.library_path hashes it with the source.
@@ -110,12 +112,14 @@ inline int make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// A rank-2 map over an f32 row tensor [rows, S] whose rows lie
-// `row_stride` elements apart (a multiple of 4: TMA's 16-byte stride
-// rule), read in boxes of `box` consecutive elements of one row, no
-// swizzle. Elements past S read as zeros. Returns a cudaError_t code.
+// A rank-2 map over a row tensor [rows, S] of 4-byte elements (f32, or
+// int32 with `type`) whose rows lie `row_stride` elements apart (a
+// multiple of 4: TMA's 16-byte stride rule), read in boxes of `box`
+// consecutive elements of one row, no swizzle. Elements past S read as
+// zeros. Returns a cudaError_t code.
 inline int make_rows_map(CUtensorMap* map, const void* base, int rows, int S,
-                         long long row_stride, int box) {
+                         long long row_stride, int box,
+                         CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t dims[2] = {(cuuint64_t)S, (cuuint64_t)rows};
@@ -123,7 +127,7 @@ inline int make_rows_map(CUtensorMap* map, const void* base, int rows, int S,
   cuuint32_t boxes[2] = {(cuuint32_t)box, 1};
   cuuint32_t elem_strides[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+      map, type, 2, const_cast<void*>(base), dims,
       strides, boxes, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -331,6 +335,31 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
+// D[64 x 64] (f32) (+)= A[64 x 16] * B[16 x 64], A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory;
+// TRANS_B = 1 for an MN-major B (one 64-wide half: its LBO is not read).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TRANS_B));
+}
+
 // D[64 x 128] (f32) (+)= A[64 x 16] * B[16 x 128], A from registers (the
 // m16n8k16 A fragment of each warp's 16 rows), B from shared memory;
 // TRANS_B = 1 for an MN-major B.
@@ -363,6 +392,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(TRANS_B));
+}
+
+// D[64 x N] (+)= A[64 x 16] (registers) * B[16 x N] (shared memory),
+// N = 128 or 64 by the accumulator's size: the product of a head-dim-wide
+// output (D 128 or 64) in the flash kernels.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_m64n128k16_rs<TRANS_B>(d, a, desc_b, scale_d);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_m64n64k16_rs<TRANS_B>(d, a, desc_b, scale_d);
 }
 
 }  // namespace hopper

@@ -1,6 +1,6 @@
 """Weights for the port's models: conversion from flax trees (the Llama,
-the ResNet with its batch stats, the MNIST CNN), and the Llama's random
-initialization from a seed.
+the ResNet with its batch stats, the MNIST CNN, BERT), and the Llama's
+random initialization from a seed.
 
 The Llama's two return a ``{name: tensor}`` dict keyed like
 ``LlamaForCausalLM.named_parameters()``, for
@@ -197,4 +197,48 @@ def mnist_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         out[f"conv_{j}.weight"] = _conv_weight(conv["kernel"])
         out[f"conv_{j}.bias"] = _to_torch(conv["bias"])
         _linear(out, f"dense_{j}", params[f"Dense_{j}"])
+    return out
+
+
+def bert_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``BertForPretraining``'s ``params`` tree (numpy, unboxed) ->
+    the port's ``{name: tensor}`` dict for
+    :meth:`~k8s_tpu_torch.models.bert.BertForPretraining.load_params`,
+    f32: the embeddings' ``embedding`` tables (``type_embed`` only when
+    the flax model was initialized with token types), the LayerNorms'
+    ``scale``/``bias``, and each Dense's ``kernel`` flattened to ``[in,
+    out]`` over its input axes with its ``bias`` flattened to ``[out]``
+    (q/k/v ``[E, H, D]`` -> ``[E, H*D]``, ``qkv_proj`` ``[E, 3, H, D]`` ->
+    ``[E, 3*H*D]``, ``o_proj`` ``[H, D, E]`` -> ``[H*D, E]``). The same
+    map carries a gradient tree of the flax model."""
+    def dense(name: str, sub: Mapping, n_in: int) -> None:
+        k = _to_torch(sub["kernel"])
+        out[name + ".kernel"] = k.reshape(math.prod(k.shape[:n_in]), -1)
+        out[name + ".bias"] = _to_torch(sub["bias"]).reshape(-1)
+
+    def norm(name: str, sub: Mapping) -> None:
+        out[name + ".scale"] = _to_torch(sub["scale"])
+        out[name + ".bias"] = _to_torch(sub["bias"])
+
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("tok_embed", "pos_embed", "type_embed"):
+        if name in params:
+            out[name] = _to_torch(params[name]["embedding"])
+    norm("ln_embed", params["ln_embed"])
+    n = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n):
+        layer, pre = params[f"layer_{i}"], f"layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "qkv_proj"):
+            if name in layer:
+                dense(pre + name, layer[name], 1)
+        dense(pre + "o_proj", layer["o_proj"], 2)
+        dense(pre + "fc_in", layer["fc_in"], 1)
+        dense(pre + "fc_out", layer["fc_out"], 1)
+        norm(pre + "ln_attn", layer["ln_attn"])
+        norm(pre + "ln_mlp", layer["ln_mlp"])
+    for name in ("mlm_head", "nsp_head", "mlm_transform", "pooler"):
+        if name in params:
+            dense(name, params[name], 1)
+    if "mlm_transform_ln" in params:
+        norm("mlm_transform_ln", params["mlm_transform_ln"])
     return out

@@ -78,6 +78,7 @@ from torch.utils.checkpoint import (
 from k8s_tpu_torch import resolve_device
 from k8s_tpu_torch.ops.attention import (
     DECODE_GROUPS,
+    DECODE_HEAD_DIMS,
     FLASH_OP,
     KERNEL_HEAD_DIMS,
     NEG_INF,
@@ -313,12 +314,12 @@ def _use_kernel_decode(cfg: LlamaConfig) -> bool:
     """Decode-kernel gate (the JAX ``_use_pallas_decode``), re-derived for
     CUDA: the head dim, group size and dtype the kernel of the config's
     cache is built for — the bf16 decode kernel, or with ``kv_quant=
-    "int8"`` the int8-KV one, both instantiated for KERNEL_HEAD_DIMS and
+    "int8"`` the int8-KV one, both instantiated for DECODE_HEAD_DIMS and
     DECODE_GROUPS with bf16 queries. The JAX gate's VMEM slab budget is
     gone (the kernels stream the cache rows they need), and so are its
     backend test and the int8 cache's ``S % 32`` rule (Mosaic tiling):
     on a CPU tensor the wrapper runs the plain version."""
-    return (cfg.head_dim in KERNEL_HEAD_DIMS
+    return (cfg.head_dim in DECODE_HEAD_DIMS
             and cfg.num_heads // cfg.num_kv_heads in DECODE_GROUPS
             and cfg.dtype == torch.bfloat16)
 
@@ -329,7 +330,7 @@ def check_cuda_config(cfg: LlamaConfig) -> None:
     flash kernels (forward and backward), built for bf16 at head dims
     KERNEL_HEAD_DIMS with the group size taken at run time; a decode
     config also the decode kernels (bf16 or int8 KV), instantiated per
-    group size (DECODE_GROUPS)."""
+    head dim and group size (DECODE_HEAD_DIMS, DECODE_GROUPS)."""
     ok = (cfg.head_dim in KERNEL_HEAD_DIMS and cfg.dtype == torch.bfloat16
           and cfg.num_heads % cfg.num_kv_heads == 0)
     family = "flash kernels (K1-K3)"
@@ -338,7 +339,7 @@ def check_cuda_config(cfg: LlamaConfig) -> None:
     if cfg.decode:
         ok = ok and _use_kernel_decode(cfg)
         family = "decode kernels (K4, K5)"
-        built = (f"bfloat16, head_dim in {KERNEL_HEAD_DIMS}, q heads per kv "
+        built = (f"bfloat16, head_dim in {DECODE_HEAD_DIMS}, q heads per kv "
                  f"head in {DECODE_GROUPS}")
     if not ok:
         raise ValueError(

@@ -43,24 +43,25 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # library name -> (source file, {C entry point: argtypes})
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", {
-        # q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D,
-        # q/k/v/o strides (batch, seq, head), scale, causal, tile config,
-        # stream
-        "k8s_flash_fwd_bf16": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _I, _I, _P],
-        # tile config -> dynamic shared memory per block (bytes)
-        "k8s_flash_fwd_smem_bytes": [_I],
+        # q, k, v, o, lse (or null), segment ids (or null), their row
+        # stride, B, Sq, Sk, Hq, Hkv, D, q/k/v/o strides (batch, seq,
+        # head), scale, causal, tile config, stream
+        "k8s_flash_fwd_bf16": [_P] * 6 + [_L] + [_I] * 6 + [_L] * 12 + [_F, _I, _I, _P],
+        # tile config, head dim -> dynamic shared memory per block (bytes)
+        "k8s_flash_fwd_smem_bytes": [_I, _I],
     }),
     "flash_bwd": ("flash_bwd.cu", {
-        # q, k, v, dout, lse, dd, dq, B, Sq, Sk, Hq, Hkv, D,
-        # q/k/v/dout/dq strides (batch, seq, head), lse/dd row stride,
-        # scale, causal, stream
-        "k8s_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_L] * 16 + [_F, _I, _P],
-        # q, k, v, dout, lse, dd, dk, dv, B, Sq, Sk, Hq, Hkv, D,
-        # q/k/v/dout/dk/dv strides (batch, seq, head), lse/dd row stride,
-        # scale, causal, stream
-        "k8s_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_L] * 19 + [_F, _I, _P],
-        # kernel (0: dq, 1: dk/dv) -> dynamic shared memory per block (bytes)
-        "k8s_flash_bwd_smem_bytes": [_I],
+        # q, k, v, dout, lse, dd, segment ids (or null), dq, B, Sq, Sk,
+        # Hq, Hkv, D, q/k/v/dout/dq strides (batch, seq, head), lse/dd row
+        # stride, scale, causal, stream
+        "k8s_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 6 + [_L] * 16 + [_F, _I, _P],
+        # q, k, v, dout, lse, dd, segment ids (or null), dk, dv, B, Sq, Sk,
+        # Hq, Hkv, D, q/k/v/dout/dk/dv strides (batch, seq, head), lse/dd
+        # row stride, scale, causal, stream
+        "k8s_flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 6 + [_L] * 19 + [_F, _I, _P],
+        # kernel (0: dq, 1: dk/dv), head dim -> dynamic shared memory per
+        # block (bytes)
+        "k8s_flash_bwd_smem_bytes": [_I, _I],
     }),
     "decode_attn": ("decode_attn.cu", {
         # q, k_new, v_new, k_cache, v_cache, pos, partial out, partial

@@ -5,13 +5,15 @@ Five kernels, each beside its plain PyTorch version:
 - :func:`flash_fwd` — blockwise online-softmax attention forward
   (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel``: TMA
   loads and ``wgmma`` products, with a tile size chosen per call by
-  :func:`_flash_fwd_config`). The engine's one-shot prefill of a fresh
-  cache and every training forward run it.
+  :func:`_flash_fwd_config`), at head dims 64 and 128, causal or not,
+  with optional segment ids (one ``[B, S]`` row for queries and keys:
+  the Pallas ``_segment_mask``). The engine's one-shot prefill of a
+  fresh cache and every training forward (Llama's and BERT's) run it.
 - :func:`flash_bwd` — the flash backward: dQ (``_bwd_dq_kernel``) and
   dK/dV summed over the GQA group in registers (``_bwd_dkv_kernel``),
   both in ``csrc/flash_bwd.cu`` (TMA loads and ``wgmma`` products, no
-  atomics), recomputing P from the forward's logsumexp. Every training
-  backward runs them.
+  atomics), recomputing P from the forward's logsumexp, with the
+  forward's segment ids. Every training backward runs them.
 - :func:`decode_attention_update` — ragged single-token decode with the
   in-place cache append (``csrc/decode_attn.cu``, replacing the Pallas
   ``_decode_attn_kernel``): blocks over splits of the cache rows, of a
@@ -56,10 +58,14 @@ import torch
 from k8s_tpu_torch.ops import _kernels
 
 NEG_INF = -1e30
-# head dims the CUDA kernels are instantiated for (Llama-3-8B's; add an
-# instance in csrc/ when a ported config needs another)
-KERNEL_HEAD_DIMS = (128,)
-# query heads per kv head the decode kernel is instantiated for
+# head dims the flash kernels (K1-K3) are instantiated for: BERT-base's
+# and Llama-3-8B's (add an instance in csrc/ when a ported config needs
+# another). :func:`flash_attention` sends a head dim that is not a
+# multiple of 64 to :func:`mha_reference`, as the JAX gate does.
+KERNEL_HEAD_DIMS = (64, 128)
+# head dims and query heads per kv head the decode kernels (K4, K5) are
+# instantiated for
+DECODE_HEAD_DIMS = (128,)
 DECODE_GROUPS = (4,)
 # csrc/flash_fwd.cu's two instances: config -> (query rows, keys) per
 # block. 0 runs two consumer warpgroups, 1 one.
@@ -107,10 +113,30 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def flash_fwd_plain(q, k, v, causal: bool, scale: float):
-    """The flash kernel's plain version: ``(out, lse [B, Hq, Sq] f32)``."""
-    out, lse = _attention_f32(q, k, v, causal, scale)
+def flash_fwd_plain(q, k, v, causal: bool, scale: float, segment_ids=None):
+    """The flash kernel's plain version: ``(out, lse [B, Hq, Sq] f32)``.
+    ``segment_ids`` [B, S] (self-attention) hide key j from query i when
+    their ids differ (the score set to the finite NEG_INF, as in the JAX
+    reference). A row with no visible key is garbage by contract; with
+    segment ids every row sees its own key."""
+    out, lse = _attention_f32(q, k, v, causal, scale, segment_ids)
     return out.to(q.dtype), lse
+
+
+def _segment_rows(segment_ids, q: torch.Tensor, sk: int) -> Optional[torch.Tensor]:
+    """``segment_ids`` as the kernels read them: int32 [B, S] rows on q's
+    device, padded to :func:`_tma_row_stride` (a TMA map reads them; None
+    stays None). Self-attention only."""
+    if segment_ids is None:
+        return None
+    b, sq = q.shape[0], q.shape[1]
+    if sq != sk or tuple(segment_ids.shape) != (b, sq) \
+            or segment_ids.device != q.device:
+        raise ValueError(
+            f"segment_ids must be [B, S] = ({b}, {sq}) on {q.device} with "
+            f"Sq == Sk (got {tuple(segment_ids.shape)} on "
+            f"{segment_ids.device}, Sk={sk})")
+    return _tma_rows(segment_ids.to(torch.int32).contiguous())
 
 
 def _check_bhsd(name: str, x: torch.Tensor) -> None:
@@ -155,13 +181,14 @@ def poison_shared_memory(device, smem_bytes: Optional[int] = None) -> int:
     return int(smem_bytes)
 
 
-def flash_smem_bytes(kernel: str, config: int = 0) -> int:
-    """Dynamic shared memory per block of a flash kernel: ``"fwd"`` (K1,
-    tile ``config``), ``"dq"`` (K2) or ``"dkv"`` (K3)."""
+def flash_smem_bytes(kernel: str, config: int = 0, d: int = 128) -> int:
+    """Dynamic shared memory per block of a flash kernel at head dim
+    ``d``: ``"fwd"`` (K1, tile ``config``), ``"dq"`` (K2) or ``"dkv"``
+    (K3)."""
     if kernel == "fwd":
-        return int(_kernels.lib("flash_fwd").k8s_flash_fwd_smem_bytes(config))
+        return int(_kernels.lib("flash_fwd").k8s_flash_fwd_smem_bytes(config, d))
     return int(_kernels.lib("flash_bwd").k8s_flash_bwd_smem_bytes(
-        {"dq": 0, "dkv": 1}[kernel]))
+        {"dq": 0, "dkv": 1}[kernel], d))
 
 
 def _flash_fwd_config(b: int, sq: int, hq: int) -> int:
@@ -175,19 +202,22 @@ def _flash_fwd_config(b: int, sq: int, hq: int) -> int:
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float, with_lse: bool = False,
-              config: Optional[int] = None):
-    """Flash attention forward. q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D];
-    returns ``out`` (q's layout and dtype), or ``(out, lse [B, Hq,
-    Sq] f32)`` with ``with_lse``. On a CUDA tensor this launches
-    ``csrc/flash_fwd.cu`` (bf16, D in KERNEL_HEAD_DIMS, causal only with
-    Sq == Sk, scale > 0) with the tiles of ``config`` — None takes
-    :func:`_flash_fwd_config`'s choice; the tests and chip_smoke.py's
-    sweep force each — or raises; on a CPU tensor it runs the plain
-    version (in f32 when given f32)."""
+              config: Optional[int] = None,
+              segment_ids: Optional[torch.Tensor] = None):
+    """Flash attention forward. q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D],
+    optional ``segment_ids`` [B, S] (self-attention: query i sees key j
+    only when their ids are equal); returns ``out`` (q's layout and
+    dtype), or ``(out, lse [B, Hq, Sq] f32)`` with ``with_lse``. On a
+    CUDA tensor this launches ``csrc/flash_fwd.cu`` (bf16, D in
+    KERNEL_HEAD_DIMS, causal only with Sq == Sk, scale > 0) with the
+    tiles of ``config`` — None takes :func:`_flash_fwd_config`'s choice;
+    the tests and chip_smoke.py's sweep force each — or raises; on a CPU
+    tensor it runs the plain version (in f32 when given f32)."""
     if q.device.type == "cpu":
-        out, lse = flash_fwd_plain(q, k, v, causal, scale)
+        out, lse = flash_fwd_plain(q, k, v, causal, scale, segment_ids)
         return (out, lse) if with_lse else out
     _check_kernel_shapes("flash_fwd", q, k, v, causal)
+    seg = _segment_rows(segment_ids, q, k.shape[1])
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -204,6 +234,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("flash_fwd", "k8s_flash_fwd_bf16", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
+            seg.data_ptr() if seg is not None else None, _tma_row_stride(sq),
             b, sq, sk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], float(scale), int(bool(causal)), config)
@@ -221,13 +252,16 @@ def compute_dd(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool, scale: float):
+def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool, scale: float,
+                    segment_ids=None):
     """The backward kernels' plain version, from their formulas, in f32:
     P = exp(scale Q K^T - lse), dP = dO V^T, dS = P (dP - D) with D from
     :func:`compute_dd`; dQ = scale dS K, and per kv head dK = scale dS^T Q
     and dV = P^T dO summed over its group of query heads. Returns
     ``(dq, dk, dv)`` in q's, k's and v's dtypes. Causal masking is
-    ``tril(k=sk-sq)``, as in the forward."""
+    ``tril(k=sk-sq)``, as in the forward; ``segment_ids`` [B, S] zero P
+    where a query's and a key's ids differ (the JAX kernels' NEG_INF
+    score, exp(NEG_INF - lse) = 0)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -241,6 +275,10 @@ def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool, scale: float):
         mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
             diagonal=sk - sq)
         p = p.masked_fill(~mask, 0.0)
+    if segment_ids is not None:
+        seg = segment_ids.to(torch.int32)
+        visible = seg[:, :, None] == seg[:, None, :]  # [B, Sq, Sk]
+        p = p.masked_fill(~visible[:, None, None], 0.0)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
     ds = p * (dp - dd[..., None])
     dq = scale * torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
@@ -279,25 +317,29 @@ def _tma_row_stride(sq: int) -> int:
 
 
 def _tma_rows(x: torch.Tensor) -> torch.Tensor:
-    """``x [B, Hq, Sq]`` with its rows padded to :func:`_tma_row_stride`
-    (a copy only when Sq is not a multiple of 4; the kernels never read
-    the padding)."""
+    """``x [..., Sq]`` (lse or D ``[B, Hq, Sq]``, segment ids ``[B, Sq]``)
+    with its rows padded to :func:`_tma_row_stride` (a copy only when Sq
+    is not a multiple of 4; the kernels never read the padding)."""
     pad = _tma_row_stride(x.shape[-1]) - x.shape[-1]
     return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-              causal: bool, scale: float):
+              causal: bool, scale: float,
+              segment_ids: Optional[torch.Tensor] = None):
     """Flash attention backward: ``(dq, dk, dv)`` in the layouts and
     dtypes of q, k and v, from the forward's ``out`` and ``lse [B, Hq,
-    Sq]`` and the output gradient ``dout``. On a CUDA tensor this
-    computes D (:func:`compute_dd`) and launches ``csrc/flash_bwd.cu``'s
-    dq and dk/dv kernels (bf16, D in KERNEL_HEAD_DIMS, causal only with
-    Sq == Sk) or raises; on a CPU tensor it runs the plain version."""
+    Sq]`` and the output gradient ``dout`` (with the forward's
+    ``segment_ids``, if any). On a CUDA tensor this computes D
+    (:func:`compute_dd`) and launches ``csrc/flash_bwd.cu``'s dq and dk/dv
+    kernels (bf16, D in KERNEL_HEAD_DIMS, causal only with Sq == Sk) or
+    raises; on a CPU tensor it runs the plain version."""
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, out, lse, dout, causal, scale)
+        return flash_bwd_plain(q, k, v, out, lse, dout, causal, scale,
+                               segment_ids)
     _check_kernel_shapes("flash_bwd", q, k, v, causal)
+    seg = _segment_rows(segment_ids, q, k.shape[1])
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
@@ -314,7 +356,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     _launch("flash_bwd", "k8s_flash_bwd_dq_bf16", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(),
+            seg.data_ptr() if seg is not None else None, dq.data_ptr(),
             b, sq, sk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], *dq.stride()[:3], row_stride,
@@ -322,8 +365,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_bwd.launches_dq += 1
     _launch("flash_bwd", "k8s_flash_bwd_dkv_bf16", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, sk, hq, hkv, d,
+            lse.data_ptr(), dd.data_ptr(),
+            seg.data_ptr() if seg is not None else None,
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
             row_stride, float(scale), int(bool(causal)))
@@ -337,30 +381,33 @@ flash_bwd.launches_dkv = 0
 
 @torch.library.custom_op("k8s_tpu_torch::flash_attention", mutates_args=())
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+              segment_ids: Optional[torch.Tensor], causal: bool,
+              scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward as one dispatcher-visible op: ``(out, lse)``."""
-    return flash_fwd(q, k, v, causal, scale, with_lse=True)
+    return flash_fwd(q, k, v, causal, scale, with_lse=True,
+                     segment_ids=segment_ids)
 
 
 @_flash_op.register_fake
-def _(q, k, v, causal, scale):
+def _(q, k, v, segment_ids, causal, scale):
     b, sq, hq, _ = q.shape
     return (torch.empty_like(q),
             q.new_empty((b, hq, sq), dtype=torch.float32))
 
 
 def _flash_op_setup(ctx, inputs, output):
-    q, k, v, causal, scale = inputs
+    q, k, v, segment_ids, causal, scale = inputs
     out, lse = output
-    ctx.save_for_backward(q, k, v, out, lse)
+    # segment ids are a non-differentiable input, kept for the backward
+    ctx.save_for_backward(q, k, v, out, lse, segment_ids)
     ctx.causal, ctx.scale = causal, scale
 
 
 def _flash_op_backward(ctx, dout, _dlse):
-    q, k, v, out, lse = ctx.saved_tensors
+    q, k, v, out, lse, segment_ids = ctx.saved_tensors
     dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal,
-                           ctx.scale)
-    return dq, dk, dv, None, None
+                           ctx.scale, segment_ids)
+    return dq, dk, dv, None, None, None
 
 
 _flash_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
@@ -370,12 +417,15 @@ FLASH_OP = torch.ops.k8s_tpu_torch.flash_attention.default
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           causal: bool, scale: float) -> torch.Tensor:
+                           causal: bool, scale: float,
+                           segment_ids: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Differentiable flash attention through the kernels: the forward
     (:func:`flash_fwd`, which also writes lse) and, under autograd,
-    :func:`flash_bwd` from the saved q, k, v, ``out`` and ``lse``. On CPU
-    tensors both run their plain versions (the CPU tests use that)."""
-    out, _ = _flash_op(q, k, v, bool(causal), float(scale))
+    :func:`flash_bwd` from the saved q, k, v, ``out``, ``lse`` and
+    ``segment_ids``. On CPU tensors both run their plain versions (the
+    CPU tests use that)."""
+    out, _ = _flash_op(q, k, v, segment_ids, bool(causal), float(scale))
     return out
 
 
@@ -385,16 +435,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head attention, [B, S, H, D] layout, GQA-aware,
     differentiable.
 
+    ``segment_ids`` ([B, S] int, self-attention) mask attention across
+    segment boundaries: key j is visible to query i iff their ids match
+    (composed with causal). They cover padding (1 real, 0 pad) and packed
+    sequences; outputs at rows with no visible key are garbage.
+
     The gate, re-derived for CUDA from the JAX one: CPU tensors take
     :func:`mha_reference` (under autograd, as the JAX package's off-TPU
-    path); CUDA tensors take the kernels — :func:`flash_attention_kernel`
-    (K1 forward, K2 and K3 backward) under autograd, K1 alone
-    (:func:`flash_fwd`) for inference — which serve bf16 at a head dim they
-    are built for, and causal only when ``sq == sk`` (their mask has no
-    diagonal offset). Anything else on the card — another dtype or head
-    dim, segment ids — raises rather than running the plain path there.
-    The TPU's Mosaic 128-alignment and block-fitting conditions are
-    gone: the kernels mask their own ragged tail.
+    path). On CUDA tensors a head dim that is not a multiple of 64 takes
+    :func:`mha_reference` too — the JAX gate's ``d % 64`` sends it to the
+    XLA path, off every Pallas kernel — a choice by shape made before any
+    launch; every other call takes the kernels:
+    :func:`flash_attention_kernel` (K1 forward, K2 and K3 backward) under
+    autograd, K1 alone (:func:`flash_fwd`) for inference. They serve bf16
+    at a head dim they are built for (KERNEL_HEAD_DIMS), and causal only
+    when ``sq == sk`` (their mask has no diagonal offset); anything else
+    — another dtype, a multiple of 64 with no instance (192, 256) —
+    raises rather than running the plain path there. The TPU's Mosaic
+    128-alignment and block-fitting conditions are gone: the kernels mask
+    their own ragged tail.
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -405,15 +464,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"segment_ids requires self-attention lengths, got sq={sq} "
             f"sk={sk}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or d % 64:
         return mha_reference(q, k, v, causal, scale, segment_ids=segment_ids)
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "flash_attention: the CUDA kernel has no segment-id masking yet")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return flash_attention_kernel(q, k, v, causal, scale)
-    return flash_fwd(q, k, v, causal, scale)  # inference: no lse to keep
+        return flash_attention_kernel(q, k, v, causal, scale, segment_ids)
+    # inference: no lse to keep
+    return flash_fwd(q, k, v, causal, scale, segment_ids=segment_ids)
 
 
 def _split_extents(mesh, batch_axes, head_axis) -> Tuple[int, int]:
@@ -600,7 +657,7 @@ def decode_attention_update(q: torch.Tensor, k_new: torch.Tensor,
             raise ValueError(f"decode_attention_update: {name} must be "
                              f"contiguous bfloat16, got {x.dtype}")
     groups = hq // hkv
-    if (d not in KERNEL_HEAD_DIMS or hq % hkv or groups not in DECODE_GROUPS
+    if (d not in DECODE_HEAD_DIMS or hq % hkv or groups not in DECODE_GROUPS
             or tuple(k_new.shape) != (b, hkv, d)
             or v_new.shape != k_new.shape or v_cache.shape != k_cache.shape):
         raise ValueError(
@@ -716,7 +773,7 @@ def decode_attention_update_q8(q: torch.Tensor, k_new: torch.Tensor,
             raise ValueError(f"decode_attention_update_q8: {name} must be "
                              f"contiguous {dt}, got {x.dtype}")
     groups = hq // hkv
-    if (d not in KERNEL_HEAD_DIMS or hq % hkv or groups not in DECODE_GROUPS
+    if (d not in DECODE_HEAD_DIMS or hq % hkv or groups not in DECODE_GROUPS
             or tuple(k_new.shape) != (b, hkv, d)
             or v_new.shape != k_new.shape or v_cache.shape != k_cache.shape
             or tuple(k_scale.shape) != (b, hkv, s)

@@ -538,7 +538,9 @@ def create_sharded_state(model: nn.Module, optimizer: OptimizerSpec, mesh,
                          weight_decay: float = 0.1) -> TrainState:
     """The state of ``model`` (its parameters loaded) laid out over
     ``mesh`` by ``rules`` (``LogicalRules.DP``, ``.FSDP`` or
-    ``.FSDP_TP``) and the ZeRO stage, with its optimizer (AdamW's
+    ``.FSDP_TP``; ``.TP``, bert_train's table, only on a mesh whose
+    ``tensor`` axis is one rank, where it lays the state out as ``.DP``
+    does) and the ZeRO stage, with its optimizer (AdamW's
     learning rate, or a function from the parameters to the optimizer).
     Every rank calls it with the same parameters. The ZeRO ladder slices
     AdamW's moments, so a stage above 0 takes AdamW's learning rate and
@@ -559,9 +561,15 @@ def create_sharded_state(model: nn.Module, optimizer: OptimizerSpec, mesh,
     fsdp = rules["embed"] == "fsdp"
     tensor = rules["heads"] == "tensor"
     if tensor and not fsdp:
-        raise NotImplementedError(
-            "LogicalRules.TP lays out tensor-parallel serving, which is not "
-            "ported to k8s_tpu_torch yet (ROADMAP A15); train with FSDP_TP")
+        if sizes["tensor"] != 1:
+            raise NotImplementedError(
+                "LogicalRules.TP on a tensor axis of more than one rank lays "
+                "out tensor-parallel serving and BERT's tensor-parallel "
+                "training, which are not ported to k8s_tpu_torch yet "
+                "(ROADMAP A15, A16); train with FSDP_TP")
+        # bert_train's table on a one-rank tensor axis: every rule maps to
+        # an axis of size 1 but the batch's, so the layout is dp's
+        tensor = False
     if sizes["tensor"] != 1 and not tensor:
         raise ValueError(f"mesh {sizes} has a tensor axis that the rules "
                          "map no parameter to (train with FSDP_TP)")

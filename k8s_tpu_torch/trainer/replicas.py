@@ -79,7 +79,6 @@ _JAX_MODULE = re.compile(r"(?<![\w.])k8s_tpu\.")
 PORT_PACKAGE = "k8s_tpu_torch."
 # programs of the JAX package the port does not have yet, by ROADMAP item
 _UNPORTED_PROGRAMS = {
-    "bert_train": "A9.2 (BERT)",
     "router": "A12.5 (the serving fleet and router, with A15)",
 }
 

@@ -55,6 +55,9 @@ def _events(out: str):
 def _set_env(monkeypatch, root):
     for key in CKPT_ENV:
         monkeypatch.delenv(key, raising=False)
+    # set (not aware, as unset), so that the undo unsets what the
+    # programs' mark_preempt_aware sets
+    monkeypatch.setenv("KTPU_PREEMPT_AWARE", "0")
     monkeypatch.setenv("KTPU_CKPT_LOCAL_DIR", str(root))
     monkeypatch.setenv("KTPU_CKPT_LOCAL_EVERY", "2")
     monkeypatch.setenv("KTPU_CKPT_LOCAL_KEEP", "1")
@@ -334,6 +337,8 @@ def test_generate_serves_the_trained_params(tmp_path, monkeypatch, capsys):
 
     for key in CKPT_ENV:
         monkeypatch.delenv(key, raising=False)
+    # set, so that the test's end unsets what mark_preempt_aware sets
+    monkeypatch.setenv("KTPU_PREEMPT_AWARE", "0")
     summary = llama_train.main(types.SimpleNamespace(
         process_id=0, program_args=f"{TINY} --steps=4 --checkpoint_dir={tmp_path}"))
     capsys.readouterr()

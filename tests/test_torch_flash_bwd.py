@@ -81,8 +81,16 @@ def _bf16(x):
     return x.bfloat16().float()
 
 
-def _emulate_dq(q, k, v, do, lse, dd, causal, scale):
-    """K2's algorithm on f32 copies of bf16 inputs: dq [B, Sq, Hq, D]."""
+def _seg_rows(seg, bb, start, n):
+    """Segment ids of rows start .. start + n of batch bb, 0 past the end
+    (masked there anyway)."""
+    return _rows(seg[bb, :, None].float(), start, n)[:, 0]
+
+
+def _emulate_dq(q, k, v, do, lse, dd, causal, scale, seg=None):
+    """K2's algorithm on f32 copies of bf16 inputs: dq [B, Sq, Hq, D].
+    With segment ids ``seg`` [B, S] P is zeroed on every tile where a
+    row's and a key's ids differ."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     sl2 = scale * LOG2E
@@ -105,6 +113,10 @@ def _emulate_dq(q, k, v, do, lse, dd, causal, scale):
                     if causal:
                         hide = hide | (key[None] > row[:, None])
                     p = p.masked_fill(hide, 0.0)
+                if seg is not None:
+                    other = (_seg_rows(seg, bb, k0, TILE)[None]
+                             != _seg_rows(seg, bb, r0, 64)[:, None])
+                    p = p.masked_fill(other, 0.0)
                 ds = p * (dot @ vt.T - dr[:, None])
                 acc += _bf16(ds) @ kt
             n = max(0, min(64, sq - r0))
@@ -112,9 +124,11 @@ def _emulate_dq(q, k, v, do, lse, dd, causal, scale):
     return dq
 
 
-def _emulate_dkv(q, k, v, do, lse, dd, causal, scale):
+def _emulate_dkv(q, k, v, do, lse, dd, causal, scale, seg=None):
     """K3's algorithm on f32 copies of bf16 inputs: (dk, dv) [B, Sk, Hkv,
-    D], each summed over the kv head's query heads."""
+    D], each summed over the kv head's query heads; segment ids as in
+    :func:`_emulate_dq` (K3 reads the query tile's ids staged beside its
+    lse and D rows)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -141,6 +155,10 @@ def _emulate_dkv(q, k, v, do, lse, dd, causal, scale):
                         if causal:
                             hide = hide | (key[:, None] > qi[None])
                         pt = pt.masked_fill(hide, 0.0)
+                    if seg is not None:
+                        other = (_seg_rows(seg, bb, kw0, 64)[:, None]
+                                 != _seg_rows(seg, bb, q0, TILE)[None])
+                        pt = pt.masked_fill(other, 0.0)
                     dva += _bf16(pt) @ dot
                     dst = pt * (vt @ dot.T - dc[None])
                     dka += _bf16(dst) @ qt
@@ -235,6 +253,45 @@ def test_flash_bwd_emulation_matches_plain_and_jax(sq, sk, hq, hkv, causal):
         for name, x, ref, fl in zip(("dq", "dk", "dv"), (dq, dk, dv), want, floors):
             assert torch.isfinite(x).all(), name
             assert _row_err(x, ref, fl) <= ROW_TOL, (name, _row_err(x, ref, fl))
+
+
+@pytest.mark.parametrize("d,hq,hkv,causal", [(64, 2, 2, False), (64, 4, 2, True),
+                                             (128, 4, 2, True)])
+def test_flash_bwd_emulation_with_segment_ids_matches_plain_and_jax(d, hq, hkv, causal):
+    """Segment ids (three documents per row, cut inside and across the
+    64-row tiles), B 2, S 200, at head dims 64 and 128; the JAX side in
+    interpret mode with one block per sequence."""
+    b, s = 2, 200
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do = _bf16_inputs(d + hq + 1, b, s, s, hq, hkv, d)
+    seg = torch.zeros(b, s, dtype=torch.int32)
+    seg[0, :70], seg[0, 70:90], seg[0, 90:] = 1, 2, 3
+    seg[1, :10], seg[1, 10:150], seg[1, 150:] = 1, 2, 3
+    jq, jk, jv, jdo = (jnp.asarray(x.numpy()) for x in (q, k, v, do))
+    jseg = jnp.asarray(seg.numpy())
+    j_out, j_lse = jattn._flash_forward(jq, jk, jv, causal, scale, s, s,
+                                        interpret=True, with_residuals=True,
+                                        segment_ids=jseg)
+    j_dd = jattn.compute_dd(j_out, jdo)
+    jax_grads = [torch.from_numpy(np.array(x)) for x in jattn._flash_backward(
+        jq, jk, jv, j_dd, j_lse, jdo, causal, scale, s, s, interpret=True,
+        segment_ids=jseg)]
+    out = torch.from_numpy(np.array(j_out))
+    lse = torch.from_numpy(np.array(j_lse)).reshape(b, hq, s)
+    plain = tattn.flash_bwd_plain(q, k, v, out, lse, do, causal, scale, seg)
+    for x, y in zip(plain, jax_grads):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=2e-5)
+    dd = tattn.compute_dd(out, do)
+    dq = _emulate_dq(q, k, v, do, lse, dd, causal, scale, seg)
+    dk, dv = _emulate_dkv(q, k, v, do, lse, dd, causal, scale, seg)
+    for want in (plain, jax_grads):
+        for name, x, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            assert torch.isfinite(x).all(), name
+            assert _row_err(x, ref) <= ROW_TOL, (name, _row_err(x, ref))
+    # the mask matters: without it the emulations are far off
+    assert _row_err(_emulate_dq(q, k, v, do, lse, dd, causal, scale), plain[0]) > ROW_TOL
+    assert _row_err(_emulate_dkv(q, k, v, do, lse, dd, causal, scale)[1],
+                    plain[2]) > ROW_TOL
 
 
 def test_emulation_fails_without_the_masks():

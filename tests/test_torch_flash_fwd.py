@@ -52,8 +52,10 @@ def _grid(b, sq, hq, config):
             for z in range(nz) for y in range(b) for x in range(hq)]
 
 
-def _emulate(q, k, v, causal, scale, config):
-    """The kernel's algorithm on f32 copies of bf16 inputs: (out, lse)."""
+def _emulate(q, k, v, causal, scale, config, seg=None):
+    """The kernel's algorithm on f32 copies of bf16 inputs: (out, lse).
+    With segment ids ``seg`` [B, S] every tile is masked where a row's and
+    a key's ids differ (ids past the end read as 0, never compared)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     bm, bn = tattn.FLASH_FWD_TILES[config]
@@ -71,6 +73,8 @@ def _emulate(q, k, v, causal, scale, config):
         hk = h // (hq // hkv)
         qt = rows(q[bb, :, h], q0, bm)
         row = q0 + torch.arange(bm)
+        if seg is not None:
+            seg_row = rows(seg[bb, :, None].float(), q0, bm)[:, 0]
         m = torch.full((bm,), -math.inf)
         l = torch.zeros(bm)
         acc = torch.zeros(bm, d)
@@ -80,11 +84,15 @@ def _emulate(q, k, v, causal, scale, config):
             s = qt @ kt.T
             key = k0 + torch.arange(bn)
             for wg0 in range(0, bm, 64):  # one consumer warpgroup's rows
-                if k0 + bn > sk or (causal and k0 + bn - 1 > q0 + wg0):
+                if (seg is not None or k0 + bn > sk
+                        or (causal and k0 + bn - 1 > q0 + wg0)):
                     r = slice(wg0, wg0 + 64)
                     hide = key[None] >= sk
                     if causal:
                         hide = hide | (key[None] > row[r, None])
+                    if seg is not None:
+                        seg_key = rows(seg[bb, :, None].float(), k0, bn)[:, 0]
+                        hide = hide | (seg_key[None] != seg_row[r, None])
                     s[r] = s[r].masked_fill(hide, -math.inf)
             mx = torch.maximum(m, s.max(-1).values)
             ms = torch.where(mx == -math.inf, torch.zeros(()), mx * sl2)
@@ -155,6 +163,50 @@ def test_flash_fwd_emulation_matches_plain_and_jax(sq, sk, causal):
         for want, want_lse in ((ref, ref_lse), (j_out, j_lse)):
             assert _row_err(out, want) <= ROW_TOL, config
             assert (lse - want_lse).abs().max().item() <= LSE_TOL, config
+
+
+# segment ids per row: the second document of a row starts inside a key
+# tile and the third past it, so some rows meet a whole 128-key tile they
+# cannot see (the first tile, before any visible key: the running max
+# stays -inf; or a later one: the max stays put)
+SEGMENT_CUTS = ((0, 100, 140, 300), (0, 20, 200, 300))
+
+
+def _cut_segments(b, s, cuts=SEGMENT_CUTS):
+    seg = torch.zeros(b, s, dtype=torch.int32)
+    for i in range(b):
+        c = [x for x in cuts[i % len(cuts)] if x < s] + [s]
+        for j in range(len(c) - 1):
+            seg[i, c[j]:c[j + 1]] = j + 1
+    return seg
+
+
+@pytest.mark.parametrize("d,hq,hkv,causal", [(64, 2, 2, False), (64, 4, 2, True),
+                                             (128, 4, 2, True)])
+def test_flash_fwd_emulation_with_segment_ids_matches_plain_and_jax(d, hq, hkv, causal):
+    """Segment ids, both tile configs, B 2, S 300, at head dims 64 and 128
+    (the instances' D): rows meeting a whole key tile of another document
+    keep a finite running max and a finite result."""
+    b, s = 2, 300
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = _bf16_inputs(d + hq, b, s, s, hq, hkv, d)
+    seg = _cut_segments(b, s)
+    ref, ref_lse = tattn.flash_fwd_plain(q, k, v, causal, scale, seg)
+    j_out, j_lse = jattn._flash_forward(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), causal, scale, s, s,
+        interpret=True, with_residuals=True, segment_ids=jnp.asarray(seg.numpy()))
+    j_out = torch.from_numpy(np.array(j_out))
+    j_lse = torch.from_numpy(np.array(j_lse)).reshape(b, hq, s)
+    np.testing.assert_allclose(ref.numpy(), j_out.numpy(), atol=1e-5)
+    for config in tattn.FLASH_FWD_TILES:
+        out, lse = _emulate(q, k, v, causal, scale, config, seg)
+        assert torch.isfinite(out).all() and torch.isfinite(lse).all(), config
+        for want, want_lse in ((ref, ref_lse), (j_out, j_lse)):
+            assert _row_err(out, want) <= ROW_TOL, config
+            assert (lse - want_lse).abs().max().item() <= LSE_TOL, config
+    # the mask matters: the emulation without it is far off
+    leaky, _ = _emulate(q, k, v, causal, scale, 0)
+    assert _row_err(leaky, ref) > ROW_TOL
 
 
 def test_emulation_fails_without_the_causal_mask():

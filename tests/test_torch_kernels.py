@@ -29,7 +29,7 @@ from torch.overrides import TorchFunctionMode
 
 from chip_smoke import (DECODE_Q8_REL_TOL, DECODE_REL_TOL, FLASH_BWD_REL_TOL,
                         FLASH_BWD_ROW_FLOOR, FLASH_LSE_TOL, FLASH_REL_TOL,
-                        row_rel_err, uncancelled_dq_dk)
+                        row_rel_err, segment_rows, uncancelled_dq_dk)
 from k8s_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                         check_cuda_config)
 from k8s_tpu_torch.ops import _kernels
@@ -118,8 +118,13 @@ def test_cuda_config_check_holds_training_to_the_flash_kernels_only(cfg):
 def test_cuda_config_check_refuses_unbuilt_head_dims_and_dtypes(decode, bad):
     """Any config, training or decode, with a head dim, dtype or head
     split no kernel is built for is refused, naming the kernel family
-    that refused it."""
+    that refused it. Head dim 64 has K1-K3 instances (BERT-base's heads),
+    so a training config at 64 passes; the decode kernels are built for
+    128 only, so a decode config at 64 is refused by their name."""
     cfg = LlamaConfig.llama3_8b(decode=decode, **bad)
+    if bad == dict(head_dim=64) and not decode:
+        check_cuda_config(cfg)
+        return
     family = "decode kernels" if decode else r"flash kernels \(K1-K3\)"
     with pytest.raises(ValueError, match=f"no CUDA kernel instance.*{family}"):
         check_cuda_config(cfg)
@@ -468,6 +473,52 @@ def test_flash_attention_autograd_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,b,s,hq,hkv,causal,kind", [
+    (64, 4, 512, 12, 12, False, "pad"), (64, 4, 512, 12, 12, False, None),
+    (64, 2, 777, 12, 12, False, "pad"), (64, 2, 300, 8, 2, True, "packed"),
+    (128, 2, 1024, 32, 8, True, "packed"), (128, 2, 777, 32, 8, True, "packed"),
+    (128, 2, 512, 12, 12, False, "pad")])
+def test_flash_kernels_segment_ids_and_d64_on_card(cuda, d, b, s, hq, hkv, causal,
+                                                   kind):
+    """K1, K2 and K3 with segment ids and at head dim 64 (BERT-base: Hq =
+    Hkv = 12, non-causal, a padding mask; and without a mask) and at 128
+    (causal packed documents, a ragged S 777) against the plain versions
+    in f32 with chip_smoke.py's limits (K1 rows 8e-3, lse 1e-4; K2/K3 rows
+    1e-2 with the row floor), through both tile configs of K1; then the
+    same through ``flash_attention``'s autograd op (K1, K2, K3 launched
+    once each)."""
+    g = torch.Generator(device=cuda).manual_seed(d + b + s + hq)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).bfloat16()  # noqa: E731
+    q, k, v, do = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+    seg = None if kind is None else segment_rows(
+        kind, b, s, torch.Generator().manual_seed(s)).to(cuda)
+    scale = d ** -0.5
+    ref, ref_lse = tattn.flash_fwd_plain(*_f32(q, k, v), causal, scale, seg)
+    for config in tattn.FLASH_FWD_TILES:
+        out, lse = tattn.flash_fwd(q, k, v, causal, scale, with_lse=True,
+                                   config=config, segment_ids=seg)
+        assert row_rel_err(out, ref) <= FLASH_REL_TOL, config
+        assert (lse - ref_lse).abs().max().item() <= FLASH_LSE_TOL, config
+    got = tattn.flash_bwd(q, k, v, out, lse, do, causal, scale, segment_ids=seg)
+    want = tattn.flash_bwd_plain(*_f32(q, k, v, out), lse, do.float(), causal,
+                                 scale, seg)
+    for name, x, r in zip(("dq", "dk", "dv"), got, want):
+        err = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR)
+        assert err <= FLASH_BWD_REL_TOL, (name, err)
+    n = (tattn.flash_fwd.launches, tattn.flash_bwd.launches_dq,
+         tattn.flash_bwd.launches_dkv)
+    qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+    o = tattn.flash_attention(qa, ka, va, causal=causal, segment_ids=seg)
+    o.backward(do)
+    assert (tattn.flash_fwd.launches, tattn.flash_bwd.launches_dq,
+            tattn.flash_bwd.launches_dkv) == tuple(x + 1 for x in n)
+    assert row_rel_err(o, ref) <= FLASH_REL_TOL
+    for name, x, r in zip(("dq", "dk", "dv"), (qa.grad, ka.grad, va.grad), want):
+        err = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR)
+        assert err <= FLASH_BWD_REL_TOL, (name, err)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("pos", [[0, 255, 7, 130], [64, 63, 1, 200]])
 def test_decode_kernel_matches_plain_on_card(cuda, pos):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -658,9 +709,16 @@ def test_kernels_run_on_a_second_card(cuda):
 
 @pytest.mark.gpu
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
-    q = torch.zeros(1, 16, 4, 32, dtype=torch.bfloat16, device=cuda)
+    # head dim 192, a multiple of 64 with no instance: raises; head dim
+    # 32 takes the plain path by shape, as the JAX gate's d % 64 does,
+    # before any launch
+    q = torch.zeros(1, 16, 4, 192, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
-        tattn.flash_attention(q, q, q)  # head dim 32: no kernel
+        tattn.flash_attention(q, q, q)
+    q32 = torch.zeros(1, 16, 4, 32, dtype=torch.bfloat16, device=cuda)
+    n0 = tattn.flash_fwd.launches
+    assert tattn.flash_attention(q32, q32, q32).shape == q32.shape
+    assert tattn.flash_fwd.launches == n0
     with pytest.raises(ValueError, match="no CUDA kernel instance"):
         LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.bfloat16), device=cuda)
     f32 = torch.zeros(1, 16, 4, 128, device=cuda)
@@ -671,15 +729,18 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         tattn.flash_fwd(bf, bf, bf, True, 0.0)
     with pytest.raises(ValueError, match="config"):
         tattn.flash_fwd(bf, bf, bf, True, 1.0, config=2)
-    # the backward kernels: head dim 64 has no instance, f32 is refused
-    q64 = torch.zeros(1, 16, 4, 64, dtype=torch.bfloat16, device=cuda)
+    # the backward kernels: head dim 192 has no instance, f32 is refused
     lse = torch.zeros(1, 4, 16, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
-        tattn.flash_bwd(q64, q64, q64, q64, lse, q64, True, 0.125)
+        tattn.flash_bwd(q, q, q, q, lse, q, True, 0.125)
     with pytest.raises(ValueError, match="bfloat16"):
         tattn.flash_bwd(f32, f32, f32, f32, lse, f32, True, 0.125)
     with pytest.raises(ValueError, match="unsupported"):
-        tattn.flash_attention(q64.requires_grad_(), q64, q64)
+        tattn.flash_attention(q.clone().requires_grad_(), q, q)
+    # segment ids must be one [B, S] row per batch
+    seg = torch.ones(1, 15, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="segment_ids"):
+        tattn.flash_fwd(bf, bf, bf, False, 1.0, segment_ids=seg)
     qd = torch.zeros(2, 32, 128, dtype=torch.bfloat16, device=cuda)
     kn = torch.zeros(2, 2, 128, dtype=torch.bfloat16, device=cuda)  # G=16
     cache = torch.zeros(2, 2, 64, 128, dtype=torch.bfloat16, device=cuda)

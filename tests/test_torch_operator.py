@@ -159,13 +159,13 @@ def test_setup_fails_a_program_the_port_does_not_have():
         doc = _job_doc("unported", 1)
         c = doc["spec"]["replicaSpecs"][0]["template"]["spec"]["containers"][0]
         c["env"] = [{"name": "KTPU_PROGRAM",
-                     "value": "k8s_tpu.programs.bert_train:main"}]
+                     "value": "k8s_tpu.programs.router:main"}]
         w.api.create(PS.TpuJob.from_dict(doc))
         final = w.api.wait_for_job("default", "unported", timeout=DEADLINE_S,
                                    polling_interval=0.02)
     assert final.status.phase == PS.TpuJobPhase.FAILED
-    assert "k8s_tpu_torch.programs.bert_train" in final.status.reason
-    assert "ROADMAP A9" in final.status.reason
+    assert "k8s_tpu_torch.programs.router" in final.status.reason
+    assert "ROADMAP A12.5" in final.status.reason
     assert not w.client.jobs.list("default")  # nothing was materialized
 
 

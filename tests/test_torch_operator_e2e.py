@@ -58,7 +58,12 @@ def _steps(log_path):
 
 
 @pytest.fixture
-def world(tmp_path):
+def world(tmp_path, monkeypatch):
+    # the pods inherit this process's environment: a program run in
+    # process by another test of the same worker may have left
+    # KTPU_PREEMPT_AWARE=1 there (mark_preempt_aware), which makes a
+    # SIGTERMed pod wait for a flush its program never does
+    monkeypatch.delenv("KTPU_PREEMPT_AWARE", raising=False)
     w = LocalWorld(subprocess_pods=True, log_dir=str(tmp_path),
                    extra_env=CPU_ENV, reconcile_interval=0.05)
     with w:

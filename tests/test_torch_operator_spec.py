@@ -524,12 +524,18 @@ def _all_manifests():
     for n in ("gpu_job_llama.yaml", "gpu_job_cpu_tiny.yaml", "gpu_job_mnist.yaml"):
         docs[n] = yaml.safe_load((PORT_EXAMPLES / n).read_text())
     docs["materializer"] = _materializer_job("gpu")
-    # a program the port does not have yet (bert_train, ROADMAP A9.2)
+    # a program the port does not have yet (router, ROADMAP A12.5)
     unported = _gpu_doc("tpu_job_v5e_mnist.yaml")
     c = unported["spec"]["replicaSpecs"][0]["template"]["spec"]["containers"][0]
     c["env"] = [{"name": "KTPU_PROGRAM",
-                 "value": "k8s_tpu.programs.bert_train:main"}]
+                 "value": "k8s_tpu.programs.router:main"}]
     docs["unported_program"] = unported
+    # bert_train, ported with BERT: admitted and materialized
+    bert = _gpu_doc("tpu_job_v5e_mnist.yaml")
+    c = bert["spec"]["replicaSpecs"][0]["template"]["spec"]["containers"][0]
+    c["env"] = [{"name": "KTPU_PROGRAM",
+                 "value": "k8s_tpu.programs.bert_train:main"}]
+    docs["bert_program"] = bert
     # resnet_train, ported with mnist_train: admitted and materialized
     resnet = _gpu_doc("tpu_job_v5e_mnist.yaml")
     c = resnet["spec"]["replicaSpecs"][0]["template"]["spec"]["containers"][0]
@@ -543,13 +549,13 @@ def _all_manifests():
 def test_no_object_the_operator_writes_names_the_jax_package(name):
     doc = _all_manifests()[name]
     if name == "unported_program":
-        # bert_train is not in the port: setup fails it by name instead
+        # the router is not in the port: setup fails it by name instead
         cl = PKubeClient()
         jc = PTpuJobClient(cl.cluster)
         tj = PTrainingJob(cl, jc, jc.create(PS.TpuJob.from_dict(doc)))
         tj.setup(PS.ControllerConfig())
         assert tj.status.phase == PS.TpuJobPhase.FAILED
-        assert re.search(r"bert_train.*ROADMAP A9", tj.status.reason)
+        assert re.search(r"router.*ROADMAP A12\.5", tj.status.reason)
         return
     objs, _ = _materialize(PORT_SIDE, doc)
     assert objs["Job"]

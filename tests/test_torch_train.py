@@ -426,6 +426,8 @@ def test_llama_train_checkpoint_dir_saves_and_resumes(tmp_path, monkeypatch,
     for no further step) and then trains on from it."""
     for key in ("KTPU_CKPT_LOCAL_DIR", "KTPU_CKPT_DIR", "KTPU_PREEMPT_REQUESTED"):
         monkeypatch.delenv(key, raising=False)
+    # set, so that the test's end unsets what mark_preempt_aware sets
+    monkeypatch.setenv("KTPU_PREEMPT_AWARE", "0")
     base = (f"--device=cpu --model=tiny --batch_size=2 --seq_len=16 "
             f"--log_every=2 --checkpoint_dir={tmp_path} --checkpoint_every=2")
 
