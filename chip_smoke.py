@@ -278,6 +278,17 @@ RESNET_CARD_SEEDS = range(6)
 RESNET_CARD_TOL = {"f32": {"logits": 1e-5, "stats": 2e-6, "grads": 1e-2},
                    "bf16": {"logits": 1e-2, "stats": 1e-4, "grads": 2e-1}}
 MNIST_OPERATOR_DEADLINE_S = 180
+# the ring phase (sequence parallelism, ROADMAP A7): RING_RANKS threads on
+# the one card, one rank of the ring each, over a sequence of RING_SEQ
+# (chunks of RING_SEQ / RING_RANKS) at Llama-3-8B's attention heads; the
+# packed documents' boundary lies inside chunk 1, on no chunk edge
+RING_RANKS, RING_SEQ, RING_BOUNDARY = 4, 8192, 3000
+# the model through the ring: Llama-3-8B width cut to this many layers,
+# batch 1 at RING_SEQ, this many steps with attention="ring" (a one-rank
+# seq group) and with "flash"
+RING_MODEL_LAYERS, RING_MODEL_STEPS = 2, 3
+# llama_train --strategy=fsdp_tp_sp at world size 1 (a seq axis of 1)
+RING_TRAIN_LAYERS, RING_TRAIN_STEPS, RING_TRAIN_SEQ, RING_TRAIN_BATCH = 2, 4, 2048, 4
 # BERT-base MLM pretraining (bert_train's defaults: batch 32, sequence
 # 512) for this many steps; the step time is the median of steps 3 on
 BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_LAYERS = 32, 512, 20, 12
@@ -307,12 +318,21 @@ WRITE_LIMIT_BYTES, CHILD_SAVE_BYTES, SCHED_FLUSH_GRACE_S = 45 << 30, 17.9e9, 180
 REPO = pathlib.Path(__file__).resolve().parent
 
 
-def k1_instance(d: int, config: int, seg: bool = False) -> str:
+def k1_instance(d: int, config: int, seg: bool = False, out_f32: bool = False) -> str:
     """K1's kernel instance at head dim ``d`` and tile config ``config``,
-    with or without segment ids (csrc/flash_fwd.cu, templated on the head
-    dim, the number of consumer warpgroups and the segment flag), as
-    torch.profiler names it."""
-    return f"flash_fwd_kernel<{d}, {2 if config == 0 else 1}, {str(seg).lower()}>"
+    with or without segment ids, O in bf16 or f32 (csrc/flash_fwd.cu,
+    templated on the head dim, the number of consumer warpgroups, the
+    segment flag and the f32-output flag), as torch.profiler names it."""
+    return (f"flash_fwd_kernel<{d}, {2 if config == 0 else 1}, {str(seg).lower()}, "
+            f"{str(out_f32).lower()}>")
+
+
+def k23_instances(seg: bool, grads_f32: bool, d: int = 128):
+    """K2's and K3's instances (csrc/flash_bwd.cu, templated on the head
+    dim, the segment flag and the f32-gradient flag), as torch.profiler
+    names them."""
+    flags = f"{d}, {str(seg).lower()}, {str(grads_f32).lower()}>"
+    return f"flash_bwd_dq_kernel<{flags}", f"flash_bwd_dkv_kernel<{flags}"
 
 
 # K1's tile config -> its instance at head dim 128 (Llama-3-8B)
@@ -460,6 +480,59 @@ def sdpa(torch, q, k, v, **kw):
     """One PyTorch SDPA call as the library yardstick ([B, H, S, D])."""
     F = torch.nn.functional
     return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+
+class ThreadRing:
+    """Ring attention's transport over threads of one process, one thread
+    per rank (the ``ring`` phase's 4 ranks on the one card, since NCCL
+    refuses two ranks on one card): ``.size``, ``.rank`` and ``.rotate``
+    as ``parallel.ring_attention.ProcessGroupRing`` has them. A rotation
+    puts this rank's tensors in its slot, waits for every rank, takes
+    the slot of rank ``rank - shift`` and waits again, so no slot is
+    overwritten before it is read. The threads launch on the same
+    stream, so a received tensor is ready for whatever is launched after
+    it; the ring functions never write a received tensor in place."""
+
+    def __init__(self, slots, barrier, size: int, rank: int):
+        self.slots, self.barrier, self.size, self.rank = slots, barrier, size, rank
+
+    def rotate(self, *tensors, shift: int = 1):
+        self.slots[self.rank] = tensors
+        self.barrier.wait()
+        got = self.slots[(self.rank - shift) % self.size]
+        self.barrier.wait()
+        return tuple(got)
+
+
+def run_thread_ring(n: int, fn, timeout: float = 300.0) -> list:
+    """``fn(ring)`` on ``n`` threads, one :class:`ThreadRing` rank each;
+    returns their results in rank order. A rank that raises breaks the
+    barrier (the others raise too, instead of waiting), and its error is
+    raised here."""
+    barrier = threading.Barrier(n, timeout=timeout)
+    slots = [None] * n
+    results, errors = [None] * n, [None] * n
+
+    def body(rank):
+        try:
+            results[rank] = fn(ThreadRing(slots, barrier, n, rank))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors[rank] = e
+            barrier.abort()
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError(f"thread ring: a rank did not finish in {timeout} s")
+    first = next((e for e in errors if e is not None
+                  and not isinstance(e, threading.BrokenBarrierError)), None)
+    first = first or next((e for e in errors if e is not None), None)
+    if first is not None:
+        raise first
+    return results
 
 
 def phase_flash(torch, attn, kernels, gen):
@@ -962,6 +1035,440 @@ def phase_flash_segments(torch, attn, gen):
                   "walls per call of back-to-back calls; bwd_plain_ms and "
                   "bwd_sdpa_ms compute dq, dk and dv together"})
     return rows
+
+
+def _ring_plain_reference(torch, attn, q, k, v, do, seg, c, scale, outs):
+    """The whole causal sequence's attention and gradients in f32 from the
+    plain versions, one query chunk at a time (chunk r against keys [0,
+    (r + 1) c): the plain causal diagonal ``tril(k=sk-sq)`` is then the
+    global one), so no [S, S] score matrix is held: ``(out, lse, grads)``,
+    ``grads`` the ``(dq, dk, dv)`` for each bf16 output of ``outs``. The
+    backward takes D = rowsum(dO O) from that output, as the kernels do
+    (from the forward's bf16 O): a row whose dq nearly cancels (one that
+    sees almost only itself) moves with D by far more than the kernels'
+    rounding, so each run's gradients are held against the plain backward
+    of its own output, as the other K2/K3 checks hold them."""
+    n = q.shape[1] // c
+    fwd, lses = [], []
+    grads = [[[], torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+              torch.zeros(k.shape, dtype=torch.float32, device=k.device)] for _ in outs]
+    for r in range(n):
+        rows, keys = slice(r * c, (r + 1) * c), slice(0, (r + 1) * c)
+        qr, kr, vr, dor = (x.float() for x in (q[:, rows], k[:, keys], v[:, keys],
+                                               do[:, rows]))
+        sq, skv = (None, None) if seg is None else (seg[:, rows], seg[:, keys])
+        out, lse = attn.flash_fwd_plain(qr, kr, vr, True, scale, sq, skv, out_f32=True)
+        fwd.append(out)
+        lses.append(lse)
+        for acc, o in zip(grads, outs):
+            g = attn.flash_bwd_plain(qr, kr, vr, o[:, rows].float(), lse, dor, True,
+                                     scale, sq, skv, grads_f32=True)
+            acc[0].append(g[0])
+            acc[1][:, keys] += g[1]
+            acc[2][:, keys] += g[2]
+    return (torch.cat(fwd, 1), torch.cat(lses, 2),
+            [(torch.cat(dq, 1), dk, dv) for dq, dk, dv in grads])
+
+
+def phase_ring(torch, attn, card, gen):
+    """Sequence parallelism (ROADMAP A7) on the card: ring attention through
+    K1-K3's ring features (``out_f32``, ``grads_f32``, the kv-side segment
+    row), at Llama-3-8B's attention heads (Hq 32, Hkv 8, D 128).
+
+    1. The new kernel variants against their plain versions at the ring's
+       chunk shape (B 1, S_local 2048) with the limits of K1 (rows 8e-3,
+       lse 1e-4) and K2/K3 (rows 1e-2 with the row floor), shared memory
+       poisoned before the first launch: K1 with ``out_f32`` causal (the
+       diagonal block) and non-causal (a past chunk), and with a kv-side
+       row that differs from the query row (queries of chunk 2, all of
+       document 2; the resident chunk 1 holds the packed boundary at 3000,
+       so only its keys from 3000 on are visible); K2/K3 with
+       ``grads_f32``, causal, and with the kv row. A planted fault (the kv
+       row dropped) must exceed the K1 limit. Each is timed by kernel name
+       (torch.profiler) beside its bound, its plain version and SDPA on the
+       same inputs (SDPA writes bf16; K1 here writes f32).
+    2. The 4-rank ring at S 8192 (4 chunks of 2048), causal, without and
+       with packed ids: 4 threads of this process, one rank each, over
+       ``ThreadRing`` (NCCL refuses two ranks on one card), each calling
+       ``ring_flash_forward`` and ``ring_flash_backward`` (not through
+       autograd: its engine has one worker thread per device, so backward
+       calls that wait on each other at a barrier would deadlock). The
+       gathered O, dQ, dK and dV are held against K1-K3 on the whole
+       sequence on this card at the row limits, and both against the plain
+       versions in f32 (chunk by chunk; each run's gradients against the
+       plain backward of its own bf16 O, whose D they take); the ring's wall beside the whole
+       sequence's, and the device time of each (torch.profiler: K1-K3 by
+       instance, and every device event, the ring's merges and sums too);
+       K1-K3 each launched n + n (n - 1) / 2 times (the diagonal and the
+       past chunks), all in their f32 instances.
+    3. A training step of the model through the ring and through Ulysses:
+       the port's Llama at Llama-3-8B width cut to RING_MODEL_LAYERS
+       layers, B 1, S 8192, ``attention="ring"`` (one diagonal block with
+       ``out_f32`` and ``grads_f32`` per layer) and ``attention="ulysses"``
+       (the all-to-alls around flash attention), each on a one-rank seq
+       group, against the same model with ``attention="flash"``,
+       RING_MODEL_STEPS steps each from the same weights and batch: the
+       first losses and the largest gradient difference (the ring rounds
+       its f32 block to bf16 once, as K1 does; one rank's all-to-all is a
+       copy; so equality is expected).
+    4. ``llama_train --strategy=fsdp_tp_sp`` at world size 1 through the
+       launcher's API in process (its seq axis of one rank: flash
+       attention, as in the JAX program): admitted and run, K1-K3 launched
+       layers x steps times, finite losses.
+
+    Returns the launches of the paths (2-4) and the rows of the kernels
+    line."""
+    from k8s_tpu_torch.launcher.spmd_launcher import Rendezvous, run_program
+    from k8s_tpu_torch.models import LlamaConfig, LlamaForCausalLM, init_params
+    from k8s_tpu_torch.parallel import MeshConfig, build_mesh, mesh_shape
+    from k8s_tpu_torch.parallel import ring_attention as ring_mod
+    from k8s_tpu_torch.train import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    hq, hkv, d = 32, 8, 128
+    scale = 1.0 / d ** 0.5
+    n, s = RING_RANKS, RING_SEQ
+    c = s // n
+    bf16 = torch.bfloat16
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(bf16)  # noqa: E731
+    seg_all = torch.where(torch.arange(s, device="cuda") < RING_BOUNDARY, 1, 2)[None]
+    seg_all = seg_all.to(torch.int32)
+
+    def counts():
+        return {"flash_fwd": attn.flash_fwd.launches,
+                "flash_bwd_dq": attn.flash_bwd.launches_dq,
+                "flash_bwd_dkv": attn.flash_bwd.launches_dkv,
+                "flash_fwd_out_f32": attn.flash_fwd.launches_out_f32,
+                "flash_bwd_grads_f32": attn.flash_bwd.launches_grads_f32}
+
+    def reset():
+        attn.flash_fwd.launches = attn.flash_fwd.launches_out_f32 = 0
+        attn.flash_bwd.launches_dq = attn.flash_bwd.launches_dkv = 0
+        attn.flash_bwd.launches_grads_f32 = 0
+
+    # -- 1. the new variants at the chunk shape ------------------------------
+    q, k, v, do = rnd(1, c, hq, d), rnd(1, c, hkv, d), rnd(1, c, hkv, d), rnd(1, c, hq, d)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    seg_q = seg_all[:, 2 * c:3 * c].contiguous()
+    seg_kv = seg_all[:, c:2 * c].contiguous()
+    config = attn._flash_fwd_config(1, c, hq)
+    attn.poison_shared_memory(torch.device("cuda"), attn.flash_smem_bytes("fwd", config))
+    visible_kv = int((seg_kv == 2).sum())  # every query is document 2
+    pairs = {"causal": c * (c + 1) // 2, "full": c * c, "kv_row": c * visible_kv}
+    qo, kvb, rowb, segb = 2 * c * hq * d, 2 * c * hkv * d, 4 * hq * c, 2 * 4 * c
+    variants, fault = [], None
+    for name, causal, sq_, skv, bwd in (
+            ("out_f32_causal", True, None, None, True),
+            ("out_f32_noncausal", False, None, None, False),
+            ("out_f32_kv_row", False, seg_q, seg_kv, True)):
+        out, lse = attn.flash_fwd(q, k, v, causal, scale, with_lse=True, segment_ids=sq_,
+                                  segment_ids_kv=skv, out_f32=True)
+        ref, ref_lse = attn.flash_fwd_plain(qf, kf, vf, causal, scale, sq_, skv,
+                                            out_f32=True)
+        torch.cuda.synchronize()
+        key = "kv_row" if skv is not None else ("causal" if causal else "full")
+        row = {"variant": name, "causal": causal, "kv_row": skv is not None,
+               "B": 1, "S_local": c, "out_dtype": str(out.dtype),
+               "k1_rel_err": row_rel_err(out, ref),
+               "k1_max_abs_err": (out - ref).abs().max().item(),
+               "lse_err": (lse - ref_lse).abs().max().item(),
+               "visible_pairs_per_head": pairs[key]}
+        if out.dtype != torch.float32:
+            fail(f"ring {name}: K1 wrote {out.dtype}, not float32")
+        if not (row["k1_rel_err"] <= FLASH_REL_TOL and row["lse_err"] <= FLASH_LSE_TOL):
+            fail(f"ring {name}: K1 {row} (tol {FLASH_REL_TOL}, lse {FLASH_LSE_TOL}); "
+                 f"rows off: {rows_off(out, ref)}")
+        if skv is not None:
+            # a planted fault: the kv row dropped (the query row on both
+            # sides makes every key of the resident chunk visible)
+            leak, _ = attn.flash_fwd_plain(qf, kf, vf, causal, scale, sq_, out_f32=True)
+            fault = row_rel_err(leak, ref)
+            if not fault > FLASH_REL_TOL:
+                fail(f"ring: the K1 limit does not see the kv row dropped ({fault})")
+        extra = segb if skv is not None else 0
+        row["k1_bound_ms"], row["k1_bound_by"] = bound(
+            qo + 2 * kvb + 2 * qo + rowb + extra, 4 * hq * d * pairs[key])
+        if bwd:
+            ob = out.to(bf16)
+            got = attn.flash_bwd(q, k, v, ob, lse, do, causal, scale, segment_ids=sq_,
+                                 segment_ids_kv=skv, grads_f32=True)
+            gref = attn.flash_bwd_plain(qf, kf, vf, ob.float(), lse, dof, causal, scale,
+                                        sq_, skv, grads_f32=True)
+            torch.cuda.synchronize()
+            if any(x.dtype != torch.float32 for x in got):
+                fail(f"ring {name}: K2/K3 wrote {[str(x.dtype) for x in got]}, not float32")
+            for gname, x, r in zip(("dq", "dk", "dv"), got, gref):
+                row[gname + "_rel_err"] = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR)
+                row[gname + "_max_abs_err"] = (x - r).abs().max().item()
+            if max(row[g + "_rel_err"] for g in ("dq", "dk", "dv")) > FLASH_BWD_REL_TOL:
+                fail(f"ring {name}: K2/K3 {row} (tol {FLASH_BWD_REL_TOL})")
+            row["k2_bound_ms"], row["k2_bound_by"] = bound(
+                2 * qo + 2 * qo + 2 * kvb + 2 * rowb + extra, 6 * hq * d * pairs[key])
+            row["k3_bound_ms"], row["k3_bound_by"] = bound(
+                2 * qo + 2 * kvb + 4 * kvb + 2 * rowb + extra, 8 * hq * d * pairs[key])
+            del got, gref, ob
+        row["_args"] = (causal, sq_, skv, out, lse)
+        variants.append(row)
+        del ref, ref_lse
+
+    # device times by instance: the causal and the kv-row variants with
+    # their backward in one profiler session, the non-causal K1 (the same
+    # instance as the causal one) in a second
+    for group in ((variants[0], variants[2]), (variants[1],)):
+        names, calls = [], []
+        for row in group:
+            causal, sq_, skv, out, lse = row["_args"]
+            inst = k1_instance(d, config, skv is not None, True)
+            names.append(inst)
+            calls.append(lambda causal=causal, sq_=sq_, skv=skv: attn.flash_fwd(
+                q, k, v, causal, scale, segment_ids=sq_, segment_ids_kv=skv, out_f32=True))
+            if "k2_bound_ms" in row:
+                names += list(k23_instances(skv is not None, True, d))
+                ob = out.to(bf16)
+                calls.append(lambda causal=causal, sq_=sq_, skv=skv, ob=ob, lse=lse:
+                             attn.flash_bwd(q, k, v, ob, lse, do, causal, scale,
+                                            segment_ids=sq_, segment_ids_kv=skv,
+                                            grads_f32=True))
+        t = kernel_ms(torch, lambda calls=calls: [f() for f in calls], names, reps=10)
+        for row in group:
+            causal, sq_, skv, out, lse = row["_args"]
+            row["k1_ms"] = t[k1_instance(d, config, skv is not None, True)]
+            if "k2_bound_ms" in row:
+                k2n, k3n = k23_instances(skv is not None, True, d)
+                row["k2_ms"], row["k3_ms"] = t[k2n], t[k3n]
+    for row in variants:
+        causal, sq_, skv, out, lse = row.pop("_args")
+        row["k1_plain_ms"] = call_ms(torch, lambda: attn.flash_fwd_plain(
+            qf, kf, vf, causal, scale, sq_, skv, out_f32=True), reps=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sd_kw = ({"attn_mask": (sq_[:, :, None] == skv[:, None, :])[:, None]}
+                 if skv is not None else {"is_causal": causal})
+        row["k1_sdpa_ms"] = call_ms(torch, sdpa(torch, qt, kt, vt, **sd_kw))
+        if "k2_bound_ms" in row:
+            ob = out.to(bf16)
+            row["bwd_plain_ms"] = call_ms(torch, lambda: attn.flash_bwd_plain(
+                qf, kf, vf, ob.float(), lse, dof, causal, scale, sq_, skv,
+                grads_f32=True), reps=3, warmup=1)
+            qg, kg, vg = (x.requires_grad_() for x in (qt.clone(), kt.clone(), vt.clone()))
+            o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, enable_gqa=True, **sd_kw)
+            dot = do.transpose(1, 2).contiguous()
+            row["bwd_sdpa_ms"] = call_ms(torch, lambda: torch.autograd.grad(
+                o_sdpa, (qg, kg, vg), dot, retain_graph=True))
+            del qg, kg, vg, o_sdpa, dot
+        del qt, kt, vt
+    del q, k, v, do, qf, kf, vf, dof
+    torch.cuda.empty_cache()
+
+    # -- 2. the 4-rank ring at S 8192 -----------------------------------------
+    q, k, v, do = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d), rnd(1, s, hq, d)
+    ring_rows, ring_launches = [], {}
+    for packed in (False, True):
+        seg = seg_all if packed else None
+
+        def rank_body(ring, seg=seg):
+            r = ring.rank
+            cut = lambda x: None if x is None else x[:, r * c:(r + 1) * c]  # noqa: E731
+            out, lse = ring_mod.ring_flash_forward(cut(q), cut(k), cut(v), cut(seg),
+                                                   ring, True, scale)
+            return (out, lse) + ring_mod.ring_flash_backward(
+                cut(q), cut(k), cut(v), cut(seg), out, lse, cut(do), ring, True, scale)
+
+        def whole(seg=seg):
+            out, lse = attn.flash_fwd(q, k, v, True, scale, with_lse=True, segment_ids=seg)
+            return (out, lse) + attn.flash_bwd(q, k, v, out, lse, do, True, scale,
+                                               segment_ids=seg)
+
+        whole()  # warm: the instances' first launch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = whole()
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        run_thread_ring(n, rank_body)  # warm
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        res = run_thread_ring(n, rank_body)
+        torch.cuda.synchronize()
+        ring_ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        want = n + n * (n - 1) // 2
+        if set(launched.values()) != {want}:
+            fail(f"ring packed={packed}: launches {launched}, expected {want} each "
+                 "(the diagonal and the past chunks, all f32)")
+        for key, val in launched.items():
+            ring_launches[key] = ring_launches.get(key, 0) + val
+        # device ms per call of the ring run (every rank's launches) and
+        # of the whole sequence's: K1-K3 by instance, and all device
+        # events under "" (a substring of every kernel's name)
+        ring_k = (k1_instance(d, attn._flash_fwd_config(1, c, hq), packed, True),
+                  *k23_instances(packed, True, d))
+        whole_k = (k1_instance(d, attn._flash_fwd_config(1, s, hq), packed, False),
+                   *k23_instances(packed, False, d))
+        t_ring = kernel_ms(torch, lambda: run_thread_ring(n, rank_body), ("",) + ring_k,
+                           reps=3)
+        t_whole = kernel_ms(torch, whole, ("",) + whole_k, reps=3)
+        got = [torch.cat([r_[i] for r_ in res], 2 if i == 1 else 1) for i in range(5)]
+        p_out, p_lse, (p_ring, p_whole) = _ring_plain_reference(
+            torch, attn, q, k, v, do, seg, c, scale, (got[0], ref[0]))
+        plain_ring = (p_out, p_lse) + p_ring
+        plain_whole = (p_out, p_lse) + p_whole
+        torch.cuda.synchronize()
+        row = {"S": s, "ranks": n, "chunk": c, "causal": True,
+               "packed_boundary": RING_BOUNDARY if packed else None,
+               "ring_ms": ring_ms, "whole_ms": whole_ms,
+               "ring_device_ms": t_ring[""], "whole_device_ms": t_whole[""],
+               "ring_k1_k3_ms": [t_ring[nm] for nm in ring_k],
+               "whole_k1_k3_ms": [t_whole[nm] for nm in whole_k], "launches": launched}
+        for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
+            if name == "lse":
+                row["lse_err_vs_whole"] = (got[1] - ref[1]).abs().max().item()
+                row["lse_err_vs_plain"] = (got[1] - p_lse).abs().max().item()
+                row["whole_lse_err_vs_plain"] = (ref[1] - p_lse).abs().max().item()
+                continue
+            floor = 0.0 if name == "out" else FLASH_BWD_ROW_FLOOR
+            row[name + "_rel_vs_whole"] = row_rel_err(got[i], ref[i], floor=floor)
+            row[name + "_rel_vs_plain"] = row_rel_err(got[i], plain_ring[i], floor=floor)
+            row["whole_" + name + "_rel_vs_plain"] = row_rel_err(ref[i], plain_whole[i],
+                                                                 floor=floor)
+        lim = {"out": FLASH_REL_TOL, "dq": FLASH_BWD_REL_TOL, "dk": FLASH_BWD_REL_TOL,
+               "dv": FLASH_BWD_REL_TOL}
+        off = {key: row[key] for name, tol in lim.items()
+               for key in (name + "_rel_vs_whole", name + "_rel_vs_plain",
+                           "whole_" + name + "_rel_vs_plain") if not row[key] <= tol}
+        lse_off = max(row["lse_err_vs_whole"], row["lse_err_vs_plain"]) > FLASH_LSE_TOL
+        if off or lse_off:
+            fail(f"ring S={s} packed={packed}: {off or row} (limits {lim}, lse "
+                 f"{FLASH_LSE_TOL})")
+        ring_rows.append(row)
+        del res, got, plain_ring, plain_whole, p_ring, p_whole, ref
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # -- 3. the model through the ring and through Ulysses ------------------
+    mesh = build_mesh(MeshConfig())
+    cpu_gen = torch.Generator().manual_seed(23)
+    ids = torch.randint(0, LlamaConfig().vocab_size, (1, s), generator=cpu_gen).cuda()
+    model_rows, grads, model_launches = {}, None, {}
+
+    def loss_fn(state, b):
+        return state.model(b["ids"], labels=b["ids"][:, 1:], z_loss=1e-4), {}
+
+    # flash first: the reference of the other two
+    for attention in ("flash", "ring", "ulysses"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = LlamaConfig.llama3_8b(num_layers=RING_MODEL_LAYERS, attention=attention)
+        model = LlamaForCausalLM(cfg, device="cuda")
+        model.load_params(init_params(cfg, 0, "cuda", dtype=torch.float32))
+        if attention != "flash":
+            model.use_sequence_parallel(mesh)
+        state = create_train_state(model, 3e-4)
+        step = make_train_step(loss_fn)
+        reset()
+        row, losses, t0 = {}, [], time.perf_counter()
+        for i in range(RING_MODEL_STEPS):
+            m = step(state, {"ids": ids})[1]
+            losses.append(float(m["loss"]))
+            if i == 0:
+                now = {nm: p.grad.detach().clone() for nm, p in model.named_parameters()}
+                if grads is None:
+                    grads = now
+                else:
+                    diff = {nm: (now[nm] - grads[nm]).abs().max().item() for nm in now}
+                    scale_of = {nm: grads[nm].abs().max().item() for nm in now}
+                    worst = max(diff, key=diff.get)
+                    row["grad_max_abs_diff"] = diff[worst]
+                    row["grad_max_abs_diff_leaf"] = worst
+                    row["grad_max_rel_diff"] = max(
+                        diff[nm] / max(scale_of[nm], 1e-30) for nm in now)
+                    row["grads_bit_equal"] = all(
+                        torch.equal(now[nm], grads[nm]) for nm in now)
+                    del now
+        torch.cuda.synchronize()
+        launched = counts()
+        model_launches[attention] = launched
+        model_rows[attention] = row
+        row.update(losses=losses, wall_s=time.perf_counter() - t0, launches=launched)
+        if not all(np.isfinite(losses)):
+            fail(f"model ({attention}): losses {losses}")
+        if launched["flash_fwd"] == 0 or launched["flash_bwd_dq"] == 0 \
+                or launched["flash_bwd_dkv"] == 0:
+            fail(f"model ({attention}): K1-K3 launches {launched}")
+        if attention == "ring" and (launched["flash_fwd_out_f32"] != launched["flash_fwd"]
+                                    or launched["flash_bwd_grads_f32"]
+                                    != launched["flash_bwd_dq"]):
+            fail(f"ring model: not every launch took the f32 instances: {launched}")
+        if attention == "ulysses" and launched != model_launches["flash"]:
+            fail(f"ulysses model: launches {launched}, not the flash model's "
+                 f"{model_launches['flash']}")
+        if attention == "flash" and (launched["flash_fwd_out_f32"]
+                                     or launched["flash_bwd_grads_f32"]):
+            fail(f"flash model: an f32 instance launched: {launched}")
+        if attention != "flash":
+            first = (losses[0], model_rows["flash"]["losses"][0])
+            row["first_losses_equal"] = first[0] == first[1]
+            row["first_loss_rel_diff"] = abs(first[0] - first[1]) / abs(first[1])
+            if row["first_loss_rel_diff"] > FSDP_DP_LOSS_RTOL \
+                    or row["grad_max_rel_diff"] > GRAD_ORACLE_TOL:
+                fail(f"{attention} model against flash: {row} (loss "
+                     f"rtol {FSDP_DP_LOSS_RTOL}, gradient {GRAD_ORACLE_TOL})")
+        del model, state, step
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4. llama_train --strategy=fsdp_tp_sp at world size 1 ----------------
+    rdzv = Rendezvous({
+        "KTPU_PROGRAM": "k8s_tpu_torch.programs.llama_train:main",
+        "KTPU_PROGRAM_ARGS": (
+            f"--strategy=fsdp_tp_sp --model=llama3-8b --layers={RING_TRAIN_LAYERS} "
+            f"--seq_len={RING_TRAIN_SEQ} --batch_size={RING_TRAIN_BATCH} "
+            f"--steps={RING_TRAIN_STEPS} --log_every=1 --remat_policy=flash "
+            "--fused_ce=1 --lr=3e-4 --data=learnable")})
+    reset()
+    t0 = time.perf_counter()
+    run = run_program(rdzv)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = counts()
+    mesh_run = mesh_shape(run["mesh"])
+    losses = [l for _, l in run["losses"]]
+    want = RING_TRAIN_LAYERS * RING_TRAIN_STEPS
+    if mesh_run["seq"] != 1 or run["state"].model.seq is None \
+            or run["config"].attention != "flash":
+        fail(f"train_fsdp_tp_sp: mesh {mesh_run}, attention {run['config'].attention}")
+    if {train_launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} \
+            != {want}:
+        fail(f"train_fsdp_tp_sp: launches {train_launches}, expected {want} each")
+    if len(losses) != RING_TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"train_fsdp_tp_sp: losses {losses}")
+    train_row = {"mesh": mesh_run, "losses": losses, "wall_s": train_wall,
+                 "compile_s": run["compile_s"], "launches": train_launches,
+                 "step_ms": [1e3 * t for t in run["step_s"]]}
+    del run, rdzv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {}
+    for part in (ring_launches, *model_launches.values(), train_launches):
+        for key, val in part.items():
+            launches[key] = launches.get(key, 0) + val
+    emit({"phase": "ring", "shape": "Hq=32 Hkv=8 D=128 bf16", "rel_tol": FLASH_REL_TOL,
+          "lse_tol": FLASH_LSE_TOL, "bwd_rel_tol": FLASH_BWD_REL_TOL,
+          "row_floor": FLASH_BWD_ROW_FLOOR, "variants": variants,
+          "planted_fault_kv_row_dropped_k1_rel_err": fault,
+          "ring_S8192": ring_rows, "model": model_rows, "train_fsdp_tp_sp": train_row,
+          "launches": launches, "seconds": time.perf_counter() - t_phase,
+          "transport": "threads (one per rank) of one process on one card",
+          "note": "k*_ms: device ms per call by kernel name (torch.profiler); plain "
+                  "and SDPA: CUDA-event walls per call of back-to-back calls; SDPA "
+                  "writes bf16, the f32 variants f32; bwd_* compute dq, dk and dv "
+                  "together; ring_ms/whole_ms: host walls of forward + backward, "
+                  "the ring's 4 ranks taking turns on the one card",
+          "card": card})
+    return launches, variants
 
 
 def ptxas_by_kernel(log: str, names) -> dict:
@@ -4513,12 +5020,19 @@ def segment_rows_of(rows, kernel: str, keys) -> list:
     return [{k: r[k] for k in shape + tuple(keys) if k in r} for r in rows]
 
 
+def ring_rows_of(rows, keys) -> list:
+    """The ``ring`` phase's variant rows as a kernel's entry of the
+    ``kernels`` line: each variant's shape and ``keys``."""
+    shape = ("variant", "causal", "kv_row", "B", "S_local", "visible_pairs_per_head")
+    return [{k: r[k] for k in shape + tuple(keys) if k in r} for r in rows]
+
+
 def main() -> None:
     import torch
 
     # ``--only=launcher`` / ``--only=operator`` / ``--only=operator_rest``
     # / ``--only=sched`` / ``--only=elastic`` / ``--only=resnet`` /
-    # ``--only=bert``: the build and that phase alone (a debugging aid;
+    # ``--only=bert`` / ``--only=ring``: the build and that phase alone (a debugging aid;
     # it ends with a ``partial`` line, not the ``ok`` one)
     only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
 
@@ -4579,6 +5093,13 @@ def main() -> None:
         emit({"partial": only, "launches_resnet": phase_resnet(torch, attn, card),
               "mnist_operator": phase_mnist_operator(torch, card, None)})
         return
+    if only == ["ring"]:
+        # the sequence-parallel phase alone (a debugging aid, as above)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        launches, _ = phase_ring(torch, attn, card, gen)
+        emit({"partial": only, "launches_ring": launches})
+        return
     if only == ["bert"]:
         # the segment-id / head-dim-64 kernel checks and the BERT phase
         # alone (a debugging aid, as above)
@@ -4609,6 +5130,7 @@ def main() -> None:
     bwd = phase_flash_bwd(torch, attn, _kernels, gen)
     head_split = phase_flash_head_split(torch, attn, gen)
     segments = phase_flash_segments(torch, attn, gen)
+    ring, ring_variants = phase_ring(torch, attn, card, gen)
     k4 = phase_decode(torch, attn, _kernels, gen)
     k5 = phase_decode_q8(torch, attn, _kernels, gen)
     serving = phase_serving(torch, attn, card)
@@ -4626,22 +5148,27 @@ def main() -> None:
     phase_mnist_operator(torch, card, o1)
     launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
                 + train_fsdp["flash_fwd"] + train_fsdp_tp["flash_fwd"]
-                + serving_int8["flash_fwd"] + restored["flash_fwd"] + bert["flash_fwd"],
+                + serving_int8["flash_fwd"] + restored["flash_fwd"] + bert["flash_fwd"]
+                + ring["flash_fwd"],
                 "decode_attn": serving["decode_attn"] + restored["decode_attn"],
                 "decode_attn_q8": serving_int8["decode_attn_q8"],
                 "flash_bwd_dq": train["flash_bwd_dq"] + train_fsdp["flash_bwd_dq"]
-                + train_fsdp_tp["flash_bwd_dq"] + bert["flash_bwd_dq"],
+                + train_fsdp_tp["flash_bwd_dq"] + bert["flash_bwd_dq"] + ring["flash_bwd_dq"],
                 "flash_bwd_dkv": train["flash_bwd_dkv"] + train_fsdp["flash_bwd_dkv"]
-                + train_fsdp_tp["flash_bwd_dkv"] + bert["flash_bwd_dkv"]}
+                + train_fsdp_tp["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
+                + ring["flash_bwd_dkv"]}
 
     # the errors of each kernel row: the worst over its checks, the
-    # segment-id / head-dim-64 ones included
-    k1 = dict(k1, max_abs_err=max([k1["max_abs_err"]] + [r["k1_max_abs_err"] for r in segments]),
-              rel_err=max([k1["rel_err"]] + [r["k1_rel_err"] for r in segments]))
+    # segment-id / head-dim-64 ones and the ring's f32 variants included
+    ring_bwd = [r for r in ring_variants if "dq_rel_err" in r]
+    k1 = dict(k1, max_abs_err=max([k1["max_abs_err"]] + [r["k1_max_abs_err"] for r in
+                                                         segments + ring_variants]),
+              rel_err=max([k1["rel_err"]] + [r["k1_rel_err"] for r in segments + ring_variants]))
     for kernel, keys in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
         bwd[kernel] = dict(bwd[kernel], max_abs_err=max(
-            [bwd[kernel]["max_abs_err"]] + [r[k + "_max_abs_err"] for r in segments for k in keys]),
-            rel_err=max([bwd[kernel]["rel_err"]] + [r[k + "_rel_err"] for r in segments
+            [bwd[kernel]["max_abs_err"]] + [r[k + "_max_abs_err"] for r in segments + ring_bwd
+                                            for k in keys]),
+            rel_err=max([bwd[kernel]["rel_err"]] + [r[k + "_rel_err"] for r in segments + ring_bwd
                                                     for k in keys]))
 
     def entry(name, src, replaces, row):
@@ -4663,6 +5190,10 @@ def main() -> None:
                 "launches_resnet": resnet.get(name, 0),
                 # BERT-base training: K1-K3 once per layer and step
                 "launches_bert": bert.get(name, 0),
+                # sequence parallelism: the 4-rank ring at S 8192, the
+                # 2-layer model through the ring and through flash, and
+                # llama_train --strategy=fsdp_tp_sp at world size 1
+                "launches_ring": ring.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -4685,7 +5216,11 @@ def main() -> None:
              segments=segment_rows_of(segments, "k1", ("config", "k1_ms", "k1_bound_ms",
                                                        "k1_bound_by", "k1_plain_ms",
                                                        "k1_sdpa_ms", "k1_rel_err",
-                                                       "lse_err"))),
+                                                       "lse_err")),
+             launches_out_f32=ring["flash_fwd_out_f32"],
+             ring=ring_rows_of(ring_variants, ("k1_ms", "k1_bound_ms", "k1_bound_by",
+                                               "k1_plain_ms", "k1_sdpa_ms", "k1_rel_err",
+                                               "lse_err"))),
         entry("flash_bwd_dq", "k8s_tpu_torch/csrc/flash_bwd.cu",
               "k8s_tpu/ops/attention.py:354", bwd["flash_bwd_dq"])
         | {"shape": bwd["flash_bwd_dq"]["shape"],
@@ -4695,7 +5230,10 @@ def main() -> None:
                "bwd_plain_ms", "bwd_sdpa_ms", "dq_rel_err")} for r in head_split],
            "segments": segment_rows_of(segments, "k2", (
                "k2_ms", "k2_bound_ms", "k2_bound_by", "bwd_plain_ms", "bwd_sdpa_ms",
-               "dq_rel_err"))},
+               "dq_rel_err")),
+           "launches_grads_f32": ring["flash_bwd_grads_f32"],
+           "ring": ring_rows_of(ring_bwd, ("k2_ms", "k2_bound_ms", "k2_bound_by",
+                                           "bwd_plain_ms", "bwd_sdpa_ms", "dq_rel_err"))},
         entry("flash_bwd_dkv", "k8s_tpu_torch/csrc/flash_bwd.cu",
               "k8s_tpu/ops/attention.py:414", bwd["flash_bwd_dkv"])
         | {"shape": bwd["flash_bwd_dkv"]["shape"],
@@ -4706,7 +5244,11 @@ def main() -> None:
                for r in head_split],
            "segments": segment_rows_of(segments, "k3", (
                "k3_ms", "k3_bound_ms", "k3_bound_by", "bwd_plain_ms", "bwd_sdpa_ms",
-               "dk_rel_err", "dv_rel_err"))},
+               "dk_rel_err", "dv_rel_err")),
+           "launches_grads_f32": ring["flash_bwd_grads_f32"],
+           "ring": ring_rows_of(ring_bwd, ("k3_ms", "k3_bound_ms", "k3_bound_by",
+                                           "bwd_plain_ms", "bwd_sdpa_ms", "dk_rel_err",
+                                           "dv_rel_err"))},
         dict(entry("decode_attn", "k8s_tpu_torch/csrc/decode_attn.cu",
                    "k8s_tpu/ops/attention.py:875", k4),
              shape="B=8 S=2048 Hq=32 Hkv=8 D=128 ragged pos",

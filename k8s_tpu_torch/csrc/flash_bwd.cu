@@ -73,13 +73,17 @@
 // than this one on an H100.)
 //
 // Segment ids (optional, a null pointer means none): one int32 row per
-// batch for queries and keys (self-attention, Sq == Sk), rows
-// `row_stride` apart like lse and D; P is zeroed where a query's and a
-// key's ids differ (the Pallas _segment_mask), in both kernels and on
-// every tile. Each consumer thread reads the ids of its two owned rows
-// once; the producers stage each streamed tile's ids in shared memory
-// with the tile (a rank-2 TMA box, zeros past the end): K2 its 64 keys',
-// K3 its 64 queries' beside their lse and D rows. So no consumer holds
+// batch for the queries and one for the keys (Sq == Sk), rows
+// `row_stride` apart like lse and D; a null key row means the query row
+// serves both sides (self-attention), while ring attention passes the
+// resident KV chunk's row (the Pallas kernels' segment_ids_kv). P is
+// zeroed where a query's and a key's ids differ (the Pallas
+// _segment_mask), in both kernels and on every tile. Each consumer
+// thread reads the ids of its two owned rows once (K2 from the query
+// row, K3 from the key row); the producers stage each streamed tile's
+// ids in shared memory with the tile (a rank-2 TMA box, zeros past the
+// end): K2 its 64 keys' from the key row, K3 its 64 queries' from the
+// query row beside their lse and D rows. So no consumer holds
 // ids across the products (16 ids held in registers made ptxas spill K3
 // at D 128), and no thread loads them from global memory per tile (that
 // made K1 2.2x slower at BERT-base's shape).
@@ -89,7 +93,13 @@
 // the recomputes take 4 k-steps instead of 8 and the gradient products
 // are m64n64 instead of m64n128), with or without segment ids (a template
 // flag: the instance without them holds no mask code; a run-time test
-// made K2 ~22% slower at Llama's training shape on an H100).
+// made K2 ~22% slower at Llama's training shape on an H100), and with
+// the gradients written in bf16 or in f32 (`grads_f32`, a template flag:
+// the Pallas kernels' grads_f32, for ring attention, which sums the
+// partial dQ, dK and dV of every ring step). The f32 epilogue stores
+// straight from the accumulator registers, 8 bytes (two columns) per
+// store: an f32 tile is twice the bf16 bytes of the shared tile the bf16
+// epilogue stages through.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -231,7 +241,43 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float mul,
   }
 }
 
-template <int D, bool SEG>  // head dim; whether segment ids mask P
+// The same rows in f32, from the registers: each thread's two columns of
+// every 8-column group on its two rows, rows at or past `rows` dropped.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[D / 2], float mul,
+                                               float* out, long long stride, int row0,
+                                               int rows) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r0 < rows)
+      *reinterpret_cast<float2*>(out + r0 * stride + col) =
+          make_float2(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    if (r1 < rows)
+      *reinterpret_cast<float2*>(out + r1 * stride + col) =
+          make_float2(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+}
+
+// A warpgroup's rows of a gradient: bf16 through the shared `tile` (see
+// store_rows), or f32 straight from the registers (F32)
+template <int D, bool F32>
+__device__ __forceinline__ void store_grad(const float (&acc)[D / 2], float mul,
+                                           uint8_t* tile, int half_bytes, void* out,
+                                           long long offset, long long stride, int row0,
+                                           int rows, int bar_id) {
+  if constexpr (F32)
+    store_rows_f32<D>(acc, mul, static_cast<float*>(out) + offset, stride, row0, rows);
+  else
+    store_rows<D>(acc, mul, tile, half_bytes, static_cast<__nv_bfloat16*>(out) + offset,
+                  stride, row0, rows, bar_id);
+}
+
+// head dim; whether segment ids mask P; whether dQ is f32 (else bf16)
+template <int D, bool SEG, bool F32>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -240,7 +286,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_seg,
                     const float* __restrict__ lse, const float* __restrict__ dd,
                     const int* __restrict__ seg,
-                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq,
+                    void* __restrict__ dq, int Sq, int Sk, int Hq,
                     int groups, long long row_stride, long long dq_sb,
                     long long dq_ss, long long dq_sh, float scale,
                     int causal) {
@@ -318,7 +364,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float scale_log2 = scale * LOG2E;
     // causal: this warpgroup's rows see no key past its last row
     const int my_tiles = ((causal ? min(Sk, wg_row0 + 64) : Sk) + TILE - 1) / TILE;
-    // this batch's segment ids (self-attention: one row for both sides)
+    // this batch's query-side segment ids (the key side rides the tiles)
     int sg0 = 0, sg1 = 0;
     if constexpr (SEG) {
       const int* sg = seg + static_cast<long long>(b) * row_stride;
@@ -399,12 +445,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // ---------------- epilogue ----------------
     // dQ * scale over this warpgroup's Q rows (no longer read)
-    store_rows<D>(acc, scale, smem + C::OFF_Q + cw * 64 * 128, OWN_HALF_BYTES,
-                  dq + b * dq_sb + h * dq_sh, dq_ss, wg_row0, Sq, 1 + cw);
+    store_grad<D, F32>(acc, scale, smem + C::OFF_Q + cw * 64 * 128, OWN_HALF_BYTES, dq,
+                       b * dq_sb + h * dq_sh, dq_ss, wg_row0, Sq, 1 + cw);
   }
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool F32>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -414,8 +460,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_dd,
                      const __grid_constant__ CUtensorMap tm_seg,
                      const int* __restrict__ seg, long long row_stride,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int Hq,
+                     void* __restrict__ dk, void* __restrict__ dv, int Sq, int Sk, int Hq,
                      int groups, long long dk_sb, long long dk_ss,
                      long long dk_sh, long long dv_sb, long long dv_ss,
                      long long dv_sh, float scale, int causal) {
@@ -491,7 +536,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t skw = sbase + C::OFF_K + cw * 64 * 128;  // its keys in half 0
     const uint32_t svw = sbase + C::OFF_V + cw * 64 * 128;
     const float scale_log2 = scale * LOG2E;
-    // this batch's segment ids (self-attention: one row for both sides)
+    // this batch's key-side segment ids (`seg` is the key row here; the
+    // query side rides the tiles)
     int sg0 = 0, sg1 = 0;
     if constexpr (SEG) {
       const int* sg = seg + static_cast<long long>(b) * row_stride;
@@ -586,16 +632,17 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // ---------------- epilogue ----------------
     // dK * scale and dV over this warpgroup's K and V rows (no longer read)
-    store_rows<D>(dka, scale, smem + C::OFF_K + cw * 64 * 128, OWN_HALF_BYTES,
-                  dk + b * dk_sb + hk * dk_sh, dk_ss, kw0, Sk, 1 + cw);
-    store_rows<D>(dva, 1.f, smem + C::OFF_V + cw * 64 * 128, OWN_HALF_BYTES,
-                  dv + b * dv_sb + hk * dv_sh, dv_ss, kw0, Sk, 1 + cw);
+    store_grad<D, F32>(dka, scale, smem + C::OFF_K + cw * 64 * 128, OWN_HALF_BYTES, dk,
+                       b * dk_sb + hk * dk_sh, dk_ss, kw0, Sk, 1 + cw);
+    store_grad<D, F32>(dva, 1.f, smem + C::OFF_V + cw * 64 * 128, OWN_HALF_BYTES, dv,
+                       b * dv_sb + hk * dv_sh, dv_ss, kw0, Sk, 1 + cw);
   }
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool F32>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* dd, const int* seg, void* dq, int B,
+              const void* lse, const void* dd, const int* seg, const int* seg_kv,
+              void* dq, int B,
               int Sq, int Sk, int Hq, int Hkv, long long q_sb, long long q_ss,
               long long q_sh, long long k_sb, long long k_ss, long long k_sh,
               long long v_sb, long long v_ss, long long v_sh, long long do_sb,
@@ -608,24 +655,26 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (!err) err = make_bshd_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, TILE);
   if (!err) err = make_bshd_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, TILE);
   if (!err) err = make_bshd_map(&tdo, dout, B, Sq, Hq, D, do_sb, do_ss, do_sh, OWN_ROWS);
+  // the streamed key tiles' ids: the key row; the owned queries': `seg`
   if (!err && seg != nullptr)
-    err = make_rows_map(&tsg, seg, B, Sk, row_stride, TILE, CU_TENSOR_MAP_DATA_TYPE_INT32);
+    err = make_rows_map(&tsg, seg_kv, B, Sk, row_stride, TILE, CU_TENSOR_MAP_DATA_TYPE_INT32);
   if (err) return err;
   static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
   const cudaError_t attr =
-      hopper::set_smem_limit_once(flash_bwd_dq_kernel<D, SEG>, C::SMEM, smem_set);
+      hopper::set_smem_limit_once(flash_bwd_dq_kernel<D, SEG, F32>, C::SMEM, smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(Hq, B, (Sq + OWN_ROWS - 1) / OWN_ROWS);
-  flash_bwd_dq_kernel<D, SEG><<<grid, THREADS, C::SMEM, stream>>>(
+  flash_bwd_dq_kernel<D, SEG, F32><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv, tdo, tsg, static_cast<const float*>(lse),
-      static_cast<const float*>(dd), seg, static_cast<__nv_bfloat16*>(dq), Sq,
+      static_cast<const float*>(dd), seg, dq, Sq,
       Sk, Hq, Hq / Hkv, row_stride, dq_sb, dq_ss, dq_sh, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool F32>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* dd, const int* seg, void* dk,
+               const void* lse, const void* dd, const int* seg, const int* seg_kv,
+               void* dk,
                void* dv, int B, int Sq, int Sk, int Hq, int Hkv, long long q_sb,
                long long q_ss, long long q_sh, long long k_sb, long long k_ss,
                long long k_sh, long long v_sb, long long v_ss, long long v_sh,
@@ -642,19 +691,35 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (!err) err = make_bshd_map(&tdo, dout, B, Sq, Hq, D, do_sb, do_ss, do_sh, TILE);
   if (!err) err = make_rows_map(&tl, lse, B * Hq, Sq, row_stride, TILE);
   if (!err) err = make_rows_map(&tdd, dd, B * Hq, Sq, row_stride, TILE);
+  // the streamed query tiles' ids: the query row; the owned keys': the key row
   if (!err && seg != nullptr)
     err = make_rows_map(&tsg, seg, B, Sq, row_stride, TILE, CU_TENSOR_MAP_DATA_TYPE_INT32);
   if (err) return err;
   static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
   const cudaError_t attr =
-      hopper::set_smem_limit_once(flash_bwd_dkv_kernel<D, SEG>, C::SMEM, smem_set);
+      hopper::set_smem_limit_once(flash_bwd_dkv_kernel<D, SEG, F32>, C::SMEM, smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sk + OWN_ROWS - 1) / OWN_ROWS, Hkv, B);
-  flash_bwd_dkv_kernel<D, SEG><<<grid, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, tdo, tl, tdd, tsg, seg, row_stride, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Sq, Sk, Hq, Hq / Hkv, dk_sb, dk_ss,
-      dk_sh, dv_sb, dv_ss, dv_sh, scale, causal);
+  flash_bwd_dkv_kernel<D, SEG, F32><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, tl, tdd, tsg, seg_kv, row_stride, dk, dv, Sq, Sk, Hq, Hq / Hkv,
+      dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+using DqFn = decltype(&launch_dq<128, false, false>);
+using DkvFn = decltype(&launch_dkv<128, false, false>);
+
+// the instances for (head dim, segment ids, f32 gradients)
+template <int D>
+DqFn pick_dq(bool seg, bool f32) {
+  if (seg) return f32 ? launch_dq<D, true, true> : launch_dq<D, true, false>;
+  return f32 ? launch_dq<D, false, true> : launch_dq<D, false, false>;
+}
+
+template <int D>
+DkvFn pick_dkv(bool seg, bool f32) {
+  if (seg) return f32 ? launch_dkv<D, true, true> : launch_dkv<D, true, false>;
+  return f32 ? launch_dkv<D, false, true> : launch_dkv<D, false, false>;
 }
 
 }  // namespace
@@ -671,59 +736,63 @@ extern "C" int k8s_flash_bwd_smem_bytes(int kernel, int d) {
   return 0;
 }
 
-// K2. q/dout/dq [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (bf16, strided: unit
+// K2. q/dout [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (bf16, strided: unit
 // stride on D, other strides multiples of 8 elements, q/k/v/dout bases
-// 16-byte aligned — TMA's rules); lse and dd [B, Hq, Sq] f32 with rows
-// `row_stride` (a multiple of 4, >= Sq) elements apart; seg [B, Sq]
-// int32 with rows `row_stride` apart too, or null, which needs Sq == Sk.
-// Causal requires
-// Sq == Sk. Built for D = 128 and D = 64; anything else returns
-// cudaErrorInvalidValue.
+// 16-byte aligned — TMA's rules); dq like q, bf16, or f32 with
+// `grads_f32`; lse and dd [B, Hq, Sq] f32 with rows `row_stride` (a
+// multiple of 4, >= Sq) elements apart; seg [B, Sq] int32 (the query
+// rows) with rows `row_stride` apart too, or null, which needs Sq == Sk;
+// seg_kv [B, Sk] int32 (the key rows, the same stride), or null for the
+// query rows (it needs seg). Causal requires Sq == Sk. Built for D = 128
+// and D = 64; anything else returns cudaErrorInvalidValue.
 extern "C" int k8s_flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* dd, const void* seg, void* dq, int B, int Sq,
+    const void* lse, const void* dd, const void* seg, const void* seg_kv, void* dq,
+    int B, int Sq,
     int Sk, int Hq, int Hkv, int D_, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long do_sb,
     long long do_ss, long long do_sh, long long dq_sb, long long dq_ss,
     long long dq_sh, long long row_stride, float scale, int causal,
-    void* stream) {
+    int grads_f32, void* stream) {
   if ((D_ != 128 && D_ != 64) || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-      row_stride % 4 || row_stride < Sq || (seg != nullptr && Sq != Sk))
+      row_stride % 4 || row_stride < Sq || (seg != nullptr && Sq != Sk) ||
+      (seg == nullptr && seg_kv != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const int* sg = static_cast<const int*>(seg);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool s_ = sg != nullptr;
-  return (D_ == 128 ? (s_ ? launch_dq<128, true> : launch_dq<128, false>)
-                    : (s_ ? launch_dq<64, true> : launch_dq<64, false>))(
-      q, k, v, dout, lse, dd, sg, dq, B, Sq, Sk, Hq, Hkv, q_sb, q_ss, q_sh,
+  const int* skv = seg_kv != nullptr ? static_cast<const int*>(seg_kv) : sg;
+  const bool s_ = sg != nullptr, f32 = grads_f32 != 0;
+  return (D_ == 128 ? pick_dq<128>(s_, f32) : pick_dq<64>(s_, f32))(
+      q, k, v, dout, lse, dd, sg, skv, dq, B, Sq, Sk, Hq, Hkv, q_sb, q_ss, q_sh,
       k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss,
-      dq_sh, row_stride, scale, causal, s);
+      dq_sh, row_stride, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
-// K3. Shapes and rules as K2; dk/dv [B, Sk, Hkv, D] bf16 (strided), each
-// written once with the sum over the Hq / Hkv query heads of its group.
+// K3. Shapes and rules as K2; dk/dv [B, Sk, Hkv, D] (strided), bf16 or f32
+// with `grads_f32`, each written once with the sum over the Hq / Hkv query
+// heads of its group.
 extern "C" int k8s_flash_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* dd, const void* seg, void* dk, void* dv,
-    int B, int Sq, int Sk, int Hq, int Hkv, int D_, long long q_sb,
+    const void* lse, const void* dd, const void* seg, const void* seg_kv, void* dk,
+    void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D_, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long do_sb, long long do_ss, long long do_sh, long long dk_sb,
     long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
     long long dv_sh, long long row_stride, float scale, int causal,
-    void* stream) {
+    int grads_f32, void* stream) {
   if ((D_ != 128 && D_ != 64) || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-      row_stride % 4 || row_stride < Sq || (seg != nullptr && Sq != Sk))
+      row_stride % 4 || row_stride < Sq || (seg != nullptr && Sq != Sk) ||
+      (seg == nullptr && seg_kv != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const int* sg = static_cast<const int*>(seg);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool s_ = sg != nullptr;
-  return (D_ == 128 ? (s_ ? launch_dkv<128, true> : launch_dkv<128, false>)
-                    : (s_ ? launch_dkv<64, true> : launch_dkv<64, false>))(
-      q, k, v, dout, lse, dd, sg, dk, dv, B, Sq, Sk, Hq, Hkv, q_sb, q_ss,
+  const int* skv = seg_kv != nullptr ? static_cast<const int*>(seg_kv) : sg;
+  const bool s_ = sg != nullptr, f32 = grads_f32 != 0;
+  return (D_ == 128 ? pick_dkv<128>(s_, f32) : pick_dkv<64>(s_, f32))(
+      q, k, v, dout, lse, dd, sg, skv, dk, dv, B, Sq, Sk, Hq, Hkv, q_sb, q_ss,
       q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dk_sb,
-      dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, row_stride, scale, causal, s);
+      dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, row_stride, scale, causal,
+      static_cast<cudaStream_t>(stream));
 }

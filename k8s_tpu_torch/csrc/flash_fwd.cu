@@ -32,15 +32,25 @@
 // - Epilogue: O / l goes to bf16 through this warpgroup's Q rows in
 //   shared memory (same swizzle, conflict-free) and out to the device in
 //   16-byte stores, rows past Sq dropped; lse = (m2 + log2 l) * ln 2, the
-//   natural-log value the backward kernels (flash_bwd.cu) read.
+//   natural-log value the backward kernels (flash_bwd.cu) read. With
+//   `out_f32` (the Pallas kernel's out_f32: ring attention merges each
+//   ring step's partial O in f32, and rounding every partial to bf16
+//   would compound once per step) O / l is stored in f32 straight from
+//   the accumulator registers, 8 bytes (two columns) per store, rows past
+//   Sq dropped: twice the bf16 bytes would not fit the Q half it stages
+//   through, and the stores are a small share of the block's time.
 //
 // - Segment ids (optional: a null pointer means none): one int32 row per
-//   batch (rows `seg_stride` apart, a multiple of 4), shared by queries
-//   and keys (self-attention, Sq == Sk). Query row i sees key j only when
-//   their ids are equal — the Pallas _segment_mask (packed documents;
-//   BERT's padding mask, 1 real, 0 pad). Each consumer thread reads its
-//   two rows' ids once; the producer stages each key tile's 128 ids in
-//   shared memory with the tile (a rank-2 TMA box, zeros past Sk), and
+//   batch for the queries (rows `seg_stride` apart, a multiple of 4) and
+//   one for the keys, `seg_kv`, with the same stride (Sq == Sk). A null
+//   `seg_kv` means the query row serves both sides (self-attention); ring
+//   attention passes the resident KV chunk's row, which differs from the
+//   local query row (the Pallas kernel's segment_ids_kv). Query row i
+//   sees key j only when their ids are equal — the Pallas _segment_mask
+//   (packed documents; BERT's padding mask, 1 real, 0 pad). Each
+//   consumer thread reads its two rows' ids once from the query row; the
+//   producer stages each key tile's 128 ids from the key row in shared
+//   memory with the tile (a rank-2 TMA box, zeros past Sk), and
 //   every tile is masked, not only the edge ones. (Per-thread loads of
 //   the 32 column ids from global memory made K1 2.2x slower at
 //   BERT-base's shape on an H100.) A tile may hide every key from some
@@ -49,7 +59,8 @@
 //
 // Instances: the head dim D (128: two 64-wide swizzled halves per row;
 // 64: one half, so half the Q K^T k-steps and an N-64 P V product), with
-// or without segment ids (the instance without holds no mask code), and
+// or without segment ids (the instance without holds no mask code), O in
+// bf16 or f32 (the bf16 instance's code is the one without out_f32), and
 // two tile configs, chosen per call by the wrapper (ops/attention.py
 // _flash_fwd_config): two consumer warpgroups (BLOCK_M 128, 384 threads,
 // 160 KB of shared memory at D 128) for long sequences, one (BLOCK_M 64,
@@ -93,13 +104,14 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D, int NC, bool SEG>  // + whether segment ids mask S
+// + whether segment ids mask S, whether O is f32 (else bf16)
+template <int D, int NC, bool SEG, bool OF32>
 __global__ void __launch_bounds__(Cfg<D, NC>::THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_seg,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 void* __restrict__ o, float* __restrict__ lse,
                  const int* __restrict__ seg, long long seg_stride, int Sq,
                  int Sk, int Hq,
                  int groups, long long o_sb, long long o_ss, long long o_sh,
@@ -168,7 +180,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r0 = wg_row0 + warp * 16 + g;  // d[4j + 0, 1]; r0 + 8: d[4j + 2, 3]
     const int r1 = r0 + 8;
     const uint32_t sq = sbase + cw * 64 * 128;  // its Q rows in half 0
-    // this batch's segment ids (self-attention: one row for both sides)
+    // this batch's query-side segment ids (the key side rides the tiles)
     int sg0 = 0, sg1 = 0;
     if constexpr (SEG) {
       const int* sg = seg + static_cast<long long>(b) * seg_stride;
@@ -291,27 +303,43 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     l0 = fmaxf(l0, 1e-30f);
     l1 = fmaxf(l1, 1e-30f);
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-    // O in bf16 over this warpgroup's Q rows (no longer read), in the
-    // same swizzled layout
-    uint8_t* so = smem + cw * 64 * 128;
-    const int rl0 = warp * 16 + g;  // rl0 % 8 == (rl0 + 8) % 8 == g
+    if constexpr (OF32) {
+      // f32 O from the registers: this thread's two columns of each
+      // 8-column group, on its rows r0 and r1
+      float* ob = static_cast<float*>(o) + b * o_sb + h * o_sh;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      uint8_t* chunk = so + (j / 8) * C::Q_HALF_BYTES + (((j % 8) ^ g) * 16) + t * 4;
-      *reinterpret_cast<uint32_t*>(chunk + rl0 * 128) =
-          pack_f32(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
-      *reinterpret_cast<uint32_t*>(chunk + (rl0 + 8) * 128) =
-          pack_f32(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
-    }
-    named_bar_sync(1 + cw, 128);
-    __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
-    for (int i = tid % 128; i < 64 * NJ; i += 128) {
-      const int rl = i / NJ, j = i % NJ;
-      const int row = wg_row0 + rl;
-      if (row < Sq)
-        *reinterpret_cast<uint4*>(ob + row * o_ss + j * 8) =
-            *reinterpret_cast<const uint4*>(
-                so + (j / 8) * C::Q_HALF_BYTES + rl * 128 + (((j % 8) ^ (rl % 8)) * 16));
+      for (int j = 0; j < NJ; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (r0 < Sq)
+          *reinterpret_cast<float2*>(ob + r0 * o_ss + col) =
+              make_float2(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        if (r1 < Sq)
+          *reinterpret_cast<float2*>(ob + r1 * o_ss + col) =
+              make_float2(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+      }
+    } else {
+      // O in bf16 over this warpgroup's Q rows (no longer read), in the
+      // same swizzled layout
+      uint8_t* so = smem + cw * 64 * 128;
+      const int rl0 = warp * 16 + g;  // rl0 % 8 == (rl0 + 8) % 8 == g
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint8_t* chunk = so + (j / 8) * C::Q_HALF_BYTES + (((j % 8) ^ g) * 16) + t * 4;
+        *reinterpret_cast<uint32_t*>(chunk + rl0 * 128) =
+            pack_f32(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(chunk + (rl0 + 8) * 128) =
+            pack_f32(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+      }
+      named_bar_sync(1 + cw, 128);
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o) + b * o_sb + h * o_sh;
+      for (int i = tid % 128; i < 64 * NJ; i += 128) {
+        const int rl = i / NJ, j = i % NJ;
+        const int row = wg_row0 + rl;
+        if (row < Sq)
+          *reinterpret_cast<uint4*>(ob + row * o_ss + j * 8) =
+              *reinterpret_cast<const uint4*>(
+                  so + (j / 8) * C::Q_HALF_BYTES + rl * 128 + (((j % 8) ^ (rl % 8)) * 16));
+      }
     }
     if (lse != nullptr && t == 0) {
       float* lb = lse + (static_cast<long long>(b) * Hq + h) * Sq;
@@ -321,10 +349,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D, int NC, bool SEG>
+template <int D, int NC, bool SEG, bool OF32>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           const int* seg, long long seg_stride, int B, int Sq, int Sk, int Hq,
-           int Hkv,
+           const int* seg, const int* seg_kv, long long seg_stride, int B,
+           int Sq, int Sk, int Hq, int Hkv,
            long long q_sb, long long q_ss, long long q_sh, long long k_sb,
            long long k_ss, long long k_sh, long long v_sb, long long v_ss,
            long long v_sh, long long o_sb, long long o_ss, long long o_sh,
@@ -334,18 +362,29 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   int err = make_bshd_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, C::BLOCK_M);
   if (!err) err = make_bshd_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, BLOCK_N);
   if (!err) err = make_bshd_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, BLOCK_N);
+  // the key tiles' ids: the key-side row (the query row without one)
   if (!err && seg != nullptr)
-    err = make_rows_map(&tsg, seg, B, Sk, seg_stride, BLOCK_N, CU_TENSOR_MAP_DATA_TYPE_INT32);
+    err = make_rows_map(&tsg, seg_kv != nullptr ? seg_kv : seg, B, Sk, seg_stride, BLOCK_N,
+                        CU_TENSOR_MAP_DATA_TYPE_INT32);
   if (err) return err;
   static std::atomic<bool> smem_set[hopper::MAX_DEVICES];
-  const cudaError_t attr =
-      hopper::set_smem_limit_once(flash_fwd_kernel<D, NC, SEG>, C::SMEM, smem_set);
+  const cudaError_t attr = hopper::set_smem_limit_once(flash_fwd_kernel<D, NC, SEG, OF32>,
+                                                       C::SMEM, smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(Hq, B, (Sq + C::BLOCK_M - 1) / C::BLOCK_M);
-  flash_fwd_kernel<D, NC, SEG><<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, tsg, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      seg, seg_stride, Sq, Sk, Hq, Hq / Hkv, o_sb, o_ss, o_sh, scale_log2, causal);
+  flash_fwd_kernel<D, NC, SEG, OF32><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tsg, o, static_cast<float*>(lse), seg, seg_stride, Sq, Sk, Hq,
+      Hq / Hkv, o_sb, o_ss, o_sh, scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+using LaunchFn = decltype(&launch<128, 2, false, false>);
+
+// the instance for (segment ids, f32 O) at head dim D and NC consumers
+template <int D, int NC>
+LaunchFn pick(bool seg, bool of32) {
+  if (seg) return of32 ? launch<D, NC, true, true> : launch<D, NC, true, false>;
+  return of32 ? launch<D, NC, false, true> : launch<D, NC, false, false>;
 }
 
 }  // namespace
@@ -364,38 +403,33 @@ extern "C" int k8s_flash_fwd_smem_bytes(int config, int d) {
 
 // q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (bf16, strided: unit stride on D,
 // other strides multiples of 8 elements, bases 16-byte aligned — TMA's
-// rules), o like q, lse [B, Hq, Sq] f32 or null, seg [B, Sq] int32 with
-// rows `seg_stride` (a multiple of 4, >= Sq) elements apart, or null;
-// segment ids need Sq == Sk. Causal requires Sq == Sk;
-// scale > 0. config 0: 128-row query tiles (two consumer warpgroups), 1:
-// 64-row tiles (one). Built for D = 128 (Llama-3-8B) and D = 64
-// (BERT-base); anything else returns cudaErrorInvalidValue.
+// rules), o like q in bf16, or in f32 with `out_f32`, lse [B, Hq, Sq] f32
+// or null, seg [B, Sq] int32 (the query rows) with rows `seg_stride` (a
+// multiple of 4, >= Sq) elements apart, or null; seg_kv [B, Sk] int32
+// (the key rows, the same stride) or null for the query rows; segment ids
+// need Sq == Sk, seg_kv needs seg. Causal requires Sq == Sk; scale > 0.
+// config 0: 128-row query tiles (two consumer warpgroups), 1: 64-row
+// tiles (one). Built for D = 128 (Llama-3-8B) and D = 64 (BERT-base);
+// anything else returns cudaErrorInvalidValue.
 extern "C" int k8s_flash_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    const void* seg, long long seg_stride, int B, int Sq, int Sk, int Hq,
-    int Hkv, int D_,
+    const void* seg, const void* seg_kv, long long seg_stride, int B, int Sq,
+    int Sk, int Hq, int Hkv, int D_,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-    float scale, int causal, int config, void* stream) {
+    float scale, int causal, int out_f32, int config, void* stream) {
   if ((D_ != 128 && D_ != 64) || Hkv <= 0 || Hq % Hkv || !(scale > 0.f) ||
-      Sk <= 0 || (config != 0 && config != 1) ||
+      Sk <= 0 || (config != 0 && config != 1) || (seg == nullptr && seg_kv != nullptr) ||
       (seg != nullptr && (Sq != Sk || seg_stride % 4 || seg_stride < Sq)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return 0;
   const float scale_log2 = scale * 1.4426950408889634f;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sg = static_cast<const int*>(seg);
-#define K8S_FLASH_FWD_LAUNCH(DD, NC)                                         \
-  (sg != nullptr ? K8S_FLASH_FWD_LAUNCH_SEG(DD, NC, true)                    \
-                 : K8S_FLASH_FWD_LAUNCH_SEG(DD, NC, false))
-#define K8S_FLASH_FWD_LAUNCH_SEG(DD, NC, SG)                                 \
-  launch<DD, NC, SG>(q, k, v, o, lse, sg, seg_stride, B, Sq, Sk, Hq, Hkv,    \
-                     q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,   \
-                     o_sb, o_ss, o_sh, scale_log2, causal, s)
-  if (D_ == 128)
-    return config == 0 ? K8S_FLASH_FWD_LAUNCH(128, 2) : K8S_FLASH_FWD_LAUNCH(128, 1);
-  return config == 0 ? K8S_FLASH_FWD_LAUNCH(64, 2) : K8S_FLASH_FWD_LAUNCH(64, 1);
-#undef K8S_FLASH_FWD_LAUNCH
-#undef K8S_FLASH_FWD_LAUNCH_SEG
+  const bool sg = seg != nullptr, f32 = out_f32 != 0;
+  const LaunchFn fn = D_ == 128 ? (config == 0 ? pick<128, 2>(sg, f32) : pick<128, 1>(sg, f32))
+                                : (config == 0 ? pick<64, 2>(sg, f32) : pick<64, 1>(sg, f32));
+  return fn(q, k, v, o, lse, static_cast<const int*>(seg), static_cast<const int*>(seg_kv),
+            seg_stride, B, Sq, Sk, Hq, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+            v_ss, v_sh, o_sb, o_ss, o_sh, scale_log2, causal,
+            static_cast<cudaStream_t>(stream));
 }

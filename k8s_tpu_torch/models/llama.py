@@ -15,7 +15,15 @@ grad; serving ones do not.
 
 **Training** (``decode=False``): every layer runs causal self-attention
 through :func:`k8s_tpu_torch.ops.attention.flash_attention` (on the card
-the flash kernels forward and backward), optionally under per-block
+the flash kernels forward and backward) — or, with ``attention="ring"``
+or ``"ulysses"`` on a sequence-parallel layout
+(:meth:`LlamaForCausalLM.use_sequence_parallel`: each rank of the mesh's
+``seq`` axis holds one chunk of every sequence, at its global
+positions), ring attention
+(:func:`k8s_tpu_torch.parallel.ring_attention.ring_attention`, the
+flash kernels per ring step on the card) or Ulysses attention
+(:func:`k8s_tpu_torch.parallel.ulysses.ulysses_attention_sharded`) over
+that axis — optionally under per-block
 activation checkpointing (``remat``, non-reentrant
 ``torch.utils.checkpoint``) with the JAX package's policies
 (:func:`_remat_policy`). ``forward(ids, labels=..., z_loss=...)`` returns
@@ -91,7 +99,9 @@ from k8s_tpu_torch.ops.attention import (
 from k8s_tpu_torch.ops.fused_ce import fused_lm_head_cross_entropy
 from k8s_tpu_torch.ops.norms import rms_norm
 from k8s_tpu_torch.ops.quant import Int8ServingDense, quantize_rows
+from k8s_tpu_torch.parallel.ring_attention import ProcessGroupRing, ring_attention
 from k8s_tpu_torch.parallel.sharding import sharded_embedding_lookup
+from k8s_tpu_torch.parallel.ulysses import ulysses_attention_sharded
 from k8s_tpu_torch.parallel.tensor_parallel import (
     TensorAxis,
     copy_to_tensor_region,
@@ -136,6 +146,12 @@ class LlamaConfig:
     # "int8": the KV cache STORED int8 with per-row f32 scales (halves
     # the cache bytes a decode step reads); numerics change, opt-in
     kv_quant: str = "none"
+    # training attention: "flash" (the flash kernels on the card, plain
+    # attention on the CPU), "ring" (KV chunks rotate around the mesh's
+    # `seq` axis; needs use_sequence_parallel) or "ulysses" (all-to-all
+    # re-split seq -> heads over `seq`; needs use_sequence_parallel, and
+    # the seq degree must divide the head counts)
+    attention: str = "flash"
 
     def __post_init__(self):
         if self.quant not in ("none", "int8_serving"):
@@ -144,6 +160,9 @@ class LlamaConfig:
         if self.kv_quant not in ("none", "int8"):
             raise ValueError(f"unknown kv_quant {self.kv_quant!r}; expected "
                              "'none' or 'int8'")
+        if self.attention not in ("flash", "ring", "ulysses"):
+            raise ValueError(f"unknown attention {self.attention!r}; expected "
+                             "'flash', 'ring' or 'ulysses'")
         if self.quant != "none" and not self.decode:
             raise ValueError("quant='int8_serving' is a serving layout: it "
                              "needs decode=True")
@@ -425,6 +444,9 @@ class LlamaAttention(nn.Module):
         # (LlamaForCausalLM.use_tensor_parallel), else None
         self.mesh: Optional[object] = None
         self.tp: Optional[TensorAxis] = None
+        # the seq axis of a sequence-parallel layout
+        # (LlamaForCausalLM.use_sequence_parallel), else None
+        self.seq: Optional[ProcessGroupRing] = None
 
     def _train_forward(self, x, positions, segment_ids):
         """Training self-attention on this rank's heads: the local head
@@ -444,7 +466,18 @@ class LlamaAttention(nn.Module):
             q = checkpoint_name(q, "attn_q")
             k = checkpoint_name(k, "attn_k")
             v = checkpoint_name(v, "attn_v")
-        if self.mesh is not None:
+        if cfg.attention != "flash":
+            if self.seq is None:
+                raise ValueError(
+                    f"attention={cfg.attention!r} runs over a mesh's seq axis: "
+                    "lay the model out with use_sequence_parallel first")
+            if cfg.attention == "ring":
+                out = ring_attention(q, k, v, self.seq, causal=True,
+                                     segment_ids=segment_ids)
+            else:
+                out = ulysses_attention_sharded(q, k, v, segment_ids, self.seq,
+                                                causal=True)
+        elif self.mesh is not None:
             # every sharded layout, one rank included: the same kernel
             # call on the local block (the JAX gate skips its shard_map
             # on a one-device mesh only because it would be a no-op)
@@ -609,6 +642,30 @@ class LlamaForCausalLM(nn.Module):
                                    device=dev)
         self.mesh: Optional[object] = None
         self.tp: Optional[TensorAxis] = None
+        self.seq: Optional[ProcessGroupRing] = None
+
+    def use_sequence_parallel(self, mesh) -> None:
+        """Run the training forward on this rank's chunk of every sequence
+        (the ``length -> seq`` rule of ``LogicalRules.FSDP_TP_SP``;
+        ``train.create_sharded_state`` calls it): ``input_ids`` are the
+        chunk ``[r S / n, (r + 1) S / n)`` of rank ``r`` of the mesh's
+        ``seq`` axis, positions default to those global ones (RoPE sees
+        what the JAX model's positions give it under GSPMD), and
+        ``attention="ring"``/``"ulysses"`` run over the axis. A ``seq``
+        axis of more than one rank needs one of the two: ``"flash"`` would
+        attend within the chunk. Every rank calls it, a world of one too."""
+        if self.config.decode:
+            raise NotImplementedError(
+                "sequence-parallel serving is not ported to k8s_tpu_torch yet "
+                "(ROADMAP A15)")
+        ring = ProcessGroupRing.of(mesh)
+        if ring.size > 1 and self.config.attention == "flash":
+            raise ValueError(
+                f"a seq axis of {ring.size} ranks needs attention='ring' or "
+                "'ulysses' (each rank holds one chunk of the sequence)")
+        self.seq = ring
+        for block in self.layers:
+            block.attn.seq = ring
 
     def use_tensor_parallel(self, mesh) -> None:
         """Run the training forward on this rank's shards of a tensor-
@@ -683,7 +740,9 @@ class LlamaForCausalLM(nn.Module):
         sharded parameter is whole (FSDP2 gathers the root's parameters
         around its forward, and reduce-scatters their gradients after
         its backward). ``segment_ids`` [B, S] masks attention across
-        packed documents (CPU only: the kernels raise for them)."""
+        packed documents. Under :meth:`use_sequence_parallel` every [B,
+        S] input is this rank's chunk of the sequence (``labels`` the
+        chunk's next tokens)."""
         if self.config.decode:
             if segment_ids is not None:
                 raise NotImplementedError(
@@ -695,7 +754,10 @@ class LlamaForCausalLM(nn.Module):
         cfg = self.config
         b, s = input_ids.shape
         if positions is None:
-            positions = torch.arange(s, device=input_ids.device).expand(b, s)
+            # a sequence-parallel rank's chunk starts at its global offset
+            start = self.seq.rank * s if self.seq is not None else 0
+            positions = torch.arange(start, start + s,
+                                     device=input_ids.device).expand(b, s)
         if self.tp is not None:
             x = vocab_parallel_embedding_lookup(
                 _local(self.embed_tokens), input_ids, self.tp, cfg.dtype)

@@ -43,22 +43,25 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # library name -> (source file, {C entry point: argtypes})
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", {
-        # q, k, v, o, lse (or null), segment ids (or null), their row
-        # stride, B, Sq, Sk, Hq, Hkv, D, q/k/v/o strides (batch, seq,
-        # head), scale, causal, tile config, stream
-        "k8s_flash_fwd_bf16": [_P] * 6 + [_L] + [_I] * 6 + [_L] * 12 + [_F, _I, _I, _P],
+        # q, k, v, o, lse (or null), query-side segment ids (or null),
+        # key-side ones (or null: the query row), their row stride, B, Sq,
+        # Sk, Hq, Hkv, D, q/k/v/o strides (batch, seq, head), scale,
+        # causal, f32 O, tile config, stream
+        "k8s_flash_fwd_bf16": [_P] * 7 + [_L] + [_I] * 6 + [_L] * 12 + [_F, _I, _I, _I, _P],
         # tile config, head dim -> dynamic shared memory per block (bytes)
         "k8s_flash_fwd_smem_bytes": [_I, _I],
     }),
     "flash_bwd": ("flash_bwd.cu", {
-        # q, k, v, dout, lse, dd, segment ids (or null), dq, B, Sq, Sk,
-        # Hq, Hkv, D, q/k/v/dout/dq strides (batch, seq, head), lse/dd row
-        # stride, scale, causal, stream
-        "k8s_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 6 + [_L] * 16 + [_F, _I, _P],
-        # q, k, v, dout, lse, dd, segment ids (or null), dk, dv, B, Sq, Sk,
-        # Hq, Hkv, D, q/k/v/dout/dk/dv strides (batch, seq, head), lse/dd
-        # row stride, scale, causal, stream
-        "k8s_flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 6 + [_L] * 19 + [_F, _I, _P],
+        # q, k, v, dout, lse, dd, query-side segment ids (or null),
+        # key-side ones (or null), dq, B, Sq, Sk, Hq, Hkv, D,
+        # q/k/v/dout/dq strides (batch, seq, head), lse/dd row stride,
+        # scale, causal, f32 gradients, stream
+        "k8s_flash_bwd_dq_bf16": [_P] * 9 + [_I] * 6 + [_L] * 16 + [_F, _I, _I, _P],
+        # q, k, v, dout, lse, dd, query-side segment ids (or null),
+        # key-side ones (or null), dk, dv, B, Sq, Sk, Hq, Hkv, D,
+        # q/k/v/dout/dk/dv strides (batch, seq, head), lse/dd row stride,
+        # scale, causal, f32 gradients, stream
+        "k8s_flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 6 + [_L] * 19 + [_F, _I, _I, _P],
         # kernel (0: dq, 1: dk/dv), head dim -> dynamic shared memory per
         # block (bytes)
         "k8s_flash_bwd_smem_bytes": [_I, _I],

@@ -6,14 +6,19 @@ Five kernels, each beside its plain PyTorch version:
   (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel``: TMA
   loads and ``wgmma`` products, with a tile size chosen per call by
   :func:`_flash_fwd_config`), at head dims 64 and 128, causal or not,
-  with optional segment ids (one ``[B, S]`` row for queries and keys:
-  the Pallas ``_segment_mask``). The engine's one-shot prefill of a
-  fresh cache and every training forward (Llama's and BERT's) run it.
+  with optional segment ids (a ``[B, S]`` row for the queries and,
+  when it differs, one for the keys: the Pallas ``_segment_mask`` and
+  its ``segment_ids_kv``), O in q's dtype or in f32 (``out_f32``). The
+  engine's one-shot prefill of a fresh cache, every training forward
+  (Llama's and BERT's) and every ring attention step run it.
 - :func:`flash_bwd` — the flash backward: dQ (``_bwd_dq_kernel``) and
   dK/dV summed over the GQA group in registers (``_bwd_dkv_kernel``),
   both in ``csrc/flash_bwd.cu`` (TMA loads and ``wgmma`` products, no
   atomics), recomputing P from the forward's logsumexp, with the
-  forward's segment ids. Every training backward runs them.
+  forward's segment ids, the gradients in the inputs' dtypes or in f32
+  (``grads_f32``). Every training backward runs them, and every ring
+  attention step's backward (:mod:`k8s_tpu_torch.parallel.ring_attention`,
+  which merges the f32 partials).
 - :func:`decode_attention_update` — ragged single-token decode with the
   in-place cache append (``csrc/decode_attn.cu``, replacing the Pallas
   ``_decode_attn_kernel``): blocks over splits of the cache rows, of a
@@ -30,7 +35,9 @@ lies on the CPU; for a CUDA tensor it launches the kernel or raises.
 Each counts its launches in ``<wrapper>.launches`` (``flash_bwd``
 counts the two kernels apart: ``flash_bwd.launches_dq`` and
 ``flash_bwd.launches_dkv``; a decode wrapper counts one per call, its
-split and merge kernels together). Every launch runs under a guard
+split and merge kernels together); the f32-output instances ring
+attention launches are also counted apart (``flash_fwd.launches_out_f32``,
+``flash_bwd.launches_grads_f32``: one per call, K2 and K3 each once). Every launch runs under a guard
 for its tensors' device (:func:`_launch`).
 
 :func:`mha_reference` is the plain attention path the JAX package runs
@@ -51,6 +58,7 @@ lse and D (the JAX ``[B*H, 1, Sq]`` row layout, reshaped).
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -77,9 +85,25 @@ FLASH_FWD_TILES = {0: (128, 128), 1: (64, 128)}
 FLASH_FWD_MIN_BLOCKS = 128
 
 
-def _attention_f32(q, k, v, causal: bool, scale: float, segment_ids=None):
+def _visible(segment_ids, segment_ids_kv):
+    """``[B, Sq, Sk]``: query i sees key j iff ``seg_q[i] == seg_kv[j]``
+    (``segment_ids_kv`` None: the query row serves both sides), or None
+    without ids. ``segment_ids_kv`` alone raises, as the JAX
+    ``_flash_forward`` does."""
+    if segment_ids is None:
+        if segment_ids_kv is not None:
+            raise ValueError("segment_ids_kv requires segment_ids")
+        return None
+    seg = segment_ids.to(torch.int32)
+    seg_kv = seg if segment_ids_kv is None else segment_ids_kv.to(torch.int32)
+    return seg[:, :, None] == seg_kv[:, None, :]
+
+
+def _attention_f32(q, k, v, causal: bool, scale: float, segment_ids=None,
+                   segment_ids_kv=None):
     """GQA attention in f32: ``(out [B, Sq, Hq, D] f32, lse [B, Hq, Sq])``.
-    Causal masking is ``tril(k=sk-sq)``, the JAX reference's diagonal."""
+    Causal masking is ``tril(k=sk-sq)``, the JAX reference's diagonal;
+    segment ids as :func:`_visible`."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -89,9 +113,8 @@ def _attention_f32(q, k, v, causal: bool, scale: float, segment_ids=None):
         mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
             diagonal=sk - sq)
         logits = logits.masked_fill(~mask, NEG_INF)
-    if segment_ids is not None:
-        seg = segment_ids.to(torch.int32)
-        visible = seg[:, :, None] == seg[:, None, :]  # [B, Sq, Sk]
+    visible = _visible(segment_ids, segment_ids_kv)  # [B, Sq, Sk]
+    if visible is not None:
         logits = logits.masked_fill(~visible[:, None, None], NEG_INF)
     lse = torch.logsumexp(logits, dim=-1)  # [B, Hkv, G, Sq]
     probs = torch.softmax(logits, dim=-1)
@@ -113,20 +136,25 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def flash_fwd_plain(q, k, v, causal: bool, scale: float, segment_ids=None):
-    """The flash kernel's plain version: ``(out, lse [B, Hq, Sq] f32)``.
-    ``segment_ids`` [B, S] (self-attention) hide key j from query i when
-    their ids differ (the score set to the finite NEG_INF, as in the JAX
-    reference). A row with no visible key is garbage by contract; with
-    segment ids every row sees its own key."""
-    out, lse = _attention_f32(q, k, v, causal, scale, segment_ids)
-    return out.to(q.dtype), lse
+def flash_fwd_plain(q, k, v, causal: bool, scale: float, segment_ids=None,
+                    segment_ids_kv=None, out_f32: bool = False):
+    """The flash kernel's plain version: ``(out, lse [B, Hq, Sq] f32)``,
+    ``out`` in q's dtype or, with ``out_f32``, in f32. ``segment_ids``
+    [B, Sq] (the query rows) and ``segment_ids_kv`` [B, Sk] (the key rows;
+    None: the query rows) hide key j from query i when their ids differ
+    (the score set to the finite NEG_INF, as in the JAX reference). A row
+    with no visible key is garbage by contract; with self-attention ids
+    every row sees its own key."""
+    out, lse = _attention_f32(q, k, v, causal, scale, segment_ids,
+                              segment_ids_kv)
+    return (out if out_f32 else out.to(q.dtype)), lse
 
 
 def _segment_rows(segment_ids, q: torch.Tensor, sk: int) -> Optional[torch.Tensor]:
     """``segment_ids`` as the kernels read them: int32 [B, S] rows on q's
     device, padded to :func:`_tma_row_stride` (a TMA map reads them; None
-    stays None). Self-attention only."""
+    stays None). The query rows, or a key-side row of the same shape:
+    the kernels take Sq == Sk (ring attention's chunks are equal)."""
     if segment_ids is None:
         return None
     b, sq = q.shape[0], q.shape[1]
@@ -149,12 +177,42 @@ def _check_bhsd(name: str, x: torch.Tensor) -> None:
             f"multiple of 8 and 16-byte alignment (strides {x.stride()})")
 
 
+def _ptr(x: Optional[torch.Tensor]):
+    """A tensor's device pointer for a C entry, or NULL for None."""
+    return x.data_ptr() if x is not None else None
+
+
+# the devices whose primary context each host thread has made current
+# (:func:`_launch`)
+_THREAD = threading.local()
+# the flash wrappers' launch counters are bumped from several host
+# threads at once (a ring's ranks as threads of one process): an
+# unguarded ``+=`` on a function attribute can lose an update
+_COUNT_LOCK = threading.Lock()
+
+
 def _launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call the C entry ``entry`` of kernel library ``name`` for tensors
     on ``device``: inside a device guard, since a C entry launches on the
     runtime's current device, and with that device's current stream as
-    its last argument. Raises if the launch was refused."""
+    its last argument. Raises if the launch was refused.
+
+    A host thread's first launch on a device first sets the device
+    through torch (``cudaSetDevice``, which makes its primary context
+    current in the thread). The kernel libraries link the CUDA runtime
+    statically, and from a thread that had made no CUDA call through
+    torch their launches failed with "invalid argument" on an H100; the
+    device guard alone does not set a device that is already current.
+    ``chip_smoke.py``'s ring of threads runs the kernels from such
+    threads."""
+    ready = getattr(_THREAD, "devices", None)
+    if ready is None:
+        ready = _THREAD.devices = set()
     with torch.cuda.device(device):
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        if index not in ready:
+            torch.cuda.set_device(index)
+            ready.add(index)
         code = getattr(_kernels.lib(name), entry)(
             *args, torch.cuda.current_stream(device).cuda_stream)
     _kernels.check(code, name)
@@ -200,24 +258,38 @@ def _flash_fwd_config(b: int, sq: int, hq: int) -> int:
     return 0 if blocks >= FLASH_FWD_MIN_BLOCKS else 1
 
 
+def _segment_pair(segment_ids, segment_ids_kv, q: torch.Tensor, sk: int):
+    """The query and key rows as the kernels read them (None for no key
+    row: the query row serves both sides)."""
+    if segment_ids is None and segment_ids_kv is not None:
+        raise ValueError("segment_ids_kv requires segment_ids")
+    return (_segment_rows(segment_ids, q, sk),
+            _segment_rows(segment_ids_kv, q, sk))
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float, with_lse: bool = False,
               config: Optional[int] = None,
-              segment_ids: Optional[torch.Tensor] = None):
+              segment_ids: Optional[torch.Tensor] = None,
+              segment_ids_kv: Optional[torch.Tensor] = None,
+              out_f32: bool = False):
     """Flash attention forward. q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D],
-    optional ``segment_ids`` [B, S] (self-attention: query i sees key j
-    only when their ids are equal); returns ``out`` (q's layout and
-    dtype), or ``(out, lse [B, Hq, Sq] f32)`` with ``with_lse``. On a
-    CUDA tensor this launches ``csrc/flash_fwd.cu`` (bf16, D in
-    KERNEL_HEAD_DIMS, causal only with Sq == Sk, scale > 0) with the
-    tiles of ``config`` — None takes :func:`_flash_fwd_config`'s choice;
-    the tests and chip_smoke.py's sweep force each — or raises; on a CPU
-    tensor it runs the plain version (in f32 when given f32)."""
+    optional ``segment_ids`` [B, Sq] (query i sees key j only when their
+    ids are equal) and ``segment_ids_kv`` [B, Sk] (the keys' ids when
+    they are not the queries': ring attention's resident chunk); returns
+    ``out`` (q's layout, q's dtype or f32 with ``out_f32``), or ``(out,
+    lse [B, Hq, Sq] f32)`` with ``with_lse``. On a CUDA tensor this
+    launches ``csrc/flash_fwd.cu`` (bf16, D in KERNEL_HEAD_DIMS, causal
+    and segment ids only with Sq == Sk, scale > 0) with the tiles of
+    ``config`` — None takes :func:`_flash_fwd_config`'s choice; the tests
+    and chip_smoke.py's sweep force each — or raises; on a CPU tensor it
+    runs the plain version (in f32 when given f32)."""
     if q.device.type == "cpu":
-        out, lse = flash_fwd_plain(q, k, v, causal, scale, segment_ids)
+        out, lse = flash_fwd_plain(q, k, v, causal, scale, segment_ids,
+                                   segment_ids_kv, out_f32)
         return (out, lse) if with_lse else out
     _check_kernel_shapes("flash_fwd", q, k, v, causal)
-    seg = _segment_rows(segment_ids, q, k.shape[1])
+    seg, seg_kv = _segment_pair(segment_ids, segment_ids_kv, q, k.shape[1])
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -228,21 +300,27 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         config = _flash_fwd_config(b, sq, hq)
     if config not in FLASH_FWD_TILES:
         raise ValueError(f"flash_fwd: config {config} not in {list(FLASH_FWD_TILES)}")
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, hq, d),
+                      dtype=torch.float32 if out_f32 else q.dtype,
+                      device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     _launch("flash_fwd", "k8s_flash_fwd_bf16", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            seg.data_ptr() if seg is not None else None, _tma_row_stride(sq),
+            _ptr(seg), _ptr(seg_kv), _tma_row_stride(sq),
             b, sq, sk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], float(scale), int(bool(causal)), config)
-    flash_fwd.launches += 1
+            *out.stride()[:3], float(scale), int(bool(causal)),
+            int(bool(out_f32)), config)
+    with _COUNT_LOCK:
+        flash_fwd.launches += 1
+        flash_fwd.launches_out_f32 += bool(out_f32)
     return (out, lse) if with_lse else out
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_out_f32 = 0
 
 
 def compute_dd(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -253,15 +331,17 @@ def compute_dd(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 
 def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool, scale: float,
-                    segment_ids=None):
+                    segment_ids=None, segment_ids_kv=None,
+                    grads_f32: bool = False):
     """The backward kernels' plain version, from their formulas, in f32:
     P = exp(scale Q K^T - lse), dP = dO V^T, dS = P (dP - D) with D from
     :func:`compute_dd`; dQ = scale dS K, and per kv head dK = scale dS^T Q
     and dV = P^T dO summed over its group of query heads. Returns
-    ``(dq, dk, dv)`` in q's, k's and v's dtypes. Causal masking is
-    ``tril(k=sk-sq)``, as in the forward; ``segment_ids`` [B, S] zero P
-    where a query's and a key's ids differ (the JAX kernels' NEG_INF
-    score, exp(NEG_INF - lse) = 0)."""
+    ``(dq, dk, dv)`` in q's, k's and v's dtypes, or all three in f32
+    with ``grads_f32``. Causal masking is ``tril(k=sk-sq)``, as in the
+    forward; ``segment_ids`` [B, Sq] and ``segment_ids_kv`` [B, Sk] (as
+    in :func:`flash_fwd_plain`) zero P where a query's and a key's ids
+    differ (the JAX kernels' NEG_INF score, exp(NEG_INF - lse) = 0)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -275,17 +355,18 @@ def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool, scale: float,
         mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
             diagonal=sk - sq)
         p = p.masked_fill(~mask, 0.0)
-    if segment_ids is not None:
-        seg = segment_ids.to(torch.int32)
-        visible = seg[:, :, None] == seg[:, None, :]  # [B, Sq, Sk]
+    visible = _visible(segment_ids, segment_ids_kv)  # [B, Sq, Sk]
+    if visible is not None:
         p = p.masked_fill(~visible[:, None, None], 0.0)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
     ds = p * (dp - dd[..., None])
     dq = scale * torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
     dk = scale * torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
-    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    dq = dq.reshape(b, sq, hq, d)
+    if grads_f32:
+        return dq, dk, dv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_kernel_shapes(name: str, q, k, v, causal: bool) -> None:
@@ -327,19 +408,24 @@ def _tma_rows(x: torch.Tensor) -> torch.Tensor:
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
               causal: bool, scale: float,
-              segment_ids: Optional[torch.Tensor] = None):
-    """Flash attention backward: ``(dq, dk, dv)`` in the layouts and
-    dtypes of q, k and v, from the forward's ``out`` and ``lse [B, Hq,
-    Sq]`` and the output gradient ``dout`` (with the forward's
-    ``segment_ids``, if any). On a CUDA tensor this computes D
-    (:func:`compute_dd`) and launches ``csrc/flash_bwd.cu``'s dq and dk/dv
-    kernels (bf16, D in KERNEL_HEAD_DIMS, causal only with Sq == Sk) or
+              segment_ids: Optional[torch.Tensor] = None,
+              segment_ids_kv: Optional[torch.Tensor] = None,
+              grads_f32: bool = False):
+    """Flash attention backward: ``(dq, dk, dv)`` in the layouts of q, k
+    and v, in their dtypes or, with ``grads_f32``, in f32, from the
+    forward's ``out`` and ``lse [B, Hq, Sq]`` and the output gradient
+    ``dout`` (with the forward's ``segment_ids`` and ``segment_ids_kv``,
+    if any). ``out`` is the one D = rowsum(dO O) is taken from: ring
+    attention passes the merged output and lse of the whole ring, not
+    this block's. On a CUDA tensor this computes D (:func:`compute_dd`)
+    and launches ``csrc/flash_bwd.cu``'s dq and dk/dv kernels (bf16, D in
+    KERNEL_HEAD_DIMS, causal and segment ids only with Sq == Sk) or
     raises; on a CPU tensor it runs the plain version."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, dout, causal, scale,
-                               segment_ids)
+                               segment_ids, segment_ids_kv, grads_f32)
     _check_kernel_shapes("flash_bwd", q, k, v, causal)
-    seg = _segment_rows(segment_ids, q, k.shape[1])
+    seg, seg_kv = _segment_pair(segment_ids, segment_ids_kv, q, k.shape[1])
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
@@ -351,32 +437,35 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dd = compute_dd(out, dout)
     _check_rows("flash_bwd: lse", lse, (b, hq, sq), q.device)
     lse, dd, row_stride = _tma_rows(lse), _tma_rows(dd), _tma_row_stride(sq)
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    gdt = {"dtype": torch.float32} if grads_f32 else {}
+    dq = torch.empty_like(q, **gdt)
+    dk = torch.empty_like(k, **gdt)
+    dv = torch.empty_like(v, **gdt)
     _launch("flash_bwd", "k8s_flash_bwd_dq_bf16", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dd.data_ptr(),
-            seg.data_ptr() if seg is not None else None, dq.data_ptr(),
-            b, sq, sk, hq, hkv, d,
+            lse.data_ptr(), dd.data_ptr(), _ptr(seg), _ptr(seg_kv),
+            dq.data_ptr(), b, sq, sk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], *dq.stride()[:3], row_stride,
-            float(scale), int(bool(causal)))
-    flash_bwd.launches_dq += 1
+            float(scale), int(bool(causal)), int(bool(grads_f32)))
+    with _COUNT_LOCK:
+        flash_bwd.launches_dq += 1
     _launch("flash_bwd", "k8s_flash_bwd_dkv_bf16", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dd.data_ptr(),
-            seg.data_ptr() if seg is not None else None,
+            lse.data_ptr(), dd.data_ptr(), _ptr(seg), _ptr(seg_kv),
             dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-            row_stride, float(scale), int(bool(causal)))
-    flash_bwd.launches_dkv += 1
+            row_stride, float(scale), int(bool(causal)), int(bool(grads_f32)))
+    with _COUNT_LOCK:
+        flash_bwd.launches_dkv += 1
+        flash_bwd.launches_grads_f32 += bool(grads_f32)
     return dq, dk, dv
 
 
 flash_bwd.launches_dq = 0
 flash_bwd.launches_dkv = 0
+flash_bwd.launches_grads_f32 = 0
 
 
 @torch.library.custom_op("k8s_tpu_torch::flash_attention", mutates_args=())

@@ -9,8 +9,12 @@ The mesh names the parallelism dimensions, as in the JAX package:
   state sharded, gathered per block by FSDP2)
 - ``tensor`` — Megatron-style tensor parallelism (heads, MLP columns
   and the vocab split; ``parallel/tensor_parallel.py``)
-- ``stage``, ``expert``, ``seq`` — pipeline, expert and sequence
-  parallelism (later slices; their size is 1 here)
+- ``seq`` — sequence parallelism: rank ``r`` of the axis holds the
+  chunk ``[r S / n, (r + 1) S / n)`` of every sequence, and attention
+  runs as ring or Ulysses attention over the axis
+  (``parallel/ring_attention.py``, ``parallel/ulysses.py``)
+- ``stage``, ``expert`` — pipeline and expert parallelism (later
+  slices; their size is 1 here)
 
 One process drives one card, so the mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the world's ranks,
@@ -24,7 +28,7 @@ and are not ported.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -106,6 +110,22 @@ def build_mesh(config: MeshConfig, device_type: str = "cuda"):
 def mesh_shape(mesh) -> dict:
     """``{axis: size}`` of a ``DeviceMesh`` (the JAX ``dict(mesh.shape)``)."""
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+class MeshAxis(NamedTuple):
+    """One named axis of a mesh as this rank sees it: the axis's process
+    group, its size and this rank's index on it."""
+
+    group: object
+    size: int
+    rank: int
+
+
+def mesh_axis(mesh, name: str) -> MeshAxis:
+    """The ``name`` axis of ``mesh`` (``"seq"``: the ranks that hold the
+    other chunks of this rank's sequences) as a :class:`MeshAxis`."""
+    sub = mesh[name]
+    return MeshAxis(sub.get_group(), int(sub.size()), int(sub.get_local_rank()))
 
 
 def data_parallel_degree(mesh) -> int:

@@ -16,9 +16,11 @@ placement, mesh sizes) and choose what the JAX functions choose; the
 trainer turns each choice into a ``DTensor`` placement
 (``train/trainer_lib.py``).
 
-The ``DP``, ``FSDP``, ``TP`` and ``FSDP_TP`` tables run
-(``llama_train --strategy=dp|fsdp|fsdp_tp``); ``FSDP_TP_SP`` is the
-table sequence parallelism will read, and nothing runs it yet.
+The ``DP``, ``FSDP``, ``TP``, ``FSDP_TP`` and ``FSDP_TP_SP`` tables run
+(``llama_train --strategy=dp|fsdp|fsdp_tp|fsdp_tp_sp``). ``FSDP_TP_SP``'s
+``length -> seq`` rule cuts every sequence into one contiguous chunk
+per ``seq`` rank (:func:`sequence_chunk`); no parameter carries
+``length``, so parameters are whole over ``seq``.
 """
 
 from __future__ import annotations
@@ -269,6 +271,22 @@ def all_indices(t: torch.Tensor) -> List[Tuple[slice, ...]]:
         if idx not in out:
             out.append(idx)
     return out
+
+
+def sequence_chunk(x: torch.Tensor, size: int, rank: int,
+                   shift: int = 0) -> torch.Tensor:
+    """Rank ``rank``'s chunk of ``x`` [B, S, ...] under the ``length ->
+    seq`` rule over ``size`` ranks: positions ``[r S / n + shift, (r + 1)
+    S / n + shift)``, cut at the sequence's end (``shift=1`` gives the
+    next-token labels of the chunk: the last chunk's are one shorter). A
+    length the axis does not divide raises."""
+    s = x.shape[1]
+    if s % size:
+        raise ValueError(f"sequence length {s} is not divisible by the seq "
+                         f"axis size {size}")
+    c = s // size
+    start = rank * c + shift
+    return x[:, start:start + c]
 
 
 def sharded_embedding_lookup(table: torch.Tensor, ids: torch.Tensor,

@@ -52,7 +52,8 @@ import torch.nn.functional as F
 #: (``train/trainer_lib.py``): ``data_reduce_scatter`` (a sliced leaf's
 #: gradient into its piece), ``data_all_gather`` (the pieces back into a
 #: parameter or FSDP2 shard) and ``data_all_reduce`` (one bucket of the
-#: unsliced gradients)
+#: unsliced gradients); and the sequence-parallel layout's
+#: ``seq_all_reduce`` (one bucket of the gradients summed over ``seq``)
 COLLECTIVES: Dict[str, int] = {}
 
 

@@ -1,9 +1,9 @@
-"""Llama causal-LM training, one process per card, data parallel, FSDP
-or FSDP with tensor parallelism (port of
-``k8s_tpu/programs/llama_train.py``).
+"""Llama causal-LM training, one process per card, data parallel, FSDP,
+FSDP with tensor parallelism, and with sequence parallelism too (port
+of ``k8s_tpu/programs/llama_train.py``).
 
 Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
-  --strategy=fsdp|dp|fsdp_tp
+  --strategy=fsdp|dp|fsdp_tp|fsdp_tp_sp
                             (default fsdp, as in the JAX program) the
                             mesh and rules: ``dp`` a ``data`` axis over
                             every rank; ``fsdp`` an ``fsdp`` axis within
@@ -12,7 +12,14 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
                             ``fsdp_tp`` as ``fsdp`` with a ``tensor`` axis
                             of 4, 2 or 1 ranks cut from each slice (the
                             largest that divides it), Megatron-style
-                            tensor parallelism inside it
+                            tensor parallelism inside it; ``fsdp_tp_sp``
+                            a ``tensor`` axis of 2 when a slice's ranks
+                            are even and a ``seq`` axis of 2 when they
+                            divide by 2 x tensor (fsdp the rest): each
+                            ``seq`` rank trains on its chunk of every
+                            sequence, attention as ring attention over
+                            ``seq`` (flash at a ``seq`` of 1, as in the
+                            JAX program), the loss the global mean
   --zero_stage=0..3         the ZeRO ladder over the ``data`` axis (or the
                             operator's KTPU_ZERO_STAGE; --zero1=1 /
                             KTPU_ZERO1 is stage 1): under dp over every
@@ -80,8 +87,8 @@ multi-tier manager, whose goodput block also rides the obs heartbeat as
 
 Weights are random from seed 0 (f32 masters, bf16 compute), the same
 on every rank before the state is sharded. Options of later slices
-raise ``NotImplementedError`` naming their ROADMAP item: the
-``fsdp_tp_sp``, ``pp`` and ``pp_fsdp`` strategies, ``--latency_hiding``,
+raise ``NotImplementedError`` naming their ROADMAP item: the ``pp`` and
+``pp_fsdp`` strategies, ``--latency_hiding``,
 ``--num_experts``, ``--quant``.
 
 The loop runs the JAX program's runtime: every step inside a
@@ -141,6 +148,7 @@ from k8s_tpu_torch.parallel import (
     data_parallel_degree,
     mesh_shape,
 )
+from k8s_tpu_torch.parallel.sharding import sequence_chunk
 from k8s_tpu_torch.programs.llama_generate import default_model
 from k8s_tpu_torch.train import (
     create_sharded_state,
@@ -149,16 +157,17 @@ from k8s_tpu_torch.train import (
     load_state_tree,
     make_batch_sharder,
     make_train_step,
+    sequence_mean,
     state_tree,
 )
 
 Z_LOSS = 1e-4
 
-STRATEGIES = {"dp": "DP", "fsdp": "FSDP", "fsdp_tp": "FSDP_TP"}
+STRATEGIES = {"dp": "DP", "fsdp": "FSDP", "fsdp_tp": "FSDP_TP",
+              "fsdp_tp_sp": "FSDP_TP_SP"}
 # strategies of the JAX program this port does not have yet, with the
 # ROADMAP item that brings each
 _UNPORTED_STRATEGIES = {
-    "fsdp_tp_sp": "A7 (sequence parallel)",
     "pp": "A8 (pipeline parallel)",
     "pp_fsdp": "A8 (pipeline parallel)",
 }
@@ -196,7 +205,9 @@ def mesh_config_for(strategy: str, n: int, num_slices: int) -> MeshConfig:
     ``dp`` one ``data`` axis over every rank; ``fsdp`` ``data`` across
     slices and ``fsdp`` within one; ``fsdp_tp`` as ``fsdp`` with a
     ``tensor`` axis of 4 ranks when a slice's count divides by 4, else
-    2, else 1."""
+    2, else 1; ``fsdp_tp_sp`` a ``tensor`` axis of 2 when a slice's
+    count is even and a ``seq`` axis of 2 when it divides by 2 x
+    tensor, ``fsdp`` the rest."""
     if strategy == "dp":
         return MeshConfig(data=n)
     per_slice = max(1, n // num_slices)
@@ -206,6 +217,11 @@ def mesh_config_for(strategy: str, n: int, num_slices: int) -> MeshConfig:
         tensor = 4 if per_slice % 4 == 0 else (2 if per_slice % 2 == 0 else 1)
         return MeshConfig(data=num_slices, fsdp=per_slice // tensor,
                           tensor=tensor)
+    if strategy == "fsdp_tp_sp":
+        tensor = 2 if per_slice % 2 == 0 else 1
+        seq = 2 if per_slice % (2 * tensor) == 0 else 1
+        return MeshConfig(data=num_slices, fsdp=per_slice // (tensor * seq),
+                          seq=seq, tensor=tensor)
     raise ValueError(f"unknown strategy {strategy!r}")
 
 
@@ -270,14 +286,18 @@ def zero_options(rdzv, extra: dict):
     return zero_stage, leaves, min_leaf
 
 
-def model_config(model_name: str, extra: dict) -> LlamaConfig:
-    """The training LlamaConfig of ``--model``, ``--layers`` and the
-    remat options."""
+def model_config(model_name: str, extra: dict,
+                 attention: str = "flash") -> LlamaConfig:
+    """The training LlamaConfig of ``--model``, ``--layers``, the remat
+    options and the attention (the JAX program's: ``"ring"`` on a mesh
+    whose ``seq`` axis has more than one rank)."""
     if model_name == "llama3-8b":
-        lcfg = LlamaConfig.llama3_8b(num_layers=int(extra.get("layers", "32")))
+        lcfg = LlamaConfig.llama3_8b(num_layers=int(extra.get("layers", "32")),
+                                     attention=attention)
     elif model_name == "tiny":
         lcfg = LlamaConfig.tiny(num_heads=8, num_kv_heads=4, head_dim=16,
-                                num_layers=int(extra.get("layers", "2")))
+                                num_layers=int(extra.get("layers", "2")),
+                                attention=attention)
     else:
         raise ValueError(f"unknown model {model_name!r}; expected 'tiny' "
                          "or 'llama3-8b'")
@@ -325,7 +345,25 @@ def lm_loss(model: LlamaForCausalLM, ids: torch.Tensor,
     """Next-token cross-entropy with z-loss 1e-4 of a batch ``ids`` [B,
     S]: the fused LM-head loss inside the model's forward (the [B, S, V]
     logits never exist, and ``lm_head`` is read where FSDP2 holds it
-    whole), or the unfused loss over f32 logits."""
+    whole), or the unfused loss over f32 logits.
+
+    On a sequence-parallel model (``model.seq``) every ``seq`` rank runs
+    its chunk of ``ids`` against that chunk's next tokens — the labels
+    shifted on the whole sequence before it is cut, so a chunk's last
+    label is the next chunk's first token, and the last chunk has one
+    label fewer — and the loss is the global mean of the per-token
+    losses (:func:`~k8s_tpu_torch.train.sequence_mean`), the JAX
+    program's, on every rank."""
+    seq = getattr(model, "seq", None)
+    if seq is not None:
+        chunk = sequence_chunk(ids, seq.size, seq.rank)
+        labels = sequence_chunk(ids, seq.size, seq.rank, shift=1)
+        if fused_ce:
+            mean = model(chunk, labels=labels, z_loss=Z_LOSS)
+        else:
+            logits = model(chunk)[:, :labels.shape[1]]
+            mean = cross_entropy_loss(logits, labels, z_loss=Z_LOSS)
+        return sequence_mean(mean, labels.numel(), seq)
     if fused_ce:
         return model(ids, labels=ids[:, 1:], z_loss=Z_LOSS)
     logits = model(ids)
@@ -369,7 +407,8 @@ def main(rdzv) -> dict:
                           "shape": mesh_shape(mesh),
                           "zero1": zero_stage >= 1,
                           "zero_stage": zero_stage}), flush=True)
-    lcfg = model_config(model_name, extra)
+    lcfg = model_config(model_name, extra,
+                        "ring" if mesh_shape(mesh)["seq"] > 1 else "flash")
     lr = float(extra.get("lr", "3e-4"))
     model = LlamaForCausalLM(lcfg, device=device)
     model.load_params(init_params(lcfg, 0, device, dtype=torch.float32))

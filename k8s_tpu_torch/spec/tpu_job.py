@@ -121,7 +121,6 @@ SERVING_ITEM = "A12.5 (the serving fleet, router and autoscaler, with A15)"
 # (k8s_tpu_torch/programs/llama_train.py _check_unported), mirrored here
 # so such a job fails at create instead of as a gang of permanent exits
 _UNPORTED_STRATEGIES = {
-    "fsdp_tp_sp": "A7 (sequence parallel)",
     "pp": "A8 (pipeline parallel)",
     "pp_fsdp": "A8 (pipeline parallel)",
 }

@@ -13,6 +13,7 @@ from k8s_tpu_torch.train.trainer_lib import (  # noqa: F401
     make_batch_sharder,
     make_eval_step,
     make_train_step,
+    sequence_mean,
     sgd,
     state_tree,
 )

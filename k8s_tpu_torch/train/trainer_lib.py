@@ -67,7 +67,19 @@ over a mesh (``parallel/mesh.py``), one process per card:
   (:meth:`~k8s_tpu_torch.models.llama.LlamaForCausalLM.use_tensor_parallel`);
   then FSDP2 as under ``fsdp``, which composes the two into one
   ``DTensor`` per leaf over ``(fsdp, tensor)`` (``(data, fsdp,
-  tensor)`` under HSDP).
+  tensor)`` under HSDP);
+- ``fsdp_tp_sp`` (the ``FSDP_TP_SP`` rules): as ``fsdp_tp``, and the
+  model runs on each ``seq`` rank's chunk of the sequence
+  (:meth:`~k8s_tpu_torch.models.llama.LlamaForCausalLM.
+  use_sequence_parallel`: ring or Ulysses attention over ``seq``).
+  Parameters are whole over ``seq`` (no parameter carries ``length``);
+  each ``seq`` rank's backward gives its chunk's share of the gradient,
+  so after FSDP2's mean over ``fsdp`` (and ``data``) the shards'
+  gradients are summed over the ``seq`` group (counted as
+  ``seq_all_reduce``) — the gradient of the global loss, as GSPMD gives
+  the JAX step. The loss must be the global one on every ``seq`` rank
+  (:func:`sequence_mean`). ZeRO on top of a ``seq`` axis of more than
+  one rank is not ported.
 
 A sliced leaf appears in :func:`state_tree` as a ``DTensor`` whose local
 tensor is the live slice (``Shard(dim)`` over ``data``; on the HSDP mesh
@@ -235,6 +247,9 @@ class ShardedLayout:
         # ZeRO on the HSDP mesh: the mesh as (fsdp, tensor, data), the
         # sliced leaves' checkpoint view (set by create_sharded_state)
         self.zero_mesh = None
+        # the seq axis's group when it has more than one rank (set by
+        # create_sharded_state): the gradients are summed over it
+        self.seq_group = None
 
     @property
     def world(self) -> int:
@@ -263,10 +278,12 @@ class ShardedLayout:
         sizes of the mesh dimensions it is not split over (HSDP's
         ``data``, the ``tensor`` axis of a norm scale; with ZeRO on the
         HSDP mesh every FSDP2 shard also repeats over ``data``), 1 for a
-        ZeRO piece."""
+        ZeRO piece; times the ``seq`` ranks, which hold the same
+        parameters."""
+        seq = _group_size(self.seq_group) if self.seq_group is not None else 1
         if not hasattr(q, "placements"):
-            return 1
-        n = _group_size(self.data_group) if self.hsdp_zero else 1
+            return seq
+        n = seq * (_group_size(self.data_group) if self.hsdp_zero else 1)
         for size, place in zip(q.device_mesh.mesh.shape, q.placements):
             if not place.is_shard():
                 n *= int(size)
@@ -342,7 +359,11 @@ class ShardedLayout:
                        accum_steps: int) -> None:
         """After the backward: the mean gradient over the gang, in each
         optimizer parameter's ``.grad`` (the piece's for a sliced
-        leaf)."""
+        leaf), summed over the ``seq`` ranks' chunks."""
+        if self.seq_group is not None:
+            _all_reduce_bucketed([_to_local(p.grad) for p in params
+                                  if p.grad is not None], self.seq_group,
+                                 "seq_all_reduce")
         if self.fsdp2 and not self.hsdp_zero:
             # FSDP2 reduce-scattered (and, under HSDP, all-reduced) the
             # mean already; tensor peers computed the same gradient of
@@ -425,9 +446,10 @@ class ShardedLayout:
 BUCKET_BYTES = 256 << 20
 
 
-def _all_reduce_bucketed(tensors: Sequence[torch.Tensor], group) -> None:
+def _all_reduce_bucketed(tensors: Sequence[torch.Tensor], group,
+                         op: str = "data_all_reduce") -> None:
     """Sum ``tensors`` over ``group`` in place, a few all-reduces of
-    flat buckets instead of one per tensor."""
+    flat buckets instead of one per tensor (each counted as ``op``)."""
     bucket: List[torch.Tensor] = []
     nbytes = 0
 
@@ -435,7 +457,7 @@ def _all_reduce_bucketed(tensors: Sequence[torch.Tensor], group) -> None:
         if not bucket:
             return
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        _count("data_all_reduce")
+        _count(op)
         dist.all_reduce(flat, group=group)
         offset = 0
         for t in bucket:
@@ -537,8 +559,8 @@ def create_sharded_state(model: nn.Module, optimizer: OptimizerSpec, mesh,
                          zero3_leaves: Optional[Sequence[str]] = None,
                          weight_decay: float = 0.1) -> TrainState:
     """The state of ``model`` (its parameters loaded) laid out over
-    ``mesh`` by ``rules`` (``LogicalRules.DP``, ``.FSDP`` or
-    ``.FSDP_TP``; ``.TP``, bert_train's table, only on a mesh whose
+    ``mesh`` by ``rules`` (``LogicalRules.DP``, ``.FSDP``, ``.FSDP_TP`` or
+    ``.FSDP_TP_SP``; ``.TP``, bert_train's table, only on a mesh whose
     ``tensor`` axis is one rank, where it lays the state out as ``.DP``
     does) and the ZeRO stage, with its optimizer (AdamW's
     learning rate, or a function from the parameters to the optimizer).
@@ -554,10 +576,14 @@ def create_sharded_state(model: nn.Module, optimizer: OptimizerSpec, mesh,
             f"zero_stage={stage} slices AdamW's moments: give AdamW's learning "
             "rate, not an optimizer function (its state would be dropped)")
     sizes = mesh_shape(mesh)
-    if any(sizes[a] != 1 for a in ("stage", "expert", "seq")):
+    if any(sizes[a] != 1 for a in ("stage", "expert")):
         raise NotImplementedError(
-            f"mesh {sizes}: stage, expert and seq axes come with later "
-            "slices (ROADMAP A7, A8, A9)")
+            f"mesh {sizes}: stage and expert axes come with later "
+            "slices (ROADMAP A8, A9)")
+    seq = rules["length"] == "seq"
+    if sizes["seq"] != 1 and not seq:
+        raise ValueError(f"mesh {sizes} has a seq axis that the rules map no "
+                         "dimension to (train with FSDP_TP_SP)")
     fsdp = rules["embed"] == "fsdp"
     tensor = rules["heads"] == "tensor"
     if tensor and not fsdp:
@@ -582,8 +608,16 @@ def create_sharded_state(model: nn.Module, optimizer: OptimizerSpec, mesh,
                 f"not {strategy} (its statistics would cover one rank's rows)")
         model.use_sync_batch_norm(layout.data_group)
     zero = stage >= 1 and sizes["data"] > 1
+    if zero and sizes["seq"] > 1:
+        raise NotImplementedError(
+            f"zero_stage={stage} over data with a seq axis of {sizes['seq']} "
+            "ranks is not ported to k8s_tpu_torch yet (ROADMAP A7)")
     if tensor:
         _tensor_parallel_layout(model, mesh, rules)
+    if seq:
+        model.use_sequence_parallel(mesh)
+        if sizes["seq"] > 1:
+            layout.seq_group = mesh.get_group("seq")
     if fsdp:
         # ZeRO on top of fsdp is a no-op at data 1, as in the JAX package
         _fsdp_wrap(model, mesh, rules, over_data=not zero)
@@ -776,6 +810,36 @@ def cross_entropy_loss(
         maskf = mask.to(losses.dtype)
         return (losses * maskf).sum() / maskf.sum().clamp_min(1.0)
     return losses.mean()
+
+
+class _SeqSum(torch.autograd.Function):
+    """Sum over the ``seq`` group forward, identity backward: each rank
+    keeps the gradient of its own chunk's terms (Megatron's "g")."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sequence_mean(mean: torch.Tensor, count, axis) -> torch.Tensor:
+    """The global mean of a per-token loss from this ``seq`` rank's
+    ``mean`` over its chunk's ``count`` tokens (an int, or a device
+    scalar for a mask's count): ``sum(mean_r count_r) / sum(count_r)``
+    over the ``seq`` axis ``axis`` (``.group``), the same on every rank.
+    Chunks count differently — the last drops the final position, packed
+    boundaries drop more — so a mean of the chunks' means would be
+    wrong. The backward gives each rank ``count_r / sum(count_r)`` of
+    the gradient of its own mean: summed over the ranks (the layout's
+    ``seq_all_reduce``), the gradient of the global mean."""
+    count = torch.as_tensor(count, dtype=torch.float32, device=mean.device)
+    total = _SeqSum.apply(torch.stack([mean.float() * count, count]), axis.group)
+    return total[0] / total[1].detach().clamp_min(1.0)
 
 
 def _health_sums(old_params, new_params, grads, device=None) -> torch.Tensor:

@@ -8,7 +8,8 @@ with ``git show <rev>:k8s_tpu_torch/csrc/<file>``); ``tree`` names this
 checkout's ``k8s_tpu_torch/csrc``. Every build is compiled with the
 port's nvcc flags into a library of its own and called through its C
 entries (sources without segment ids, which take no segment pointer,
-are called with that older argument list). At each shape (causal B 8, S
+and sources without the kv-side segment row and the f32-output flags
+are called with their older argument lists). At each shape (causal B 8, S
 2048, Hq/Hkv 32/8, D 128 — Llama-3-8B's training attention — and
 non-causal B 32, S 512, Hq = Hkv = 12, D 128) K1, K2 and K3 of every
 build are timed with CUDA events (30 calls after 3 warm-ups; three
@@ -38,19 +39,26 @@ from k8s_tpu_torch.ops import _kernels  # noqa: E402
 from k8s_tpu_torch.ops import attention as attn  # noqa: E402
 
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# the C entries' argument lists without and with segment ids
-OLD_ABI = {"k8s_flash_fwd_bf16": [P] * 5 + [I] * 6 + [L] * 12 + [F, I, I, P],
-           "k8s_flash_bwd_dq_bf16": [P] * 7 + [I] * 6 + [L] * 16 + [F, I, P],
-           "k8s_flash_bwd_dkv_bf16": [P] * 8 + [I] * 6 + [L] * 19 + [F, I, P]}
-SEG_ABI = {"k8s_flash_fwd_bf16": [P] * 6 + [L] + [I] * 6 + [L] * 12 + [F, I, I, P],
-           "k8s_flash_bwd_dq_bf16": [P] * 8 + [I] * 6 + [L] * 16 + [F, I, P],
-           "k8s_flash_bwd_dkv_bf16": [P] * 9 + [I] * 6 + [L] * 19 + [F, I, P]}
+# the C entries' argument lists: without segment ids ("old"), with one
+# segment row ("seg"), and with the kv-side row and the f32-output flags
+# ("kv": the entries of _kernels.KERNELS)
+ABIS = {
+    "old": {"k8s_flash_fwd_bf16": [P] * 5 + [I] * 6 + [L] * 12 + [F, I, I, P],
+            "k8s_flash_bwd_dq_bf16": [P] * 7 + [I] * 6 + [L] * 16 + [F, I, P],
+            "k8s_flash_bwd_dkv_bf16": [P] * 8 + [I] * 6 + [L] * 19 + [F, I, P]},
+    "seg": {"k8s_flash_fwd_bf16": [P] * 6 + [L] + [I] * 6 + [L] * 12 + [F, I, I, P],
+            "k8s_flash_bwd_dq_bf16": [P] * 8 + [I] * 6 + [L] * 16 + [F, I, P],
+            "k8s_flash_bwd_dkv_bf16": [P] * 9 + [I] * 6 + [L] * 19 + [F, I, P]},
+    "kv": {name: args for lib in ("flash_fwd", "flash_bwd")
+           for name, args in _kernels.KERNELS[lib][1].items()},
+}
 SHAPES = ((8, 2048, 32, 8, 128, True), (32, 512, 12, 12, 128, False))
 
 
 def build(srcdir: pathlib.Path, out: pathlib.Path):
-    """The two libraries of one build, and whether it takes segment ids."""
-    seg = "seg_stride" in (srcdir / "flash_fwd.cu").read_text()
+    """The two libraries of one build, and its ABI (a key of ABIS)."""
+    text = (srcdir / "flash_fwd.cu").read_text()
+    abi = "kv" if "seg_kv" in text else ("seg" if "seg_stride" in text else "old")
     libs = {}
     for name in ("flash_fwd", "flash_bwd"):
         so = out / f"lib{name}.so"
@@ -59,41 +67,44 @@ def build(srcdir: pathlib.Path, out: pathlib.Path):
         if r.returncode:
             sys.exit(f"build of {srcdir / name}.cu failed:\n{r.stdout}{r.stderr}")
         lib = ctypes.CDLL(str(so))
-        for entry, args in (SEG_ABI if seg else OLD_ABI).items():
+        for entry, args in ABIS[abi].items():
             if hasattr(lib, entry):
                 getattr(lib, entry).argtypes = args
                 getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
-    return libs, seg
+    return libs, abi
 
 
-def calls(libs, seg_abi, q, k, v, o, lse, do, dd, dq, dk, dv, causal, scale):
+def calls(libs, abi, q, k, v, o, lse, do, dd, dq, dk, dv, causal, scale):
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     st = lambda x: list(x.stride()[:3])  # noqa: E731
     stream = torch.cuda.current_stream().cuda_stream
 
+    # the segment pointers (null: none) and, for "kv", the f32-output flag
+    # (0: bf16) each entry takes
+    segs = {"old": [], "seg": [None], "kv": [None, None]}[abi]
+    f32 = [0] if abi == "kv" else []
+
     def k1():
-        extra = [None, 0] if seg_abi else []
+        fwd_segs = segs + [0] if segs else []  # + the row stride
         libs["flash_fwd"].k8s_flash_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            *extra, b, s, s, hq, hkv, d, *st(q), *st(k), *st(v), *st(o), scale,
-            int(causal), 0, stream)
+            *fwd_segs, b, s, s, hq, hkv, d, *st(q), *st(k), *st(v), *st(o), scale,
+            int(causal), *f32, 0, stream)
 
     def k2():
-        extra = [None] if seg_abi else []
         libs["flash_bwd"].k8s_flash_bwd_dq_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dd.data_ptr(), *extra, dq.data_ptr(), b, s, s, hq, hkv, d, *st(q), *st(k),
-            *st(v), *st(do), *st(dq), s, scale, int(causal), stream)
+            dd.data_ptr(), *segs, dq.data_ptr(), b, s, s, hq, hkv, d, *st(q), *st(k),
+            *st(v), *st(do), *st(dq), s, scale, int(causal), *f32, stream)
 
     def k3():
-        extra = [None] if seg_abi else []
         libs["flash_bwd"].k8s_flash_bwd_dkv_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dd.data_ptr(), *extra, dk.data_ptr(), dv.data_ptr(), b, s, s, hq, hkv, d,
+            dd.data_ptr(), *segs, dk.data_ptr(), dv.data_ptr(), b, s, s, hq, hkv, d,
             *st(q), *st(k), *st(v), *st(do), *st(dk), *st(dv), s, scale, int(causal),
-            stream)
+            *f32, stream)
 
     return {"k1": k1, "k2": k2, "k3": k3}
 

@@ -22,6 +22,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import threading
 
 import pytest
 import torch
@@ -29,7 +30,8 @@ from torch.overrides import TorchFunctionMode
 
 from chip_smoke import (DECODE_Q8_REL_TOL, DECODE_REL_TOL, FLASH_BWD_REL_TOL,
                         FLASH_BWD_ROW_FLOOR, FLASH_LSE_TOL, FLASH_REL_TOL,
-                        row_rel_err, segment_rows, uncancelled_dq_dk)
+                        RING_BOUNDARY, row_rel_err, run_thread_ring, segment_rows,
+                        uncancelled_dq_dk)
 from k8s_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                         check_cuda_config)
 from k8s_tpu_torch.ops import _kernels
@@ -185,11 +187,16 @@ def fake_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "device", Guard)
     monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda device: log.append(
+        ("set_device", torch.device("cuda", device))))
+    # every test starts as a fresh host thread would: no device set yet
+    monkeypatch.setattr(tattn, "_THREAD", threading.local())
     monkeypatch.setattr(_kernels, "lib", lambda name: Lib())
     # the stubbed calls tick the wrappers' launch counters: put them back
     # afterwards, as other tests in the process read them
-    for wrapper, counters in ((tattn.flash_fwd, ("launches",)),
-                              (tattn.flash_bwd, ("launches_dq", "launches_dkv")),
+    for wrapper, counters in ((tattn.flash_fwd, ("launches", "launches_out_f32")),
+                              (tattn.flash_bwd, ("launches_dq", "launches_dkv",
+                                                 "launches_grads_f32")),
                               (tattn.decode_attention_update, ("launches",)),
                               (tattn.decode_attention_update_q8, ("launches",))):
         for counter in counters:
@@ -243,10 +250,33 @@ def test_wrappers_launch_under_their_tensors_device_guard(fake_card, call, entri
     call(card)
     dev = torch.device("cuda", 1)
     want = []
-    for entry in entries:
-        want += [("enter", dev), ("stream", dev), ("call", entry), ("exit", dev)]
+    for i, entry in enumerate(entries):
+        # the thread's first launch on the device sets it first
+        first = [("set_device", dev)] if i == 0 else []
+        want += [("enter", dev), *first, ("stream", dev), ("call", entry), ("exit", dev)]
     assert [e[:2] for e in log] == want
     assert all(e[2][-1] == 0x5EED for e in log if e[0] == "call")
+
+
+def test_each_host_thread_sets_the_device_before_its_first_launch(fake_card):
+    """A thread's first launch on a device sets it through torch (the
+    kernels' static CUDA runtime failed to launch from a thread that had
+    made no CUDA call through torch, on an H100); later launches in the
+    same thread do not, and another thread sets it again."""
+    log, card = fake_card
+    _flash_fwd_call(card)
+    _flash_fwd_call(card)
+    def other_thread():
+        with _CardAllocsOnCpu():  # a torch function mode is per thread
+            _flash_fwd_call(card)
+
+    t = threading.Thread(target=other_thread)
+    t.start()
+    t.join(30)
+    assert not t.is_alive()
+    dev = torch.device("cuda", 1)
+    assert [e for e in log if e[0] == "set_device"] == [("set_device", dev)] * 2
+    assert [e[0] for e in log].count("call") == 3
 
 
 def test_decode_split_rows_reach_the_c_entry(fake_card):
@@ -516,6 +546,85 @@ def test_flash_kernels_segment_ids_and_d64_on_card(cuda, d, b, s, hq, hkv, causa
     for name, x, r in zip(("dq", "dk", "dv"), (qa.grad, ka.grad, va.grad), want):
         err = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR)
         assert err <= FLASH_BWD_REL_TOL, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", list(tattn.FLASH_FWD_TILES))
+@pytest.mark.parametrize("causal,kv_row", [(True, False), (False, False), (False, True)],
+                         ids=["causal", "noncausal", "kv_row"])
+def test_flash_kernels_ring_variants_on_card(cuda, causal, kv_row, config):
+    """The ring's kernel variants (chip_smoke.py's ``ring`` phase, item 1)
+    at its chunk shape (B 1, S_local 2048, Hq/Hkv 32/8, D 128): K1 with
+    ``out_f32`` (f32 out) causal and non-causal, and with a kv-side
+    segment row that differs from the query row (queries of chunk 2, all
+    of document 2; the resident chunk 1 holds the packed boundary at
+    RING_BOUNDARY), through both tile configs; K2/K3 with ``grads_f32``
+    (f32 dq, dk, dv) on the same blocks, against the plain versions in f32
+    with chip_smoke.py's limits. Each variant's f32 launches are counted
+    apart."""
+    c, hq, hkv, d = 2048, 32, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(7 + config)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).bfloat16()  # noqa: E731
+    q, k, v, do = rnd(1, c, hq, d), rnd(1, c, hkv, d), rnd(1, c, hkv, d), rnd(1, c, hq, d)
+    seg = torch.where(torch.arange(4 * c, device=cuda) < RING_BOUNDARY, 1, 2)[None]
+    sq, skv = ((seg[:, 2 * c:3 * c].int().contiguous(), seg[:, c:2 * c].int().contiguous())
+               if kv_row else (None, None))
+    scale = d ** -0.5
+    n = (tattn.flash_fwd.launches_out_f32, tattn.flash_bwd.launches_grads_f32)
+    out, lse = tattn.flash_fwd(q, k, v, causal, scale, with_lse=True, config=config,
+                               segment_ids=sq, segment_ids_kv=skv, out_f32=True)
+    ref, ref_lse = tattn.flash_fwd_plain(*_f32(q, k, v), causal, scale, sq, skv,
+                                         out_f32=True)
+    assert out.dtype == torch.float32
+    assert row_rel_err(out, ref) <= FLASH_REL_TOL
+    assert (lse - ref_lse).abs().max().item() <= FLASH_LSE_TOL
+    ob = out.bfloat16()
+    got = tattn.flash_bwd(q, k, v, ob, lse, do, causal, scale, segment_ids=sq,
+                          segment_ids_kv=skv, grads_f32=True)
+    want = tattn.flash_bwd_plain(*_f32(q, k, v, ob), lse, do.float(), causal, scale,
+                                 sq, skv, grads_f32=True)
+    assert (tattn.flash_fwd.launches_out_f32,
+            tattn.flash_bwd.launches_grads_f32) == (n[0] + 1, n[1] + 1)
+    for name, x, r in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == torch.float32, name
+        err = row_rel_err(x, r, floor=FLASH_BWD_ROW_FLOOR)
+        assert err <= FLASH_BWD_REL_TOL, (name, err)
+
+
+@pytest.mark.gpu
+def test_ring_of_threads_matches_the_whole_sequence_on_card(cuda):
+    """chip_smoke.py's ``ring`` item 2 at a smaller size: 4 threads, one
+    ring rank each, through ``ring_flash_forward``/``ring_flash_backward``
+    over ``chip_smoke.ThreadRing`` at S 2048 (chunks of 512), causal, packed
+    ids with a boundary inside a chunk, against K1-K3 on the whole sequence
+    at the row limits."""
+    from k8s_tpu_torch.parallel import ring_attention as ring_mod
+
+    s, n, hq, hkv, d = 2048, 4, 32, 8, 128
+    c = s // n
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).bfloat16()  # noqa: E731
+    q, k, v, do = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d), rnd(1, s, hq, d)
+    seg = torch.where(torch.arange(s, device=cuda) < 700, 1, 2)[None].int()
+    scale = d ** -0.5
+    out, lse = tattn.flash_fwd(q, k, v, True, scale, with_lse=True, segment_ids=seg)
+    ref = (out,) + tattn.flash_bwd(q, k, v, out, lse, do, True, scale, segment_ids=seg)
+
+    def rank_body(ring):
+        cut = lambda x: x[:, ring.rank * c:(ring.rank + 1) * c]  # noqa: E731
+        o, l = ring_mod.ring_flash_forward(cut(q), cut(k), cut(v), cut(seg), ring,
+                                           True, scale)
+        return (o,) + ring_mod.ring_flash_backward(cut(q), cut(k), cut(v), cut(seg), o,
+                                                   l, cut(do), ring, True, scale)
+
+    res = run_thread_ring(n, rank_body, timeout=120)
+    torch.cuda.synchronize()
+    for i, (name, tol) in enumerate((("out", FLASH_REL_TOL), ("dq", FLASH_BWD_REL_TOL),
+                                     ("dk", FLASH_BWD_REL_TOL), ("dv", FLASH_BWD_REL_TOL))):
+        got = torch.cat([r[i] for r in res], 1)
+        assert got.dtype == ref[i].dtype, name
+        err = row_rel_err(got, ref[i], floor=0.0 if i == 0 else FLASH_BWD_ROW_FLOOR)
+        assert err <= tol, (name, err)
 
 
 @pytest.mark.gpu

@@ -396,10 +396,21 @@ def test_llama_train_program_converges_on_cpu(capsys):
     ("--strategy=fsdp_tp_sp", "A7"),
     ("--strategy=pp", "A8"), ("--latency_hiding=1", "latency_hiding"),
     ("--num_experts=4", "num_experts"), ("--quant=int8", "quant")])
-def test_llama_train_unported_options_raise(args, match):
+def test_llama_train_unported_options_raise(args, match, capsys):
+    rdzv = types.SimpleNamespace(
+        process_id=0, program_args=f"--device=cpu --steps=1 {args}")
+    if match == "A7":
+        # sequence parallelism is ported: the strategy runs (it raised
+        # until it was); at world 1 its seq axis has one rank, so the
+        # model attends with flash, as the JAX program's does
+        out = llama_train.main(rdzv)
+        mesh = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                    if ln.startswith('{"event": "mesh"'))
+        assert mesh["shape"]["seq"] == 1 and out["state"].model.seq.size == 1
+        assert out["config"].attention == "flash"
+        return
     with pytest.raises(NotImplementedError, match=match):
-        llama_train.main(types.SimpleNamespace(
-            process_id=0, program_args=f"--device=cpu --steps=1 {args}"))
+        llama_train.main(rdzv)
 
 
 @pytest.mark.parametrize("strategy", ["fsdp_tp", "fsdp"])
