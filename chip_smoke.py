@@ -21,7 +21,16 @@ order:
   the decode-profile depths: one replay bit-equal to one eager chunk
   from the same state (packed output, state, cache), the eager and
   graph walls per step, the replays' device time and busy share, and
-  fresh draws in two replays at temperature 1;
+  fresh draws in two replays at temperature 1; then, over the same
+  model, the shared-prefix cache (``serving_prefix``: a 512-token
+  prefix, one miss, 7 concurrent hits and a repeated hit bit-equal to
+  the miss, the counters and snapshot bytes against ``/metrics``, TTFT
+  beside a prefix-off engine, the snapshot fetched over ``GET
+  /v1/prefix/<digest>`` and installed into another engine) and
+  self-speculative decode (``serving_spec``: 4 drafts, 8 repetitive
+  prompts and one ending at the cache's last row, which takes the plain
+  fallback round; one verify round's wall and device time, the wall per
+  token beside a non-spec engine), every token against the oracle;
 - training: ``programs.llama_train.main`` through the launcher's API in
   process (``Rendezvous`` of a dict env + ``run_program``, the tracer
   on) at Llama-3-8B width cut to 8 layers (seq 2048, batch 8, ``flash``
@@ -105,7 +114,10 @@ order:
   concurrent requests of 12…6000 prompt tokens, every emitted token
   checked against a teacher-forced forward of the same int8 model, the
   compiled chunk checked and timed as above (cache scales included),
-  and the bf16 model of the same seed compared for information.
+  a prefix miss then a hit (bit-equal, the snapshot's f32 scales in its
+  bytes) and one speculative request (``serving_prefix_int8``,
+  ``serving_spec_int8``), and the bf16 model of the same seed compared
+  for information.
 - ResNet-50 (``resnet``), the headline workload: the tiny ResNet with
   the same weights on the card and on the CPU (logits and running stats
   within the CPU tests' bf16 limits); ``programs.resnet_train`` through
@@ -360,6 +372,17 @@ def fail(msg: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+PHASE_SECONDS = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``PHASE_SECONDS[name]``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
 
 
 def _profiled(torch, fn, reps: int):
@@ -1874,11 +1897,12 @@ def graph_draws_fresh(torch, engine):
 
 
 def chunk_walls(torch, engine, reps: int = 3):
-    """Per decode step: the eager chunk's wall and the graph replay's,
-    each over ``reps`` whole chunks started from the same state (every
-    slot active), and the replays' device time (torch.profiler) and
-    busy share (that device time over the unprofiled replay wall). The
-    engine must hold a captured graph."""
+    """Per decode step: the eager chunk's wall over one whole chunk (its
+    path is warm: :func:`graph_vs_eager` ran two eager chunks) and the
+    graph replay's over ``reps``, each started from the same state
+    (every slot active), and one replay's device time (torch.profiler)
+    and busy share (that device time over the unprofiled replay wall).
+    The engine must hold a captured graph."""
     from k8s_tpu_torch.serving.engine import _decode_chunk
 
     saved = [t.clone() for t in engine_state(engine)]
@@ -1899,20 +1923,24 @@ def chunk_walls(torch, engine, reps: int = 3):
         engine._graph.replay()
 
     walls = {}
-    for name, fn in (("eager", eager), ("graph", replay)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
+    for name, fn, n in (("eager", eager, 1), ("graph", replay, reps)):
+        if name == "graph":
             fn()
         torch.cuda.synchronize()
-        walls[name] = (time.perf_counter() - t0) * 1e3 / (reps * k)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3 / (n * k)
+    # one profiled replay: a replay is 32 steps of the 2248 (bf16) or
+    # 4503 (int8) device ops a step that decode_profile counts, and the
+    # profiler's processing grows with the events it recorded
     device = sum(e.self_device_time_total
-                 for e in _profiled(torch, replay, reps)) / 1e3 / (reps * k)
+                 for e in _profiled(torch, replay, 1)) / 1e3 / k
     restore()
     return {"eager_step_wall_ms": walls["eager"], "graph_step_wall_ms": walls["graph"],
             "graph_step_device_ms": device, "graph_busy_share": device / walls["graph"],
-            "profiled_replays": reps}
+            "profiled_replays": 1}
 
 
 def phase_decode_chunk_graph(torch, model, card, depths, phase, sampling: bool):
@@ -1921,6 +1949,7 @@ def phase_decode_chunk_graph(torch, model, card, depths, phase, sampling: bool):
     (``sampling``) fresh draws in consecutive replays at temperature 1."""
     from k8s_tpu_torch.serving import ContinuousBatchingEngine
 
+    t0 = time.perf_counter()
     engine = ContinuousBatchingEngine(model, max_slots=len(depths), decode_chunk=32)
     fill_engine_state(torch, engine, depths, seed=5)
     diff = graph_vs_eager(torch, engine)
@@ -1940,9 +1969,9 @@ def phase_decode_chunk_graph(torch, model, card, depths, phase, sampling: bool):
             fail(f"{phase}: two replays at temperature 1 drew the same tokens")
         row["sampling_replays_differ_share"] = share
         del engine
-    row["card"] = card
     gc.collect()
     torch.cuda.empty_cache()
+    row.update(seconds=time.perf_counter() - t0, card=card)
     emit(row)
     return row
 
@@ -1994,6 +2023,365 @@ def decode_rates(stats, decoded: int) -> dict:
             "decode_step_ms": 1e3 * stats["chunk_s"] / stats["decode_steps"]}
 
 
+# the serving features' cells: a 512-token shared prefix (an LRU of 8
+# snapshots) and self-speculative decode with up to 4 drafts a round
+PREFIX_TOKENS, PREFIX_MAX, SPEC_K = 512, 8, 4
+
+
+def served_by(engine, fn):
+    """``fn(frontend)`` with ``engine`` behind a ServingFrontend and its
+    pump thread; the pump is stopped (the engine drained and closed)
+    before the result is returned."""
+    from k8s_tpu_torch.serving import ServingFrontend
+
+    frontend = ServingFrontend(engine, port=0)
+    stop = threading.Event()
+    pump = threading.Thread(target=frontend.serve, args=(stop.is_set,))
+    pump.start()
+    try:
+        return fn(frontend)
+    finally:
+        stop.set()
+        pump.join(timeout=300)
+        if pump.is_alive():
+            fail("serving: the front-end's pump did not stop")
+
+
+def forced_gap(torch, model, prompt, toks):
+    """(worst gap, exact count) of ``toks`` against one teacher-forced
+    forward through the plain attention path (a warm cache of its own
+    takes _cached_attention), so no kernel runs on the oracle's side."""
+    dev = model.device
+    ids = torch.tensor([prompt + toks], dtype=torch.long, device=dev)
+    cache = model.new_cache(1)
+    cache.fresh = False
+    hidden, _ = model(ids, positions=torch.arange(ids.shape[1], device=dev)[None],
+                      cache=cache, return_hidden=True)
+    del cache
+    logits = model.lm_head_logits(hidden[0, len(prompt) - 1:len(prompt) - 1 + len(toks)])
+    if not torch.isfinite(logits).all():
+        fail("serving: non-finite logits in the oracle forward")
+    tok_t = torch.tensor(toks, device=dev)
+    gap = logits.max(-1).values - logits.gather(1, tok_t[:, None])[:, 0]
+    return gap.max().item(), int((logits.argmax(-1) == tok_t).sum().item())
+
+
+def gauge(metrics_text: str, name: str) -> float:
+    """The value of an unlabelled series in a /metrics body."""
+    for line in metrics_text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    fail(f"serving: /metrics has no {name}")
+
+
+def counted_launches(attn):
+    return {"flash_fwd": attn.flash_fwd.launches,
+            "decode_attn": attn.decode_attention_update.launches,
+            "decode_attn_q8": attn.decode_attention_update_q8.launches}
+
+
+def zero_launches(attn):
+    attn.flash_fwd.launches = 0
+    attn.decode_attention_update.launches = 0
+    attn.decode_attention_update_q8.launches = 0
+
+
+def drive_counted(attn, engine, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: ``(fn's result, the path's launches, the stats delta)``."""
+    stats0 = dict(engine.stats)
+    zero_launches(attn)
+    out = fn()
+    counted = counted_launches(attn)
+    stats = {k: v - stats0.get(k, 0) for k, v in engine.stats.items()
+             if k != "queue_depth"}
+    return out, path_launches(counted, stats, engine), stats
+
+
+def serving_prefix(torch, attn, model, card, engine_kw, gap_fn, tol, what,
+                   suffix_lens=(40, 88, 137, 190, 245, 300, 350, 400), baseline=None):
+    """The shared-prefix cache on the card: a seeded 512-token prefix and
+    seeded suffixes of ``suffix_lens`` tokens, 32 new tokens each, behind
+    the HTTP front-end: the first request alone (a miss, which captures),
+    the others at once (hits), the first again (a hit, bit-equal to the
+    miss). With ``baseline`` (the running front-end of a prefix-off
+    engine of the same sizes over the same model): then the same
+    requests there, and the snapshot fetched over GET
+    /v1/prefix/<digest>, unpacked and installed into another engine,
+    whose first request on the prompt must be a hit with the first
+    engine's tokens. ``gap_fn(prompt, toks)`` is
+    the oracle's (worst gap, exact count) of a request, ``tol`` its
+    limit."""
+    from k8s_tpu_torch.serving import ContinuousBatchingEngine
+    from k8s_tpu_torch.serving.kv_transfer import unpack_kv
+
+    t_new = time.perf_counter()
+    cfg = model.config
+    rng = np.random.RandomState(19)
+    prefix = rng.randint(0, cfg.vocab_size, size=PREFIX_TOKENS).tolist()
+    suffix_lens = list(suffix_lens)
+    prompts = [prefix + rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in suffix_lens]
+    warm = rng.randint(0, cfg.vocab_size, size=20).tolist()
+    new = 32
+
+    def sequence(fe):
+        # the warm-up's 2 chunks: the eager first one, then the capture
+        post(fe.port, {"prompt": warm, "max_new_tokens": 40})
+        eng = fe.engine
+
+        def run():
+            t1 = time.perf_counter()
+            first = post(fe.port, {"prompt": prompts[0], "max_new_tokens": new})
+            rest, _, _ = burst(fe.port, prompts[1:], new)
+            again = post(fe.port, {"prompt": prompts[0], "max_new_tokens": new})
+            return [first] + rest + [again], time.perf_counter() - t1
+
+        (results, wall), launches, stats = drive_counted(attn, eng, run)
+        extra = {}
+        if eng.prefix_cache_tokens and baseline is not None:
+            digest = eng.prefix_digest(prompts[0])
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{fe.port}/v1/prefix/{digest}", timeout=300) as r:
+                extra["body"] = r.read()
+            extra["get_s"] = time.perf_counter() - t0
+            extra["digest"] = digest
+        if eng.prefix_cache_tokens:
+            extra["metrics"] = get_url(fe.port, "/metrics")
+        return results, wall, launches, stats, extra
+
+    kw = dict(engine_kw, prefix_cache_tokens=PREFIX_TOKENS, prefix_cache_max=PREFIX_MAX)
+    engine = ContinuousBatchingEngine(model, **kw)
+    results, wall, launches, stats, extra = served_by(engine, sequence)
+    if any(r is None for r in results):
+        fail(f"{what}: a request did not finish")
+    snap_bytes = sum(snap.nbytes() for _, snap in engine._prefix_cache.values())
+    q8 = cfg.kv_quant == "int8"
+    rows = cfg.num_kv_heads * PREFIX_TOKENS
+    want_bytes = cfg.num_layers * 2 * rows * (
+        cfg.head_dim * (1 if q8 else 2) + (4 if q8 else 0))
+    held = engine.stats["prefix_cache_bytes"]
+    metric_bytes = gauge(extra["metrics"], "ktpu_serving_prefix_cache_bytes")
+    if (stats["prefix_captures"], stats["prefix_hits"], stats["prefix_tokens_saved"]) \
+            != (1, len(prompts), PREFIX_TOKENS * len(prompts)):
+        fail(f"{what}: prefix counters {stats}")
+    if not held == snap_bytes == want_bytes == metric_bytes:
+        fail(f"{what}: prefix_cache_bytes {held}, snapshots {snap_bytes}, expected "
+             f"{want_bytes}, /metrics {metric_bytes}")
+    toks = [r["tokens"] for r in results]
+    if toks[-1] != toks[0]:
+        fail(f"{what}: the repeated prompt's hit differs from its miss")
+    for t in toks:
+        if len(t) != new:
+            fail(f"{what}: {len(t)} tokens for a {new}-token request")
+    # every prompt here is chunked (the continuation path, plain
+    # attention): the decode kernel must run, K1 is recorded
+    decode = "decode_attn_q8" if q8 else "decode_attn"
+    if launches[decode] <= 0:
+        fail(f"{what}: kernel {decode} never launched: {launches}")
+    del engine
+    gc.collect()
+    gaps, exact = zip(*(gap_fn(p, t) for p, t in zip(prompts + [prompts[0]], toks)))
+    if max(gaps) > tol:
+        fail(f"{what} oracle: emitted-token gap {max(gaps)} (tol {tol}): {gaps}")
+    row = {"phase": what, "model": "llama3_8b", "layers": cfg.num_layers,
+           "kv_quant": cfg.kv_quant, "quant": cfg.quant,
+           "max_seq_len": cfg.max_seq_len, "max_slots": engine_kw["max_slots"],
+           "prefix_cache_tokens": PREFIX_TOKENS, "prefix_cache_max": PREFIX_MAX,
+           "suffix_lens": suffix_lens, "new_tokens": new,
+           "requests": len(results),
+           "order": "the first alone (miss), the others at once (hits), the "
+                    "first again (hit)",
+           "counters": {k: stats[k] for k in (
+               "prefix_captures", "prefix_hits", "prefix_misses",
+               "prefix_tokens_saved", "prefill_tokens", "prefill_chunks")},
+           "prefix_cache_bytes": held, "metrics_prefix_cache_bytes": metric_bytes,
+           "repeat_bit_equal_to_miss": True,
+           "ttft_miss_s": results[0]["ttft_s"],
+           "ttft_hits_p50_s": float(np.median([r["ttft_s"] for r in results[1:]])),
+           "wall_s": wall, "oracle_max_gap": max(gaps), "oracle_tol": tol,
+           "oracle_exact_share": sum(exact) / (new * len(toks)),
+           "launches": launches}
+    if baseline is None:
+        row.update(seconds=time.perf_counter() - t_new, card=card)
+        emit(row)
+        return launches, row["seconds"]
+
+    off_results, off_wall, off_launches, off_stats, _ = sequence(baseline)
+    if any(r is None for r in off_results):
+        fail(f"{what}: a request on the prefix-off engine did not finish")
+    if not stats["prefill_tokens"] < off_stats["prefill_tokens"]:
+        fail(f"{what}: prefill_tokens {stats['prefill_tokens']} not below the "
+             f"prefix-off engine's {off_stats['prefill_tokens']}")
+
+    # the prefix directory on one card: the fetched snapshot installed
+    # into another engine over the same model
+    t0 = time.perf_counter()
+    meta, leaves = unpack_kv(extra["body"])
+    unpack_s = time.perf_counter() - t0
+    dest = ContinuousBatchingEngine(model, **kw)
+    t0 = time.perf_counter()
+    dest.install_prefix(meta, leaves)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    dest.submit(prompts[1][:20], 40)  # warm-up: the eager chunk, the capture
+    dest.run()
+    stats0 = dict(dest.stats)
+    rid = dest.submit(prompts[0], new)
+    installed = dest.run()[rid].tolist()
+    dest_hits = dest.stats["prefix_hits"] - stats0["prefix_hits"]
+    if dest.stats["prefix_installs"] != 1 or dest_hits != 1 \
+            or dest.stats["prefix_captures"] != 0:
+        fail(f"{what}: the installed prefix was not hit: {dest.stats}")
+    if installed != toks[0]:
+        fail(f"{what}: the installed prefix's tokens differ from the first engine's")
+    dest.close()
+    del dest, leaves
+    gc.collect()
+    off_ttft = [r["ttft_s"] for r in off_results[1:]]
+    row.update({
+        "prefill_tokens_prefix_off": off_stats["prefill_tokens"],
+        "ttft_same_prompts_prefix_off_p50_s": float(np.median(off_ttft)),
+        "ttft_first_prompt_prefix_off_s": off_results[0]["ttft_s"],
+        "wall_prefix_off_s": off_wall,
+        "tokens_equal_prefix_off_share": float(np.mean(
+            [a == r["tokens"] for a, r in zip(toks, off_results)])),
+        "directory": {"digest": extra["digest"], "body_bytes": len(extra["body"]),
+                      "get_s": extra["get_s"], "unpack_s": unpack_s,
+                      "install_s": install_s, "installed_hit_bit_equal": True},
+        "launches_prefix_off": off_launches,
+        "seconds": time.perf_counter() - t_new, "card": card})
+    emit(row)
+    return launches, row["seconds"]
+
+
+def verify_round_ms(torch, engine, depth: int, reps: int = 5):
+    """One verify round of ``engine`` as its spec pump runs it
+    (``engine._verify``: the graph replay, inputs copied in and the
+    greedy tokens copied out), every slot at ``depth`` with K + 1 seeded
+    tokens: its wall (host clock) and device time (CUDA events), each
+    the median of ``reps``."""
+    b, k = engine.max_slots, engine.spec_decode_k
+    rng = np.random.RandomState(7)
+    x = rng.randint(0, engine.model.config.vocab_size, size=(b, k + 1)).astype(np.int64)
+    pos = (depth + np.arange(k + 1, dtype=np.int64))[None].repeat(b, 0)
+    engine._verify(x, pos)
+    torch.cuda.synchronize()
+    walls, dev = [], []
+    for _ in range(reps):
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        engine._verify(x, pos)
+        z.record()
+        z.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        dev.append(a.elapsed_time(z))
+    return float(np.median(walls)), float(np.median(dev))
+
+
+def serving_spec(torch, attn, model, card, engine_kw, gap_fn, tol, what,
+                 n_blocks=8, baseline=None):
+    """Self-speculative decode on the card (greedy, up to SPEC_K drafts):
+    ``n_blocks`` prompts each repeating a seeded 64-token block 4 times
+    (so n-gram drafts exist), 64 new tokens each, behind the HTTP
+    front-end, every token against the oracle. With ``baseline`` (the
+    running front-end of a non-spec engine of the same sizes over the
+    same model): also one prompt of ``max_seq - 64`` tokens, whose last
+    rows take the plain fallback round (a decode chunk, the decode
+    kernel), and the same requests there for the wall per emitted
+    token."""
+    from k8s_tpu_torch.serving import ContinuousBatchingEngine
+
+    t_new = time.perf_counter()
+    full = baseline is not None
+    cfg = model.config
+    rng = np.random.RandomState(23)
+    new = 64
+    prompts = [rng.randint(0, cfg.vocab_size, size=64).tolist() * 4
+               for _ in range(n_blocks)]
+    if full:
+        prompts.append(rng.randint(0, cfg.vocab_size,
+                                   size=cfg.max_seq_len - new).tolist())
+    warm = rng.randint(0, cfg.vocab_size, size=20).tolist()
+
+    def sequence(fe):
+        post(fe.port, {"prompt": warm, "max_new_tokens": 8})
+        eng = fe.engine
+
+        def run():
+            results, _, wall = burst(fe.port, prompts, new)
+            return results, wall
+
+        (results, wall), launches, stats = drive_counted(attn, eng, run)
+        return results, wall, launches, stats, get_url(fe.port, "/metrics")
+
+    engine = ContinuousBatchingEngine(model, **engine_kw, spec_decode_k=SPEC_K)
+    results, wall, launches, stats, metrics = served_by(engine, sequence)
+    if any(r is None for r in results):
+        fail(f"{what}: a request did not finish")
+    q8 = cfg.kv_quant == "int8"
+    decode = "decode_attn_q8" if q8 else "decode_attn"
+    if not (stats["spec_decode_rounds"] > 0 and stats["spec_decode_drafted"] > 0
+            and (stats["spec_decode_fallbacks"] > 0 or not full)):
+        fail(f"{what}: spec counters {stats}")
+    if full and launches[decode] <= 0:
+        fail(f"{what}: {decode} did not launch in the fallback rounds: {launches}")
+    for key, series in (("spec_decode_rounds", "ktpu_serving_spec_decode_rounds"),
+                        ("spec_decode_drafted", "ktpu_serving_spec_decode_drafted"),
+                        ("spec_decode_accepted", "ktpu_serving_spec_decode_accepted")):
+        if gauge(metrics, series) != engine.stats[key]:
+            fail(f"{what}: /metrics {series} {gauge(metrics, series)} != "
+                 f"stats {engine.stats[key]}")
+    verify_wall_ms, verify_device_ms = verify_round_ms(torch, engine, 300)
+    del engine
+    gc.collect()
+    toks = [r["tokens"] for r in results]
+    for t in toks:
+        if len(t) != new:
+            fail(f"{what}: {len(t)} tokens for a {new}-token request")
+    gaps, exact = zip(*(gap_fn(p, t) for p, t in zip(prompts, toks)))
+    if max(gaps) > tol:
+        fail(f"{what} oracle: emitted-token gap {max(gaps)} (tol {tol}): {gaps}")
+
+    n_tok = new * len(prompts)
+    decoded = n_tok - len(prompts)
+    row = {}
+    if full:
+        plain_results, plain_wall, plain_launches, _, _ = sequence(baseline)
+        row = {"wall_non_spec_s": plain_wall,
+               "wall_per_token_non_spec_ms": 1e3 * plain_wall / n_tok,
+               "tokens_equal_non_spec_share": float(np.mean(
+                   [a == r["tokens"] for a, r in zip(toks, plain_results)])),
+               "launches_non_spec": plain_launches}
+    emit({"phase": what, "model": "llama3_8b", "layers": cfg.num_layers,
+          "kv_quant": cfg.kv_quant, "quant": cfg.quant, "max_seq_len": cfg.max_seq_len,
+          "max_slots": engine_kw["max_slots"], "spec_decode_k": SPEC_K,
+          "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": new,
+          "counters": {k: stats[k] for k in ("spec_decode_rounds", "spec_decode_drafted",
+                                             "spec_decode_accepted",
+                                             "spec_decode_fallbacks")},
+          "accepted_share": stats["spec_decode_accepted"] / stats["spec_decode_drafted"],
+          "decoded_tokens_per_verify_round": decoded / stats["spec_decode_rounds"],
+          "verify_round_wall_ms": verify_wall_ms,
+          "verify_round_device_ms": verify_device_ms, "verify_depth": 300,
+          "wall_s": wall, "wall_per_token_ms": 1e3 * wall / n_tok, **row,
+          "oracle_max_gap": max(gaps), "oracle_tol": tol,
+          "oracle_exact_share": sum(exact) / n_tok, "launches": launches,
+          "seconds": time.perf_counter() - t_new, "card": card})
+    return launches, time.perf_counter() - t_new
+
+
+def add_launches(*dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def phase_serving(torch, attn, card):
     """Llama-3-8B through the engine and a real HTTP front-end: the
     wiring of k8s_tpu_torch.programs.serving.main."""
@@ -2020,6 +2408,13 @@ def phase_serving(torch, attn, card):
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
     itl_prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                    for n in (16, 33, 64, 100, 150, 200, 256, 300)]
+    engine_kw = dict(max_slots=8, decode_chunk=32, prompt_buckets=buckets,
+                     prefill_chunk=256, pipeline_depth=2)
+
+    def gap_fn(p, toks):
+        return forced_gap(torch, model, p, toks)
+
+    features = {}
     try:
         post(frontend.port, {"prompt": prompts[0][:20], "max_new_tokens": 4})  # warm-up
         stats0 = dict(engine.stats)
@@ -2031,6 +2426,15 @@ def phase_serving(torch, attn, card):
         stats = {k: v - stats0.get(k, 0) for k, v in engine.stats.items()
                  if k != "queue_depth"}
         itl_results, itl = itl_burst(frontend.port, engine, itl_prompts)
+        # the prefix cache and speculative decode over the same model,
+        # each beside this engine (prefix off, no drafts) on the same
+        # requests
+        features["serving_prefix"], prefix_s = serving_prefix(
+            torch, attn, model, card, engine_kw, gap_fn, ORACLE_LOGIT_TOL,
+            "serving_prefix", baseline=frontend)
+        features["serving_spec"], spec_s = serving_spec(
+            torch, attn, model, card, engine_kw, gap_fn, ORACLE_LOGIT_TOL,
+            "serving_spec", baseline=frontend)
     finally:
         stop.set()
         pump.join(timeout=300)
@@ -2104,7 +2508,7 @@ def phase_serving(torch, attn, card):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, features, prefix_s + spec_s
 
 
 def phase_decode_profile(torch, model, card, depths, phase="decode_profile"):
@@ -2287,6 +2691,24 @@ def phase_serving_int8(torch, attn, card):
         fail(f"serving_int8 oracle: emitted-token gap {worst} (tol "
              f"{ORACLE_Q8_LOGIT_TOL}, per request {gaps}); each planted fault's "
              f"worst gap must exceed it: {faults}")
+    # the prefix cache (a miss, then a hit) and one speculative request
+    # over the same int8 model
+    engine_kw = dict(max_slots=slots, decode_chunk=32, prompt_buckets=buckets,
+                     prefill_chunk=256, pipeline_depth=2)
+
+    def gap_fn(p, toks):
+        logits = _forced_logits(torch, model, p, toks)
+        tok_t = torch.tensor(toks, device="cuda")
+        return (gap(logits, toks).max().item(),
+                int((logits.argmax(-1) == tok_t).sum().item()))
+
+    features = {}
+    features["serving_prefix_int8"], prefix_s = serving_prefix(
+        torch, attn, model, card, engine_kw, gap_fn, ORACLE_Q8_LOGIT_TOL,
+        "serving_prefix_int8", suffix_lens=(100,))
+    features["serving_spec_int8"], spec_s = serving_spec(
+        torch, attn, model, card, engine_kw, gap_fn, ORACLE_Q8_LOGIT_TOL,
+        "serving_spec_int8", n_blocks=1)
     phase_decode_chunk_graph(torch, model, card, SERVING_DEPTHS_INT8,
                              "decode_chunk_graph_int8", sampling=False)
     step_device_ms = phase_decode_profile(torch, model, card, SERVING_DEPTHS_INT8,
@@ -2335,7 +2757,7 @@ def phase_serving_int8(torch, attn, card):
         "launches": launches, "launches_counted": counted, "engine_stats": stats,
         "card": card,
     })
-    return launches
+    return launches, features, prefix_s + spec_s
 
 
 def _oracle_grads(torch, attn, model, ids):
@@ -5032,8 +5454,9 @@ def main() -> None:
 
     # ``--only=launcher`` / ``--only=operator`` / ``--only=operator_rest``
     # / ``--only=sched`` / ``--only=elastic`` / ``--only=resnet`` /
-    # ``--only=bert`` / ``--only=ring``: the build and that phase alone (a debugging aid;
-    # it ends with a ``partial`` line, not the ``ok`` one)
+    # ``--only=bert`` / ``--only=ring`` / ``--only=serving``: the build and
+    # that phase alone (a debugging aid; it ends with a ``partial`` line,
+    # not the ``ok`` one)
     only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
 
     if not torch.cuda.is_available():
@@ -5109,6 +5532,16 @@ def main() -> None:
         phase_flash_segments(torch, attn, gen)
         emit({"partial": only, "launches_bert": phase_bert(torch, attn, card)})
         return
+    if only == ["serving"]:
+        # the bf16 and int8 serving phases, the prefix cache and
+        # speculative decode included (a debugging aid, as above)
+        serving, features, new_s = phase_serving(torch, attn, card)
+        serving_int8, features8, new8_s = phase_serving_int8(torch, attn, card)
+        emit({"partial": only, "launches_serving": serving,
+              "launches_serving_int8": serving_int8,
+              "launches_features": {**features, **features8},
+              "features_seconds": new_s + new8_s})
+        return
     if only == ["train"]:
         # the training phases alone (a debugging aid, as above)
         attn.poison_shared_memory(torch.device("cuda"), attn.flash_smem_bytes("fwd", 1))
@@ -5126,32 +5559,44 @@ def main() -> None:
                                        attn.flash_smem_bytes("fwd", 1))
     emit({"smem_poison": {"bytes_per_block": poison,
                           "before": "the first K1 check (B 1, S 16, config 1)"}})
-    k1 = phase_flash(torch, attn, _kernels, gen)
-    bwd = phase_flash_bwd(torch, attn, _kernels, gen)
-    head_split = phase_flash_head_split(torch, attn, gen)
-    segments = phase_flash_segments(torch, attn, gen)
-    ring, ring_variants = phase_ring(torch, attn, card, gen)
-    k4 = phase_decode(torch, attn, _kernels, gen)
-    k5 = phase_decode_q8(torch, attn, _kernels, gen)
-    serving = phase_serving(torch, attn, card)
-    train, tracer_ms, dp = phase_train(torch, attn, card)
-    train_fsdp, fsdp = phase_train_fsdp(torch, attn, card, dp)
-    train_fsdp_tp = phase_train_fsdp_tp(torch, attn, card, dp, fsdp)
-    restored, child_first_step_s = phase_launcher(torch, attn, card, tracer_ms)
-    operator, o1 = phase_operator(torch, card, child_first_step_s)
-    operator_rest = phase_operator_rest(torch, card, o1, child_first_step_s)
-    sched, sched_times = phase_sched(torch, card)
-    elastic = phase_elastic(torch, card, sched_times)
-    serving_int8 = phase_serving_int8(torch, attn, card)
-    resnet = phase_resnet(torch, attn, card)
-    bert = phase_bert(torch, attn, card)
-    phase_mnist_operator(torch, card, o1)
-    launches = {"flash_fwd": serving["flash_fwd"] + train["flash_fwd"]
+    k1 = timed("flash", phase_flash, torch, attn, _kernels, gen)
+    bwd = timed("flash_bwd", phase_flash_bwd, torch, attn, _kernels, gen)
+    head_split = timed("flash_head_split", phase_flash_head_split, torch, attn, gen)
+    segments = timed("flash_segments", phase_flash_segments, torch, attn, gen)
+    ring, ring_variants = timed("ring", phase_ring, torch, attn, card, gen)
+    k4 = timed("decode", phase_decode, torch, attn, _kernels, gen)
+    k5 = timed("decode_q8", phase_decode_q8, torch, attn, _kernels, gen)
+    serving, features, features_s = timed("serving", phase_serving, torch, attn, card)
+    train, tracer_ms, dp = timed("train", phase_train, torch, attn, card)
+    train_fsdp, fsdp = timed("train_fsdp", phase_train_fsdp, torch, attn, card, dp)
+    train_fsdp_tp = timed("train_fsdp_tp", phase_train_fsdp_tp, torch, attn, card, dp,
+                          fsdp)
+    restored, child_first_step_s = timed("launcher", phase_launcher, torch, attn, card,
+                                         tracer_ms)
+    operator, o1 = timed("operator", phase_operator, torch, card, child_first_step_s)
+    operator_rest = timed("operator_rest", phase_operator_rest, torch, card, o1,
+                          child_first_step_s)
+    sched, sched_times = timed("sched", phase_sched, torch, card)
+    elastic = timed("elastic", phase_elastic, torch, card, sched_times)
+    serving_int8, features8, features8_s = timed("serving_int8", phase_serving_int8,
+                                                 torch, attn, card)
+    features.update(features8)
+    resnet = timed("resnet", phase_resnet, torch, attn, card)
+    bert = timed("bert", phase_bert, torch, attn, card)
+    timed("mnist_operator", phase_mnist_operator, torch, card, o1)
+    # where the script's time went: each phase's wall (a serving phase's
+    # includes its prefix-cache and speculative-decode lines, whose own
+    # seconds are apart), from the build's end
+    emit({"phase_seconds": PHASE_SECONDS, "serving_features_seconds": features_s + features8_s,
+          "since_build_s": sum(PHASE_SECONDS.values())})
+    new_paths = add_launches(*features.values())
+    launches = {"flash_fwd": serving["flash_fwd"] + new_paths["flash_fwd"] + train["flash_fwd"]
                 + train_fsdp["flash_fwd"] + train_fsdp_tp["flash_fwd"]
                 + serving_int8["flash_fwd"] + restored["flash_fwd"] + bert["flash_fwd"]
                 + ring["flash_fwd"],
-                "decode_attn": serving["decode_attn"] + restored["decode_attn"],
-                "decode_attn_q8": serving_int8["decode_attn_q8"],
+                "decode_attn": serving["decode_attn"] + restored["decode_attn"]
+                + new_paths["decode_attn"],
+                "decode_attn_q8": serving_int8["decode_attn_q8"] + new_paths["decode_attn_q8"],
                 "flash_bwd_dq": train["flash_bwd_dq"] + train_fsdp["flash_bwd_dq"]
                 + train_fsdp_tp["flash_bwd_dq"] + bert["flash_bwd_dq"] + ring["flash_bwd_dq"],
                 "flash_bwd_dkv": train["flash_bwd_dkv"] + train_fsdp["flash_bwd_dkv"]
@@ -5179,6 +5624,8 @@ def main() -> None:
                 "launches_train_fsdp": train_fsdp.get(name, 0),
                 "launches_train_fsdp_tp": train_fsdp_tp.get(name, 0),
                 "launches_serving_int8": serving_int8.get(name, 0),
+                # the prefix cache and speculative decode (bf16, int8)
+                **{f"launches_{k}": v.get(name, 0) for k, v in features.items()},
                 "launches_restored_serving": restored.get(name, 0),
                 # counted by the operator phases' pods (processes of their
                 # own) and printed in their logs

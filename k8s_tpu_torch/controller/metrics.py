@@ -10,8 +10,8 @@ help text and exposition format, so the series catalogue of
 ``docs/OBSERVABILITY.md`` covers them — and the cluster scheduler's
 ``ktpu_sched_*`` series (a node of the port's ledger stands where the
 JAX package's counts a slice, a card where it counts a chip) and the
-elastic resize's ``ktpu_resize_*`` series. The serving series come with
-their slice.
+elastic resize's ``ktpu_resize_*`` series, and the serving engine's
+prefix-cache and speculative-decode gauges (``ktpu_serving_*``).
 """
 
 from __future__ import annotations
@@ -461,4 +461,25 @@ SCHED_KICKS_COALESCED = REGISTRY.counter(
     "ktpu_sched_kicks_coalesced_total",
     "Scheduler kicks merged into an already-pending wakeup — full "
     "scheduler passes the dedup kick saved",
+)
+# Serving (k8s_tpu_torch/serving): device bytes held by the engine's
+# shared-prefix KV snapshot LRU, and the self-speculative decode's
+# lifetime totals, each set from the engine's stats on every /healthz
+# and /metrics read.
+SERVING_PREFIX_CACHE_BYTES = REGISTRY.gauge(
+    "ktpu_serving_prefix_cache_bytes",
+    "Device bytes held by the engine's shared-prefix KV snapshot LRU",
+)
+SERVING_SPEC_DECODE_ROUNDS = REGISTRY.gauge(
+    "ktpu_serving_spec_decode_rounds",
+    "Self-speculative verify rounds run by this engine (lifetime)",
+)
+SERVING_SPEC_DECODE_DRAFTED = REGISTRY.gauge(
+    "ktpu_serving_spec_decode_drafted",
+    "Draft tokens proposed by the n-gram drafter (lifetime)",
+)
+SERVING_SPEC_DECODE_ACCEPTED = REGISTRY.gauge(
+    "ktpu_serving_spec_decode_accepted",
+    "Draft tokens accepted by the verify step (lifetime); the bonus "
+    "correction token is not counted",
 )

@@ -293,6 +293,16 @@ class KVCache:
         return KVCache(view(self.keys), view(self.values), fresh,
                        view(self.key_scales), view(self.value_scales))
 
+    def clone(self) -> "KVCache":
+        """A copy with tensors of its own (a warm cache: ``fresh``
+        False)."""
+        copy = lambda ts: None if ts is None else [t.clone() for t in ts]  # noqa: E731
+        return KVCache(copy(self.keys), copy(self.values), False,
+                       copy(self.key_scales), copy(self.value_scales))
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self._tensors())
+
     def copy_rows_(self, src: "KVCache", slot: int, rows: int) -> None:
         """Copy the first ``rows`` rows of batch-1 ``src`` (and their
         scales) into row ``slot`` of this cache, in place (the engine's

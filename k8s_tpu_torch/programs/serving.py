@@ -33,9 +33,18 @@ Run config (``KTPU_PROGRAM_ARGS``), the JAX program's keys:
                             without a card
   --quant=int8_serving      weight-only int8
   --kv_quant=int8           int8 KV cache
+  --prefix_cache_tokens=N   shared-prefix KV reuse: cache the working-
+                            cache KV of each distinct N-token prompt
+                            prefix, skipping its re-prefill on repeat
+                            (default KTPU_SERVING_PREFIX_TOKENS or 0)
+  --prefix_cache_max=N      prefix LRU capacity (default 8)
+  --spec_decode_tokens=K    self-speculative decode with up to K n-gram
+                            drafts per round, temperature 0 only
+                            (default KTPU_SERVING_SPEC_DECODE or 0)
 On a card the engine replays its decode chunk as a CUDA graph after
-the first (eager) chunk. Options of later slices — prefix cache,
-speculative decode, disaggregation roles, migration — raise when set.
+the first (eager) chunk. The disaggregation role (``--role``,
+KTPU_SERVING_ROLE) and live migration (``--migration``,
+KTPU_SERVING_MIGRATION) raise when set: they come with A15's next slice.
 
 Lifecycle events (JSON lines): ``serving_ready`` once the server
 accepts traffic, ``serving_drained`` after a SIGTERM-triggered drain.
@@ -61,8 +70,6 @@ from k8s_tpu_torch.serving import ContinuousBatchingEngine, ServingFrontend
 # options of the JAX server this port does not have yet: (arg, env,
 # value meaning "off")
 _UNPORTED = (
-    ("prefix_cache_tokens", "KTPU_SERVING_PREFIX_TOKENS", "0"),
-    ("spec_decode_tokens", "KTPU_SERVING_SPEC_DECODE", "0"),
     ("role", "KTPU_SERVING_ROLE", ""),
     ("migration", "KTPU_SERVING_MIGRATION", "0"),
 )
@@ -75,7 +82,8 @@ def main(rdzv) -> None:
         val = extra.get(key, os.environ.get(env, off) if env else off)
         if val != off:
             raise NotImplementedError(
-                f"{key}={val!r} is not ported to k8s_tpu_torch yet")
+                f"{key}={val!r} is not ported to k8s_tpu_torch yet "
+                "(ROADMAP A15: the disaggregation and migration slice)")
     device = extra.get("device", getattr(rdzv, "device", "cuda"))
     model_name = extra.get("model", default_model(device))
     max_seq = int(extra.get("max_seq_len", "256"))
@@ -98,6 +106,12 @@ def main(rdzv) -> None:
     port = int(extra.get("port", str(adv_port)))
     max_queue_depth = int(extra.get(
         "max_queue_depth", os.environ.get("KTPU_SERVING_MAX_QUEUE", "0")))
+    prefix_cache_tokens = int(extra.get(
+        "prefix_cache_tokens",
+        os.environ.get("KTPU_SERVING_PREFIX_TOKENS", "0")))
+    prefix_cache_max = int(extra.get("prefix_cache_max", "8"))
+    spec_decode_k = int(extra.get(
+        "spec_decode_tokens", os.environ.get("KTPU_SERVING_SPEC_DECODE", "0")))
     host = extra.get("host", "0.0.0.0")
     if "prompt_buckets" in extra:
         buckets = [int(b) for b in extra["prompt_buckets"].split(",")]
@@ -119,7 +133,9 @@ def main(rdzv) -> None:
         decode_chunk=decode_chunk, prompt_buckets=buckets,
         chunked_prefill=chunked_prefill, prefill_chunk=prefill_chunk,
         max_tokens_per_round=max_tokens_per_round,
-        pipeline_depth=pipeline_depth)
+        pipeline_depth=pipeline_depth,
+        prefix_cache_tokens=prefix_cache_tokens,
+        prefix_cache_max=prefix_cache_max, spec_decode_k=spec_decode_k)
     frontend = ServingFrontend(engine, host=host, port=port,
                                max_queue_depth=max_queue_depth)
     # use the SIGTERM grace period to drain instead of dying mid-request
@@ -136,7 +152,9 @@ def main(rdzv) -> None:
         "prefill_chunk": engine.prefill_chunk,
         "max_tokens_per_round": engine.max_tokens_per_round,
         "max_queue_depth": max_queue_depth,
-        "prefix_cache_tokens": 0, "role": "", "spec_decode_tokens": 0,
+        "prefix_cache_tokens": prefix_cache_tokens,
+        "prefix_cache_max": engine.prefix_cache_max, "role": "",
+        "spec_decode_tokens": engine.spec_decode_k,
         "quant": quant or "none", "kv_quant": lcfg.kv_quant,
         "restored": bool(cfg.checkpoint_dir),
     }), flush=True)

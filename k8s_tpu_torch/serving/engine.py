@@ -43,16 +43,39 @@ JAX engine's scale leaves are scattered with the rows.
 
 Prefill stays eager, on the stream the chunks run on, so it is ordered
 after the chunks in flight and writes the same state and cache tensors
-in place. The prefix cache, speculative decode, the disaggregation and
-migration entry points come in later slices. Oracle for correctness:
-each request's tokens equal a solo :func:`k8s_tpu_torch.models.generate`
-run (and the JAX engine's) with the same weights.
+in place.
+
+Two single-replica features ride on chunked prefill and the warm-cache
+continuation path, as in the JAX engine:
+
+- The shared-prefix cache (``prefix_cache_tokens``): the staged working
+  cache at a prompt's prefix boundary is cloned into an LRU keyed by the
+  prefix's exact tokens; a later prompt with that prefix seeds the
+  working cache with a copy and resumes chunking at the boundary. The
+  snapshots move between replicas (either package's) through
+  :meth:`ContinuousBatchingEngine.export_prefix` /
+  :meth:`~ContinuousBatchingEngine.install_prefix` and the wire of
+  :mod:`k8s_tpu_torch.serving.kv_transfer`, in the JAX cache tree's leaf
+  order and shapes.
+- Self-speculative decode (``spec_decode_k``, greedy only): an n-gram
+  drafter proposes up to K tokens per slot and ONE forward over ``[B,
+  K+1]`` verifies them (on the card a CUDA graph of that forward after
+  the first round); the pump then runs one synchronous round at a time,
+  and a slot within K + 1 rows of the cache end makes the round a plain
+  decode chunk (the decode chunk's graph replay on the card).
+
+The disaggregation and migration entry points (``submit_prefill``,
+``submit_with_kv``, ``export_slot``) come in a later slice. Oracle for
+correctness: each request's tokens equal a solo
+:func:`k8s_tpu_torch.models.generate` run (and the JAX engine's) with the
+same weights.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import itertools
 import queue
 import threading
@@ -64,6 +87,7 @@ import torch
 
 from k8s_tpu_torch.models.llama import KVCache, LlamaForCausalLM, _pick_token
 from k8s_tpu_torch.ops import attention as _attention
+from k8s_tpu_torch.serving.kv_transfer import as_torch
 
 
 @dataclasses.dataclass
@@ -192,6 +216,55 @@ def _decode_chunk(model: LlamaForCausalLM, cache: KVCache, tok, lengths,
     return tok, lengths, active, budget, packed
 
 
+@torch.no_grad()
+def _verify_chunk(model: LlamaForCausalLM, cache: KVCache, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Self-speculative decode's verify step: ONE ragged forward over
+    ``x`` [B, K+1] (per row the last token, then its drafts) at per-row
+    positions ``lengths + arange(K+1)``, through the warm-cache
+    continuation path (the chunked-prefill machinery): it writes the K+1
+    KV rows at each row's own offset and masks causally per row, so the
+    greedy tokens [B, K+1] are what sequential decode would emit after
+    ``x[:, :j+1]``. Rejected drafts' rows sit above the accepted length,
+    hidden by the position mask until decode overwrites them."""
+    logits, _ = model(x, positions=positions, cache=cache)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _ngram_draft(ctx: np.ndarray, k: int, n: int) -> np.ndarray:
+    """Prompt-lookup drafting: the up-to-``k`` tokens that followed the
+    most recent PREVIOUS occurrence of the context's trailing ``n``-gram,
+    or an empty draft (the verify step then is one plain greedy step)."""
+    size = int(ctx.size)
+    if size <= n:
+        return ctx[:0]
+    tail = ctx[size - n:]
+    # one vectorized comparison over every window ending before the tail
+    wins = np.lib.stride_tricks.sliding_window_view(ctx, n)[:size - n]
+    hits = np.nonzero((wins == tail).all(axis=1))[0]
+    if hits.size == 0:
+        return ctx[:0]
+    s = int(hits[-1])
+    return ctx[s + n:s + n + k]
+
+
+def jax_cache_leaves(cache: KVCache) -> List[torch.Tensor]:
+    """Views of ``cache``'s tensors as the JAX engine's cache tree
+    flattens: modules in string order (``layer_0, layer_1, layer_10, …,
+    layer_2, …``), in each ``cached_key``, ``cached_value``, then with
+    an int8 cache ``key_scale``, ``value_scale``; keys and values ``[B,
+    Hkv, S, D]`` and scales ``[B, Hkv, 1, S]`` (the port keeps ``[B, Hkv,
+    S]``). The wire carries no tree, so an exchanged snapshot must use
+    this order and these shapes. Writing into a view writes the cache."""
+    out: List[torch.Tensor] = []
+    for i in sorted(range(len(cache.keys)), key=lambda i: f"layer_{i}"):
+        out += [cache.keys[i], cache.values[i]]
+        if cache.key_scales is not None:
+            out += [cache.key_scales[i].unsqueeze(2),
+                    cache.value_scales[i].unsqueeze(2)]
+    return out
+
+
 # One capture stream per device, shared by every engine on it, as
 # torch.cuda.graph keeps one: PyTorch keeps a cuBLAS workspace per
 # stream for the life of the process, so a stream per engine would leave
@@ -277,9 +350,21 @@ class ContinuousBatchingEngine:
     holds the kernel launches one capture recorded (each replay runs
     them again; the wrappers' counters tick only while capturing).
 
-    Thread safety: :meth:`submit`, :meth:`queue_depth` and
-    :meth:`pop_finished` may be called from any thread; :meth:`step`
-    (and :meth:`run`) from one pump thread.
+    ``prefix_cache_tokens`` (> 0, chunked prefill only; 0 = off): cache
+    the working-cache KV of each distinct prompt prefix of this many
+    tokens (rounded DOWN to the smallest chunk bucket), keyed by its
+    exact tokens, in an LRU of ``prefix_cache_max`` snapshots (each a
+    stage-sized batch-1 cache, counted in ``stats["prefix_cache_bytes"]``).
+    ``spec_decode_k`` (> 0, temperature 0 only): self-speculative decode
+    with up to this many n-gram drafts per round (``spec_ngram``, default
+    2, the matched suffix length); the pump then runs synchronously, one
+    verify round (or one plain chunk near the cache end) per step.
+
+    Thread safety: :meth:`submit`, :meth:`queue_depth`,
+    :meth:`pop_finished` and the prefix directory (:meth:`prefix_keys`,
+    :meth:`has_prefix`, :meth:`export_prefix`, :meth:`install_prefix`)
+    may be called from any thread; :meth:`step` (and :meth:`run`) from
+    one pump thread.
     """
 
     def __init__(
@@ -296,6 +381,10 @@ class ContinuousBatchingEngine:
         prefill_chunk: int = 256,
         max_tokens_per_round: Optional[int] = None,
         pipeline_depth: int = 2,
+        prefix_cache_tokens: int = 0,
+        prefix_cache_max: int = 8,
+        spec_decode_k: int = 0,
+        spec_ngram: int = 2,
     ):
         cfg = model.config
         if not (cfg.decode and cfg.ragged_decode):
@@ -376,6 +465,42 @@ class ContinuousBatchingEngine:
         self._pstage: Optional[int] = None
         self._prefilling: Optional[Request] = None
         self._prefill_slot: Optional[int] = None
+        # Shared-prefix KV reuse: an LRU of working-cache snapshots at the
+        # prefix boundary, keyed by the prefix's token bytes. The boundary
+        # is on the chunk grid, so a snapshot is a legal continuation
+        # offset; a capture forces a chunk boundary there. Off on the
+        # legacy one-shot path (no working cache to reuse).
+        self.prefix_cache_tokens = int(prefix_cache_tokens)
+        self.prefix_cache_max = int(prefix_cache_max)
+        self._prefix_len = 0
+        if self.chunked_prefill and self.prefix_cache_tokens > 0:
+            g0 = self._chunk_buckets[0]
+            self._prefix_len = (self.prefix_cache_tokens // g0) * g0
+        # key -> (stage, snapshot KVCache: a clone no chunk writes)
+        self._prefix_cache: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self._prefix_bytes: Dict[bytes, int] = {}  # key -> device bytes
+        self._capture_key: Optional[bytes] = None
+        # guards the two dicts: the directory runs on handler threads
+        # while the pump captures and hits
+        self._prefix_lock = threading.Lock()
+        # Self-speculative decode: greedy only, since acceptance must be
+        # bit-identical to plain decode
+        self.spec_decode_k = int(spec_decode_k)
+        self.spec_ngram = max(1, int(spec_ngram))
+        if self.spec_decode_k > 0 and float(temperature) != 0.0:
+            raise ValueError(
+                "spec_decode_k requires temperature=0 (greedy): the "
+                "accept-prefix rule is only bit-identical to the "
+                "plain decode path under argmax")
+        # host mirrors of the device scheduling vectors, authoritative in
+        # spec-decode mode only (every round is synchronous there)
+        self._tok_h = np.zeros(self.max_slots, np.int32)
+        self._len_h = np.zeros(self.max_slots, np.int32)
+        self._budget_h = np.zeros(self.max_slots, np.int32)
+        # slot -> first token (a device scalar) of the admission that just
+        # filled it; the spec-mode pump attributes fills inline
+        self._fill_toks: Dict[int, torch.Tensor] = {}
 
         # decode state lives on the device between chunks; the host
         # holds a scheduling VIEW refreshed from each packed fetch. The
@@ -413,6 +538,10 @@ class ContinuousBatchingEngine:
         self._graph_packed: Optional[torch.Tensor] = None
         self._warmed = False  # the eager first chunk has run
         self.graph_launches: Optional[Dict[str, int]] = None
+        # spec decode's verify forward: eager on the CPU; on a card the
+        # first round eager, then one graph over fixed [B, K+1] inputs
+        self._vgraph: Optional[torch.cuda.CUDAGraph] = None
+        self._vx = self._vpos = self._vout = None
         k = self.decode_chunk
         self._host_bufs = [
             torch.empty((2 * k + 4, self.max_slots), dtype=torch.int32,
@@ -446,7 +575,15 @@ class ContinuousBatchingEngine:
                       "chunk_s": 0.0, "decode_wall_s": 0.0,
                       "prefill_chunks": 0, "prefill_tokens": 0,
                       "queue_depth": 0, "ttft_s_sum": 0.0, "ttft_count": 0,
-                      "graph_captures": 0, "graph_replays": 0}
+                      "graph_captures": 0, "graph_replays": 0,
+                      "prefix_hits": 0, "prefix_misses": 0,
+                      "prefix_captures": 0, "prefix_tokens_saved": 0,
+                      "prefix_cache_bytes": 0, "prefix_installs": 0,
+                      # rounds run, drafts proposed, drafts accepted,
+                      # rounds that fell back to a plain chunk
+                      "spec_decode_rounds": 0, "spec_decode_drafted": 0,
+                      "spec_decode_accepted": 0,
+                      "spec_decode_fallbacks": 0}
 
     # -- request intake --------------------------------------------------
 
@@ -520,11 +657,14 @@ class ContinuousBatchingEngine:
         else:
             self._active[slot] = tok_new != self.eos_id
 
-    def _occupy(self, slot: int, req: Request, fills: Dict[int, int]) -> None:
+    def _occupy(self, slot: int, req: Request, fills: Dict[int, int],
+                tok_new: torch.Tensor) -> None:
         self.stats["prefills"] += 1
         self._slot_req[slot] = req
         self._active_h[slot] = True  # optimistic; fixed at attribution
         fills[slot] = req.rid
+        if self.spec_decode_k > 0:
+            self._fill_toks[slot] = tok_new
 
     def _fill_free_slots(self) -> Dict[int, int]:
         """Legacy one-shot path (``chunked_prefill=False``): prefill a
@@ -545,7 +685,7 @@ class ContinuousBatchingEngine:
             self._set_slot(slot, tok_new, plen, req.max_new_tokens)
             self.stats["prefill_s"] += time.perf_counter() - t0
             req.prefill_done = plen
-            self._occupy(slot, req, fills)
+            self._occupy(slot, req, fills, tok_new)
         return fills
 
     def _free_slot(self) -> Optional[int]:
@@ -565,6 +705,121 @@ class ContinuousBatchingEngine:
             self._pcaches[stage] = KVCache.zeros(
                 self.model.config, 1, stage, self.device, fresh=False)
         return self._pcaches[stage]
+
+    # -- the shared-prefix cache and its directory -----------------------
+
+    def _prefix_insert(self, key: bytes, stage: int, snap: KVCache) -> None:
+        """Put a snapshot into the LRU, evicting the oldest past
+        ``prefix_cache_max``, with its device bytes accounted."""
+        with self._prefix_lock:
+            self._prefix_cache[key] = (stage, snap)
+            self._prefix_cache.move_to_end(key)
+            self._prefix_bytes[key] = snap.nbytes()
+            while len(self._prefix_cache) > self.prefix_cache_max:
+                evicted, _ = self._prefix_cache.popitem(last=False)
+                self._prefix_bytes.pop(evicted, None)
+            self.stats["prefix_cache_bytes"] = sum(self._prefix_bytes.values())
+
+    def _admit_prefix(self, req: Request) -> None:
+        """Prefix-cache lookup when ``req`` starts to prefill. A HIT
+        copies the snapshot into the stage's working cache (the snapshot
+        stays untouched for the next hit: chunks write the working cache
+        in place) and marks the prefix's tokens done, so chunking resumes
+        at the boundary. A MISS on a prompt long enough arms a capture."""
+        self._capture_key = None
+        n = self._prefix_len
+        if not n or int(req.prompt.size) <= n:
+            return
+        key = req.prompt[:n].tobytes()
+        with self._prefix_lock:
+            hit = self._prefix_cache.get(key)
+            if hit is not None:
+                self._prefix_cache.move_to_end(key)
+        if hit is None:
+            self.stats["prefix_misses"] += 1
+            self._capture_key = key
+            return
+        stage, snap = hit
+        self._stage_cache(stage).copy_rows_(snap, 0, stage)
+        self._pstage = stage
+        req.prefill_done = n
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_tokens_saved"] += n
+
+    def prefix_digest(self, prompt) -> Optional[str]:
+        """sha256 hex of the prompt's prefix-cache key, or None when the
+        cache is off or the prompt too short to have one: the fleet-wide
+        directory key."""
+        n = self._prefix_len
+        p = np.asarray(prompt, np.int32).reshape(-1)
+        if not n or p.size <= n:
+            return None
+        return hashlib.sha256(p[:n].tobytes()).hexdigest()
+
+    def prefix_keys(self) -> List[str]:
+        """Digests of every prefix snapshot held here."""
+        with self._prefix_lock:
+            keys = list(self._prefix_cache.keys())
+        return [hashlib.sha256(k).hexdigest() for k in keys]
+
+    def has_prefix(self, digest: str) -> bool:
+        return digest in self.prefix_keys()
+
+    def export_prefix(self, digest: str):
+        """``(meta, leaves)`` of the held snapshot whose key hashes to
+        ``digest``, or None: ``meta`` is ``{"kind": "prefix", "stage",
+        "tokens"}`` (the raw prefix, so an importer derives its own key)
+        and the leaves are CPU copies in the JAX cache tree's order and
+        shapes (:func:`jax_cache_leaves`)."""
+        with self._prefix_lock:
+            entry = next(((k, st, snap) for k, (st, snap)
+                          in self._prefix_cache.items()
+                          if hashlib.sha256(k).hexdigest() == digest), None)
+        if entry is None:
+            return None
+        key, stage, snap = entry
+        meta = {"kind": "prefix", "stage": int(stage),
+                "tokens": [int(t) for t in np.frombuffer(key, np.int32)]}
+        return meta, [t.to("cpu", copy=True) for t in jax_cache_leaves(snap)]
+
+    def install_prefix(self, meta: dict, leaves) -> None:
+        """Admit a peer's exported prefix snapshot (either package's:
+        leaves in the JAX order and shapes, torch tensors or numpy arrays)
+        into the LRU. The prefix length, the stage and every leaf's shape
+        and dtype are checked first: a mismatch raises ``ValueError`` on
+        the caller's thread. The stage must be the one this engine's own
+        capture uses: a larger one would reach the stage-crossing copy of
+        the next chunk, which carries ``stage`` rows into a smaller working
+        cache, on the pump thread."""
+        tokens = [int(t) for t in (meta.get("tokens") or [])]
+        if not self._prefix_len or len(tokens) != self._prefix_len:
+            raise ValueError(
+                f"prefix import: {len(tokens)} tokens != this engine's "
+                f"prefix length {self._prefix_len} (configs must match "
+                "across the fleet)")
+        stage = int(meta["stage"])
+        if stage != self._stage_for(self._prefix_len):
+            raise ValueError(
+                f"prefix import: stage {stage} != this engine's capture stage "
+                f"{self._stage_for(self._prefix_len)} (prefill_chunk must "
+                "match across the fleet)")
+        snap = KVCache.zeros(self.model.config, 1, stage, self.device,
+                             fresh=False)
+        want = jax_cache_leaves(snap)
+        if len(leaves) != len(want):
+            raise ValueError(
+                f"prefix import: {len(leaves)} leaves != stage cache's "
+                f"{len(want)}")
+        got = [as_torch(x) for x in leaves]
+        for i, (w, g) in enumerate(zip(want, got)):
+            if tuple(g.shape) != tuple(w.shape) or g.dtype != w.dtype:
+                raise ValueError(
+                    f"prefix import: leaf {i} is {g.dtype}{list(g.shape)}, "
+                    f"stage {stage} expects {w.dtype}{list(w.shape)}")
+        for w, g in zip(want, got):
+            w.copy_(g)
+        self._prefix_insert(np.asarray(tokens, np.int32).tobytes(), stage, snap)
+        self.stats["prefix_installs"] += 1
 
     def _schedule_prefill(self) -> Dict[int, int]:
         """Token-budget scheduler (chunked_prefill=True): spend this
@@ -590,9 +845,21 @@ class ContinuousBatchingEngine:
                 self._prefilling = self._queue.popleft()
                 self._prefilling.prefill_start_at = time.perf_counter()
                 self._prefill_slot = slot
+                self._admit_prefix(self._prefilling)
             req, slot = self._prefilling, self._prefill_slot
             plan = _next_chunk(self._chunk_buckets, req.prefill_done,
                                int(req.prompt.size), remaining, self.max_seq)
+            if (plan is not None and self._capture_key is not None
+                    and req.prefill_done < self._prefix_len
+                    and req.prefill_done + plan[0] > self._prefix_len):
+                # a chunk boundary at the capture point, so the snapshot
+                # holds exactly the shared tokens (the boundary is on the
+                # chunk grid: a full in-budget bucket exists once
+                # remaining >= g)
+                fit = [b for b in self._chunk_buckets
+                       if req.prefill_done + b <= self._prefix_len
+                       and b <= remaining]
+                plan = (max(fit), max(fit), False) if fit else None
             if plan is None:
                 break
             chunk_b, take, final = plan
@@ -632,10 +899,18 @@ class ContinuousBatchingEngine:
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += chunk_b
             self.stats["prefill_s"] += time.perf_counter() - t0
+            if (self._capture_key is not None
+                    and req.prefill_done == self._prefix_len):
+                # the working cache holds exactly the shared prefix: a
+                # clone goes into the LRU (the next chunk writes the
+                # working cache in place)
+                self._prefix_insert(self._capture_key, stage, pcache.clone())
+                self.stats["prefix_captures"] += 1
+                self._capture_key = None
             if final:
                 self._set_slot(slot, tok_new, int(req.prompt.size),
                                req.max_new_tokens)
-                self._occupy(slot, req, fills)
+                self._occupy(slot, req, fills, tok_new)
                 self._prefilling = None
                 self._prefill_slot = None
                 self._pstage = None
@@ -759,6 +1034,12 @@ class ContinuousBatchingEngine:
         tok_in, toks = arr[0], arr[1:K + 1]
         valid = arr[K + 1:2 * K + 1].astype(bool)
         active_out = arr[2 * K + 1].astype(bool)
+        if self.spec_decode_k > 0:
+            # spec mode runs one chunk at a time: this packed view IS the
+            # device state, which the next verify round plans from
+            self._tok_h[:] = arr[K]
+            self._budget_h[:] = arr[2 * K + 2]
+            self._len_h[:] = arr[2 * K + 3]
         now = time.perf_counter()
         self.stats["chunk_s"] += now - t0
         self.stats["decode_wall_s"] += now - max(t0, self._last_attr_t)
@@ -795,13 +1076,187 @@ class ContinuousBatchingEngine:
                     self._active_h[slot] = False
         return True
 
+    # -- self-speculative decode ----------------------------------------
+
+    def _push_state(self) -> None:
+        """Host mirrors -> the device state tensors, IN PLACE (the graph
+        reads these same tensors; a rebound tensor would be stale to it).
+        In spec mode the mirrors are authoritative between rounds."""
+        for dst, src in ((self._tok, self._tok_h), (self._lengths, self._len_h),
+                         (self._active, self._active_h),
+                         (self._budget, self._budget_h)):
+            dst.copy_(torch.from_numpy(src))
+
+    def _finish_slot(self, slot: int, req: Request) -> None:
+        req.done = True
+        req.finished_at = time.perf_counter()
+        with self._lock:
+            self._done[req.rid] = self._reqs.pop(req.rid, req)
+        self._slot_req[slot] = None
+        self._active_h[slot] = False
+
+    def _spec_step(self) -> bool:
+        """Spec-mode pump round: admissions attribute inline (the host
+        mirrors need every first token), then one verify round advances
+        every active slot by 1 + its accepted drafts."""
+        fills = (self._schedule_prefill() if self.chunked_prefill
+                 else self._fill_free_slots())
+        self.stats["queue_depth"] = len(self._queue)
+        now = time.perf_counter()
+        for slot, rid in fills.items():
+            req = self._reqs.get(rid)
+            tok = int(self._fill_toks.pop(slot))
+            if req is None or req.done:
+                continue
+            req.tokens.append(tok)
+            req.first_token_at = now
+            req.token_times.append((now, 1))
+            self.stats["ttft_s_sum"] += now - req.submitted_at
+            self.stats["ttft_count"] += 1
+            self._tok_h[slot] = tok
+            self._len_h[slot] = req.prefill_done
+            self._budget_h[slot] = req.max_new_tokens - 1
+            alive = self._budget_h[slot] > 0 and (
+                self.eos_id is None or tok != self.eos_id)
+            self._active_h[slot] = bool(alive)
+            if not alive:
+                self._finish_slot(slot, req)
+        if self._active_h.any():
+            self._spec_round()
+        return bool(self._queue or self._prefilling is not None
+                    or any(r is not None for r in self._slot_req))
+
+    def _spec_round(self) -> None:
+        """Draft K, verify once, accept the matching prefix for every
+        active slot. Bit-identical to sequential greedy decode: only
+        tokens whose whole input prefix matched the sequential stream are
+        kept, plus the bonus correction (itself the sequential next
+        token)."""
+        k = self.spec_decode_k
+        active_idx = [i for i in range(self.max_slots) if self._active_h[i]]
+        if any(int(self._len_h[i]) + k + 1 > self.max_seq for i in active_idx):
+            # a row this close to the cache end has no room for K + 1
+            # verify rows: one plain chunk round instead
+            self.stats["spec_decode_fallbacks"] += 1
+            self._plain_sync_round()
+            return
+        x = np.zeros((self.max_slots, k + 1), np.int64)
+        pos = np.broadcast_to(np.arange(k + 1, dtype=np.int64),
+                              (self.max_slots, k + 1)).copy()
+        drafted = 0
+        for i in active_idx:
+            req = self._slot_req[i]
+            ctx = np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
+            d = _ngram_draft(ctx, k, self.spec_ngram)
+            drafted += int(d.size)
+            x[i, 0] = self._tok_h[i]
+            x[i, 1:1 + d.size] = d
+            pos[i] += self._len_h[i]
+            # an inactive row writes rows [0, K] of its slot, which the
+            # next occupant's prefill or decode overwrites before a read
+        self._push_state()
+        t = self._verify(x, pos)
+        now = time.perf_counter()
+        self.stats["spec_decode_rounds"] += 1
+        self.stats["spec_decode_drafted"] += drafted
+        self.stats["chunks"] += 1
+        self.stats["decode_steps"] += 1
+        for i in active_idx:
+            req = self._slot_req[i]
+            # draft j survives iff it equals the greedy token after the
+            # (accepted) prefix before it
+            a = 0
+            while a < k and x[i, a + 1] == t[i, a]:
+                a += 1
+            emitted = [int(v) for v in x[i, 1:a + 1]] + [int(t[i, a])]
+            emitted = emitted[:min(len(emitted), int(self._budget_h[i]))]
+            if self.eos_id is not None and self.eos_id in emitted:
+                emitted = emitted[:emitted.index(self.eos_id) + 1]
+            if not emitted:
+                continue
+            # the first `a` emitted tokens are accepted drafts; the bonus
+            # is not counted
+            self.stats["spec_decode_accepted"] += min(len(emitted), a)
+            req.tokens.extend(emitted)
+            req.token_times.append((now, len(emitted)))
+            self._budget_h[i] -= len(emitted)
+            self._tok_h[i] = emitted[-1]
+            # the newest token's row is at L + len(emitted) whether the
+            # bonus was kept or cut; a cut one's row is rewritten at the
+            # same position by the next feed
+            self._len_h[i] += len(emitted)
+            hit_eos = self.eos_id is not None and emitted[-1] == self.eos_id
+            alive = (self._budget_h[i] > 0 and not hit_eos
+                     and self._len_h[i] < self.max_seq)
+            self._active_h[i] = bool(alive)
+            if not alive:
+                self._finish_slot(i, req)
+
+    def _verify(self, x: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """The verify forward's greedy tokens ``[B, K+1]`` on the host
+        for the drafts ``x`` at positions ``pos``. The CPU runs it
+        eagerly; on a card the first round runs eagerly on the capture
+        stream, the second captures the forward as a CUDA graph over
+        fixed input tensors (the cache written in place, as by the decode
+        chunk's graph), and that and every later round replay it: an
+        eager round is host-bound (~1.6k small launches)."""
+        if self.device.type != "cuda":
+            return _verify_chunk(self.model, self._cache, torch.from_numpy(x),
+                                 torch.from_numpy(pos)).numpy()
+        if self._vx is None:  # the first round: eager
+            self._vx = torch.from_numpy(x).to(self.device)
+            self._vpos = torch.from_numpy(pos).to(self.device)
+            cur = torch.cuda.current_stream(self.device)
+            with _CAPTURE_LOCK:
+                side = _capture_stream(self.device)
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    out = _verify_chunk(self.model, self._cache, self._vx,
+                                        self._vpos)
+                cur.wait_stream(side)
+            return out.cpu().numpy()
+        if self._vgraph is None:
+            self._capture_verify()
+        self._vx.copy_(torch.from_numpy(x))
+        self._vpos.copy_(torch.from_numpy(pos))
+        self._vgraph.replay()
+        return self._vout.cpu().numpy()
+
+    def _capture_verify(self) -> None:
+        """Capture the verify forward over ``_vx``/``_vpos`` on the
+        device's capture stream; capturing runs nothing. Raises if the
+        capture fails (no eager fallback)."""
+        graph = torch.cuda.CUDAGraph()
+        prev = torch.cuda.current_stream(self.device)
+        with _CAPTURE_LOCK:
+            try:
+                with torch.cuda.graph(graph, stream=_capture_stream(self.device),
+                                      capture_error_mode="thread_local"):
+                    out = _verify_chunk(self.model, self._cache, self._vx,
+                                        self._vpos)
+            finally:
+                torch.cuda.set_stream(prev)
+        self._vgraph, self._vout = graph, out
+
+    def _plain_sync_round(self) -> None:
+        """One plain decode chunk (the graph replay on the card),
+        dispatched and attributed in place: the spec pump's end-of-cache
+        round. Its packed fetch refreshes the host mirrors."""
+        self._push_state()
+        self._dispatch_chunk({})
+        while self._unattributed:
+            self._attribute(block=True)
+
     def step(self) -> bool:
         """One pump round: attribute whatever the harvesters finished,
         wait while ``pipeline_depth`` chunks are unattributed, schedule
         prefill, dispatch a chunk (or, with nothing to decode, drain
-        one). Returns True while work remains."""
+        one). In spec-decode mode one synchronous verify round instead.
+        Returns True while work remains."""
         if self._closed:
             raise RuntimeError("engine is closed")
+        if self.spec_decode_k > 0:
+            return self._spec_step()
         while self._attribute(block=False):
             pass
         if self._unattributed >= self.pipeline_depth:

@@ -18,12 +18,22 @@ API (JSON over HTTP, token ids in and out):
   -> ``{"tokens", "latency_s", "ttft_s", "itl_ms", "trace_id",
   "spans"}``; 429 + ``Retry-After`` when the engine queue is at
   ``max_queue_depth`` (> 0), 400 on a bad request, 503 while draining.
-- ``GET /healthz`` -> engine stats, queue depth, prefill progress and
-  the scheduler's knobs.
+- ``GET /healthz`` -> engine stats (the prefix cache's and speculative
+  decode's counters among them), queue depth, prefill progress, the
+  scheduler's knobs (``prefix_cache_tokens`` among them) and, on a card,
+  the ``hbm`` block.
+- ``GET /metrics`` -> the Prometheus text of the process registry
+  (:mod:`k8s_tpu_torch.controller.metrics`), its ``ktpu_serving_*``
+  gauges refreshed from the engine's stats first.
+- ``GET /v1/prefix/<digest>`` -> 200 with the held prefix snapshot as a
+  :func:`~k8s_tpu_torch.serving.kv_transfer.pack_kv` body
+  (``application/octet-stream``), or 404 for a digest this replica does
+  not hold: the fetch side of the fleet's prefix directory.
 
-Every other route answers 404: ``/metrics`` and the disaggregation,
-migration and prefix routes of the JAX front-end come with later
-slices of the port.
+Every other route answers 404: the disaggregation and migration routes
+of the JAX front-end (``/v1/prefill``, ``/v1/decode``, ``/v1/kv``,
+``/v1/migrate``, ``/v1/mirror``, ``/v1/drain_migrate``) come with a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict
 
 import numpy as np
+
+from k8s_tpu_torch.serving import kv_transfer
 
 
 class Overloaded(RuntimeError):
@@ -94,7 +106,28 @@ class ServingFrontend:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _bytes(self, code: int, body: bytes, ctype: str):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
             def do_GET(self):  # noqa: N802 - stdlib naming
+                if self.path == "/metrics":
+                    from k8s_tpu_torch.controller import metrics as M
+
+                    frontend._export_gauges()
+                    return self._bytes(
+                        200, M.REGISTRY.expose().encode("utf-8"),
+                        "text/plain; version=0.0.4; charset=utf-8")
+                if self.path.startswith("/v1/prefix/"):
+                    packed = frontend.engine.export_prefix(
+                        self.path[len("/v1/prefix/"):])
+                    if packed is None:
+                        return self._json(404, {"error": "prefix not held"})
+                    return self._bytes(200, kv_transfer.pack_kv(*packed),
+                                       "application/octet-stream")
                 if self.path != "/healthz":
                     return self._json(404, {"error": "not found"})
                 return self._json(200, frontend.health())
@@ -148,12 +181,31 @@ class ServingFrontend:
 
     # -- handler-thread side ---------------------------------------------
 
+    def _export_gauges(self):
+        """Set the process registry's serving gauges from the engine's
+        stats (on every /healthz and /metrics read, so a scrape sees the
+        current values); returns the ``hbm`` block, or None off a card."""
+        from k8s_tpu_torch.controller import metrics as M
+        from k8s_tpu_torch.obs.health import hbm_block
+
+        stats = self.engine.stats
+        M.SERVING_PREFIX_CACHE_BYTES.set(float(stats["prefix_cache_bytes"]))
+        if stats["spec_decode_rounds"]:
+            M.SERVING_SPEC_DECODE_ROUNDS.set(float(stats["spec_decode_rounds"]))
+            M.SERVING_SPEC_DECODE_DRAFTED.set(
+                float(stats["spec_decode_drafted"]))
+            M.SERVING_SPEC_DECODE_ACCEPTED.set(
+                float(stats["spec_decode_accepted"]))
+        return hbm_block(task="serving")
+
     def health(self) -> dict:
         eng = self.engine
         with self._lock:
             in_flight = len(self._waiters)
+        hbm = self._export_gauges()
         return {
             "ok": not self._draining,
+            **({"hbm": hbm} if hbm else {}),
             "draining": self._draining,
             "in_flight": in_flight,
             "served": self.served,
@@ -169,6 +221,7 @@ class ServingFrontend:
                 "prefill_chunk": eng.prefill_chunk,
                 "max_tokens_per_round": eng.max_tokens_per_round,
                 "max_queue_depth": self.max_queue_depth,
+                "prefix_cache_tokens": eng.prefix_cache_tokens,
             },
             "stats": {k: round(v, 4) if isinstance(v, float) else v
                       for k, v in eng.stats.items()},

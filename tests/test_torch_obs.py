@@ -284,7 +284,12 @@ def test_port_series_are_documented():
                     "ktpu_sched_kicks_total", "ktpu_sched_kicks_coalesced_total",
                     # the elastic resize's series (the reconciler)
                     "ktpu_resize_total", "ktpu_resize_lost_steps_total",
-                    "ktpu_resize_dp_degree"}
+                    "ktpu_resize_dp_degree",
+                    # the serving front-end's gauges
+                    "ktpu_serving_prefix_cache_bytes",
+                    "ktpu_serving_spec_decode_rounds",
+                    "ktpu_serving_spec_decode_drafted",
+                    "ktpu_serving_spec_decode_accepted"}
     assert ours <= jax_lint.documented_series()
 
 

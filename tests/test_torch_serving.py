@@ -147,8 +147,8 @@ def _post(port, payload, timeout=120):
 def test_frontend_http_generate_healthz_and_drain(fixture):
     """Concurrent HTTP clients against a ServingFrontend on port 0:
     oracle tokens with per-request timing, /healthz reflecting the
-    served work, 400 on a malformed body, 404 on unported routes, and
-    a drain that closes the engine."""
+    served work, 400 on a malformed body, /metrics served, 404 on
+    unported routes, and a drain that closes the engine."""
     model, j_oracle, _, params = fixture
     eng = ContinuousBatchingEngine(model, max_slots=2, decode_chunk=4,
                                    prompt_buckets=BUCKETS, prefill_chunk=8)
@@ -185,9 +185,13 @@ def test_frontend_http_generate_healthz_and_drain(fixture):
         assert health["stats"]["prefills"] == 3
         code, _ = _post(fe.port, {"prompt": "nope"})
         assert code == 400
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{fe.port}/metrics", timeout=10) as r:
+            assert r.status == 200
+            assert b"ktpu_serving_prefix_cache_bytes 0" in r.read()
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(
-                f"http://127.0.0.1:{fe.port}/metrics", timeout=10)
+                f"http://127.0.0.1:{fe.port}/v1/kv/x", timeout=10)
         assert e.value.code == 404
     finally:
         stop.set()

@@ -5,8 +5,9 @@ the chunk as a ``torch.cuda.CUDAGraph`` over the engine's fixed state
 and cache tensors, and every later chunk replays it. Tests marked
 ``gpu`` hold a replayed chunk to an eager one from a clone of the same
 state, bit for bit (packed output, state, cache rows and int8 scales),
-check that replays at temperature > 0 draw fresh tokens and that a
-failed capture raises with no eager fallback; without a card they skip.
+and a replayed speculative-decode verify forward to an eager one, check
+that replays at temperature > 0 draw fresh tokens and that a failed
+capture raises with no eager fallback; without a card they skip.
 The rest runs here: the CPU engine never captures, its packed copy and
 the harvester's error path.
 
@@ -168,4 +169,36 @@ def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):
     finally:
         monkeypatch.undo()
         torch.cuda.synchronize()
+        eng.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_replayed_verify_is_bit_equal_to_an_eager_verify(cuda, q8):
+    """Self-speculative decode's verify forward: the engine's first round
+    runs eagerly, the second captures it and replays. From the same
+    cache, a replay and an eager forward over the same drafts give the
+    same greedy tokens and the same written cache rows (and int8
+    scales), bit for bit."""
+    from k8s_tpu_torch.serving.engine import _verify_chunk
+
+    eng = ContinuousBatchingEngine(_model(cuda, q8), max_slots=len(DEPTHS),
+                                   decode_chunk=4, spec_decode_k=3)
+    try:
+        fill_engine_state(torch, eng, DEPTHS, seed=3)
+        rng = np.random.RandomState(0)
+        x = rng.randint(0, SMALL["vocab_size"], size=(len(DEPTHS), 4)).astype(np.int64)
+        pos = (np.asarray(DEPTHS, np.int64)[:, None] + np.arange(4)).astype(np.int64)
+        eng._verify(x, pos)  # the eager first round
+        assert eng._vgraph is None
+        x2 = rng.randint(0, SMALL["vocab_size"], size=x.shape).astype(np.int64)
+        ref = eng._cache.clone()
+        want = _verify_chunk(eng.model, ref, torch.from_numpy(x2).to(cuda),
+                             torch.from_numpy(pos).to(cuda)).cpu().numpy()
+        got = eng._verify(x2, pos)  # the capture, then its first replay
+        assert eng._vgraph is not None
+        assert np.array_equal(got, want)
+        for a, b in zip(eng._cache._tensors(), ref._tensors()):
+            assert torch.equal(a, b)
+    finally:
         eng.close()
